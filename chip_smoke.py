@@ -8,17 +8,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. require CUDA and print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``recognizer3d_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build seconds;
-3. the main path: ``Predictor(pretrained/mock_fingertip)`` answers mock
-   frames of 60,000 points with every launch count set to 0 just before;
-   each kernel must have been launched its expected number of times per
-   frame. One frame's confidences on the card are held against the same
-   ``Model.predict`` on the CPU;
-4. run one frame through ``Model.predict`` while recording the inputs the
-   main path hands to each kernel wrapper, then hold every kernel against
-   its plain PyTorch version on those inputs and time the kernel, the
-   plain version and (where one exists) a single PyTorch library call
-   computing the same function (device time from torch.profiler);
-5. print the ``{"kernels": [...]}`` line, then the result line.
+3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
+   frames of 60,000 points with every launch count set to 0 just before
+   each frame; each kernel must have been launched its expected number of
+   times per frame. One frame's confidences on the card are held against
+   the same ``Model.predict`` on the CPU;
+4. the reference-default ``knn="approximate"`` path at 65,536 points
+   (``bench.py``'s ``settings64a``): the bundled weights are loaded with
+   those settings and saved under ``build/``, and ``Predictor`` of that
+   archive answers mock frames of 150,000 points, launch counts checked per
+   frame as in 3. It prints the recall guard's result, the window's sampled
+   recall on the first frame, the frame p50, the card against the CPU on one
+   frame, and the sampled recall of the default window on the gaussian
+   probe ``0.2·randn(65536, 3)`` (seed 0) that ``bench.py`` reports;
+5. run one frame of each path while recording the inputs it hands to each
+   kernel wrapper, then hold every kernel against its plain PyTorch version
+   on those inputs (B5, which neither path runs, on the inputs of B3's
+   level-0 call) and time the kernel, the plain version and (where one
+   exists) a PyTorch library call computing the same function (device time
+   from torch.profiler);
+6. print the ``{"kernels": [...]}`` line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -42,6 +51,36 @@ N_FRAMES = 5
 # encoder self-KNNs, the fused LFA at encoder levels 0 and 1, and the final
 # 2,500 -> full-cloud 1-NN upsample
 PER_FRAME = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
+
+# the approximate path: bench.py's settings64a on the bundled weights, frames
+# of the size of a depth-camera capture (bucket 163,840)
+APPROX_SETTINGS = dict(knn="approximate", n_points=65_536)
+APPROX_ARCHIVE = ROOT / "build" / "approx64k" / "mock_fingertip_approx64k"
+APPROX_FRAME_POINTS = 150_000
+# launches per frame: the Morton-window self-KNNs of levels 0 and 1 and the
+# window 1-NN of the final 65,536 -> 163,840 upsample; the exact self-KNNs
+# of levels 2 and 3; the fused LFA at levels 0 and 1; the 1-NN kernel for
+# the decoder's 4,096 -> 16,384 and 16,384 -> 65,536 upsamples
+PER_FRAME_64K = {
+    "knn_window_topk": 3, "knn_topk": 2, "lfa_round1": 2, "lfa_pool2_res": 2,
+    "argmin_1nn": 2,
+}
+
+# kernel -> (source, the TPU kernel it replaces), in the order of the line
+KERNELS = {
+    "knn_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
+                 "recognizer3d_tpu/ops/knn_pallas.py:109"),
+    "argmin_1nn": ("recognizer3d_tpu_torch/csrc/knn.cu",
+                   "recognizer3d_tpu/ops/knn_pallas.py:402"),
+    "lfa_round1": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                   "recognizer3d_tpu/ops/lfa_pallas.py:138"),
+    "lfa_pool2_res": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                      "recognizer3d_tpu/ops/lfa_pallas.py:221"),
+    "lfa_pool2": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                  "recognizer3d_tpu/ops/lfa_pallas.py:192"),
+    "knn_window_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
+                        "recognizer3d_tpu/ops/knn.py:348"),
+}
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores (the kernels run no tensor-core op)
@@ -106,6 +145,11 @@ def _knn_work(m: int, n: int, k: int):
     return 4 * 3 * (m + n) + 8 * m * k, 8 * m * n
 
 
+def _window_work(m: int, n: int, w: int, k: int):
+    # the window search evaluates w distances per query
+    return 4 * 3 * (m + n) + 4 * m * 2 * k, 8 * m * w
+
+
 def _round1_work(rows: int, k: int, h: int):
     c2 = 2 * h
     nbytes = 4 * rows * (k * c2 + k + h + h + k * h) + 4 * (5 * h + 7 * h * h)
@@ -121,8 +165,12 @@ def _round1_work(rows: int, k: int, h: int):
     return nbytes, rows * per_row
 
 
-def _pool2_work(rows: int, k: int, h: int, f: int):
+def _pool2_work(rows: int, k: int, h: int, f: int, residual: bool = True):
     c2, c4 = 2 * h, 4 * h
+    if not residual:
+        nbytes = 4 * rows * (2 * k * h + c2) + 4 * (2 * c2 * c2 + c2)
+        per_row = 2 * k * c2 * c2 + 5 * k * c2 + 2 * k * c2 + 2 * c2 * c2 + 2 * c2
+        return nbytes, rows * per_row
     nbytes = 4 * rows * (2 * k * h + f + c4) + 4 * (
         2 * c2 * c2 + c2 + c2 * c4 + f * c4 + c4
     )
@@ -160,14 +208,283 @@ class _Recorder:
             setattr(module, attr, original)
 
 
+def _drive(torch, build, predictor, frames, per_frame, label):
+    """Answer ``frames`` with every launch count set to 0 before each frame;
+    each frame must launch exactly ``per_frame``. Returns the latencies (ms),
+    the masks and the launches summed over the frames."""
+    n_points = frames[0].shape[0]
+    latencies, masks, totals = [], [], {}
+    for frame in frames:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        masks.append(predictor.predict(frame))
+        latencies.append((time.perf_counter() - t) * 1e3)
+        launches = dict(build.LAUNCHES)
+        if launches != per_frame:
+            raise RuntimeError(f"{label}: launches {launches} in a frame, expected {per_frame}")
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+    for mask in masks:
+        if mask.shape != (n_points,) or mask.dtype != np.bool_:
+            raise RuntimeError(f"{label}: mask of shape {mask.shape} and dtype {mask.dtype}")
+        if not 0 < mask.sum() < n_points:
+            raise RuntimeError(f"{label}: degenerate mask: {int(mask.sum())} positives")
+    print(f"{label}: {len(frames)} frames of {n_points} points, launches {totals}",
+          flush=True)
+    print(f"{label}: per-frame latency ms: {[round(x, 3) for x in latencies]}; "
+          f"p50 {statistics.median(latencies):.3f} ms; positives "
+          f"{[int(m.sum()) for m in masks]}", flush=True)
+    return latencies, masks, totals
+
+
+def _card_vs_cpu(Model, archive, frame, label):
+    """One frame's confidences on the card against the same Model.predict
+    on the CPU; returns the card's model."""
+    model = Model.load(archive, device="cuda", transfer_dtype="float32")
+    cpu_model = Model.load(archive, device="cpu", transfer_dtype="float32")
+    np.random.seed(7)
+    conf_gpu = model.predict(frame)
+    np.random.seed(7)
+    conf_cpu = cpu_model.predict(frame)
+    if conf_gpu.shape != (2, frame.shape[0]) or not np.isfinite(conf_gpu).all():
+        raise RuntimeError(f"{label}: confidences of shape {conf_gpu.shape}, or not finite")
+    conf_err = float(np.abs(conf_gpu - conf_cpu).max())
+    near = np.abs(conf_cpu[1] - 0.5) <= 1e-4
+    mask_diff = int(((conf_gpu[1] > 0.5) != (conf_cpu[1] > 0.5))[~near].sum())
+    if conf_err > 1e-4 or mask_diff:
+        raise RuntimeError(
+            f"{label}: card vs CPU: max abs conf err {conf_err}, {mask_diff} mask points differ"
+        )
+    print(f"{label}: card vs CPU confidences: max abs err {conf_err:.3g}, masks equal "
+          f"({int(near.sum())} points within 1e-4 of the threshold)", flush=True)
+    return model
+
+
+def _record_frame(model, frame, targets, per_frame, label):
+    """One Model.predict with the wrappers recording their inputs."""
+    import torch
+
+    np.random.seed(0)
+    with _Recorder(targets) as rec, torch.inference_mode():
+        model.predict(frame)
+    torch.cuda.synchronize()
+    for name, count in per_frame.items():
+        if len(rec.calls[name]) != count:
+            raise RuntimeError(
+                f"{label}: {name} recorded {len(rec.calls[name])} calls, expected {count}"
+            )
+    return rec.calls
+
+
+class _Results:
+    """Per-kernel sums over the recorded calls: max error, device ms of the
+    kernel, its plain version and the library call, and the bound."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, err, ms, plain_ms, bound, library_ms):
+        r = self.rows.setdefault(
+            name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       t_bytes=0.0, t_ops=0.0, library_ms=None),
+        )
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound[0]
+        r["t_" + ("bytes" if bound[1] == "bytes" else "ops")] += bound[0]
+        if library_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+
+
+def _check_kernels(torch, calls, results, label, plain_reps):
+    """Hold each recorded call's kernel against its plain version and time
+    both (and the library call where there is one)."""
+    from recognizer3d_tpu_torch.ops import knn_kernels, lfa_kernels
+
+    # B1: exact self-KNN
+    for (support, query, k), _ in calls.get("knn_topk", []):
+        m, n = query.shape[1], support.shape[1]
+        idx, d2 = knn_kernels.knn_topk(support, query, k)
+        ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, k)
+        torch.cuda.synchronize()
+        same_sets = torch.equal(torch.sort(idx, -1)[0], torch.sort(ref_i, -1)[0])
+        err = (d2 - ref_d).abs().max().item()
+        if not same_sets or err > 1e-6:
+            raise RuntimeError(f"{label} knn_topk N={n}: sets equal {same_sets}, d2 err {err}")
+        ms = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), 50,
+                        "knn_topk_kernel")
+        plain = _device_ms(torch, lambda: knn_kernels.knn_topk_plain(support, query, k),
+                           plain_reps)
+        lib = _device_ms(
+            torch, lambda: torch.cdist(query, support).topk(k, -1, largest=False), plain_reps
+        )
+        bound = _bound(*_knn_work(m, n, k))
+        results.add("knn_topk", err, ms, plain, bound, lib)
+        print(f"{label} knn_topk M={m} N={n} k={k}: sets equal, max|d2 err| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+
+    # B4: exact 1-NN upsample
+    for (support, query), _ in calls.get("argmin_1nn", []):
+        m, n = query.shape[1], support.shape[1]
+        idx, d2 = knn_kernels.argmin_1nn(support, query)
+        ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, 2)
+        torch.cuda.synchronize()
+        untied = ref_d[..., 1] > ref_d[..., 0]
+        err = (d2[..., 0] - ref_d[..., 0]).abs().max().item()
+        bad = (idx[..., 0] != ref_i[..., 0]) & untied
+        if err > 1e-6 or bool(bad.any()):
+            raise RuntimeError(
+                f"{label} argmin_1nn: d2 err {err}, {int(bad.sum())} untied idx differ"
+            )
+        ms = _device_ms(torch, lambda: knn_kernels.argmin_1nn(support, query), 50,
+                        "argmin_kernel")
+        plain = _device_ms(torch, lambda: knn_kernels.argmin_1nn_plain(support, query),
+                           max(1, plain_reps // 2))
+        lib = _device_ms(torch, lambda: torch.cdist(query, support).argmin(-1),
+                         max(1, plain_reps // 2))
+        bound = _bound(*_knn_work(m, n, 1))
+        results.add("argmin_1nn", err, ms, plain, bound, lib)
+        print(f"{label} argmin_1nn M={m} N={n}: idx equal on {int(untied.sum())} untied "
+              f"queries, max|d2 err| {err:.3g}; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, cdist+argmin {lib:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]})", flush=True)
+
+    # B6: the Morton-window search (k = 32 self-KNN, k = 1 upsample)
+    for (support, query, k, starts, w, qb), _ in calls.get("knn_window_topk", []):
+        m, n = query.shape[1], support.shape[1]
+        idx, d2 = knn_kernels.knn_window_topk(support, query, k, starts, w, qb)
+        ref_i, ref_d = knn_kernels.knn_window_topk_plain(support, query, k, starts, w, qb)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
+            raise RuntimeError(
+                f"{label} knn_window_topk M={m} N={n} k={k}: indices equal "
+                f"{torch.equal(idx, ref_i)}, d2 equal {torch.equal(d2, ref_d)}"
+            )
+        n_blocks = starts.shape[0]
+        offsets = torch.arange(w, device=support.device)
+
+        def library():
+            win = support[0, starts.long()[:, None] + offsets]  # (blocks, w, 3)
+            q = query[0]
+            pad = n_blocks * qb - m
+            if pad:
+                q = torch.cat([q, q[-1:].expand(pad, 3)])
+            d = torch.cdist(q.reshape(n_blocks, qb, 3), win)
+            return d.argmin(-1) if k == 1 else d.topk(k, -1, largest=False)
+
+        ms = _device_ms(
+            torch, lambda: knn_kernels.knn_window_topk(support, query, k, starts, w, qb),
+            20, "argmin_kernel" if k == 1 else "knn_topk_kernel",
+        )
+        plain = _device_ms(
+            torch, lambda: knn_kernels.knn_window_topk_plain(support, query, k, starts, w, qb),
+            plain_reps,
+        )
+        lib = _device_ms(torch, library, plain_reps)
+        bound = _bound(*_window_work(m, n, w, k))
+        results.add("knn_window_topk", 0.0, ms, plain, bound, lib)
+        print(f"{label} knn_window_topk M={m} N={n} w={w} qb={qb} k={k}: indices and "
+              f"d2 equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, window cdist+"
+              f"{'argmin' if k == 1 else 'topk'} {lib:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]})", flush=True)
+
+    # B2: fused LFA round 1 at encoder levels 0 and 1
+    for args, _ in calls.get("lfa_round1", []):
+        gathered, d2, center = args[:3]
+        _, rows, k, c2 = gathered.shape
+        h = c2 // 2
+        pooled, rpe2 = lfa_kernels.lfa_round1(*args)
+        consts = lfa_kernels.round1_constants(*args[3:])
+        ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
+        torch.cuda.synchronize()
+        err = max((pooled - ref_p).abs().max().item(), (rpe2 - ref_r).abs().max().item())
+        if err > 1e-5:
+            raise RuntimeError(f"{label} lfa_round1 h={h}: max abs err {err}")
+        ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
+                        "lfa_round1_kernel")
+        plain = _device_ms(
+            torch,
+            lambda: lfa_kernels.lfa_round1_plain(
+                gathered, d2, center, lfa_kernels.round1_constants(*args[3:])
+            ),
+            2 * plain_reps,
+        )
+        bound = _bound(*_round1_work(rows, k, h))
+        results.add("lfa_round1", err, ms, plain, bound, None)
+        print(f"{label} lfa_round1 N={rows} K={k} h={h}: max abs err {err:.3g}; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]})", flush=True)
+
+    # B3: fused attentive pool 2 + residual at encoder levels 0 and 1, and
+    # B5 (pool 2 alone, which no path runs) on the level-0 inputs
+    for args, kwargs in calls.get("lfa_pool2_res", []):
+        rpe2, g2 = args[:2]
+        f_in = args[7]
+        _, rows, k, h = g2.shape
+        f = f_in.shape[-1]
+        out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
+        consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:])
+        ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if err > 1e-5:
+            raise RuntimeError(f"{label} lfa_pool2_res h={h}: max abs err {err}")
+        ms = _device_ms(
+            torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
+            "lfa_pool2_res_kernel",
+        )
+        plain = _device_ms(
+            torch,
+            lambda: lfa_kernels.attentive_pool2_residual_plain(
+                rpe2, g2, f_in,
+                lfa_kernels.pool2_constants(*args[2:7], *args[8:]), k,
+            ),
+            2 * plain_reps,
+        )
+        bound = _bound(*_pool2_work(rows, k, h, f))
+        results.add("lfa_pool2_res", err, ms, plain, bound, None)
+        print(f"{label} lfa_pool2_res N={rows} K={k} h={h} F={f}: max abs err {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]})", flush=True)
+        if h != 8:
+            continue
+        head = args[2:7]
+        out = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+        ref = lfa_kernels.attentive_pool2_plain(
+            rpe2, g2, lfa_kernels.pool2_constants(*head), k
+        )
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if err > 1e-5:
+            raise RuntimeError(f"{label} lfa_pool2 h={h}: max abs err {err}")
+        ms = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
+                        50, "lfa_pool2_res_kernel")
+        plain = _device_ms(
+            torch,
+            lambda: lfa_kernels.attentive_pool2_plain(
+                rpe2, g2, lfa_kernels.pool2_constants(*head), k
+            ),
+            2 * plain_reps,
+        )
+        bound = _bound(*_pool2_work(rows, k, h, 0, residual=False))
+        results.add("lfa_pool2", err, ms, plain, bound, None)
+        print(f"{label} lfa_pool2 (B5, on B3's level-0 inputs) N={rows} K={k} h={h}: "
+              f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from recognizer3d_tpu_torch import Model, Predictor
+    from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
     from recognizer3d_tpu_torch.ops import _build, knn as port_knn
-    from recognizer3d_tpu_torch.ops import knn_kernels, lfa_kernels
+    from recognizer3d_tpu_torch.ops import lfa_kernels
 
     gpu = _gpu_line()
     print(f"gpu: {gpu}", flush=True)
@@ -189,210 +506,86 @@ def main() -> None:
         for i in range(N_FRAMES)
     ]
 
-    # --- 3. the main path -----------------------------------------------------
+    # --- 3. the app path --------------------------------------------------------
     predictor = Predictor(ARCHIVE, warmup_points=FRAME_POINTS)
+    _, _, launches = _drive(torch, _build, predictor, frames, PER_FRAME, "app path")
+    model = _card_vs_cpu(Model, ARCHIVE, frames[1], "app path")
+    del predictor
+
+    # --- 4. the approximate path at 64k points -------------------------------
+    port_knn.reset_window_guard()
+    derived = Model.load(ARCHIVE, device="cuda", **APPROX_SETTINGS)
+    derived.save(APPROX_ARCHIVE)
+    del derived
+    frames64 = [
+        make_frame(np.random.RandomState(300 + i), 0.45 * i, APPROX_FRAME_POINTS)[0]
+        for i in range(N_FRAMES)
+    ]
+    t0 = time.perf_counter()
+    predictor64 = Predictor(APPROX_ARCHIVE, warmup_points=APPROX_FRAME_POINTS)
     torch.cuda.synchronize()
-    _build.reset_launches()
-    latencies, masks = [], []
-    for frame in frames:
-        t = time.perf_counter()
-        masks.append(predictor.predict(frame))
-        latencies.append((time.perf_counter() - t) * 1e3)
-    launches = dict(_build.LAUNCHES)
-    for name, per_frame in PER_FRAME.items():
-        if launches.get(name, 0) != per_frame * N_FRAMES:
-            raise RuntimeError(
-                f"{name}: {launches.get(name, 0)} launches over {N_FRAMES} frames, "
-                f"expected {per_frame * N_FRAMES}: {launches}"
-            )
-    for mask in masks:
-        if mask.shape != (FRAME_POINTS,) or mask.dtype != np.bool_:
-            raise RuntimeError(f"mask of shape {mask.shape} and dtype {mask.dtype}")
-        if not 0 < mask.sum() < FRAME_POINTS:
-            raise RuntimeError(f"degenerate mask: {int(mask.sum())} positives")
-    print(f"main path: {N_FRAMES} frames of {FRAME_POINTS} points, launches {launches}",
-          flush=True)
-    print(f"per-frame latency ms: {[round(x, 3) for x in latencies]}; "
-          f"p50 {statistics.median(latencies):.3f} ms; positives "
-          f"{[int(m.sum()) for m in masks]}", flush=True)
+    settings = predictor64.model.settings
+    print(f"approx64k: Predictor of {APPROX_ARCHIVE.relative_to(ROOT)} (knn={settings.knn}, "
+          f"n_points={settings.n_points}, K={settings.n_neighbors}, layers "
+          f"{settings.layer_sizes}) ready in {time.perf_counter() - t0:.3f} s; recall guard "
+          f"on its warm-up cloud: {predictor64.model.recall_guard_result}", flush=True)
+    _, _, launches64 = _drive(torch, _build, predictor64, frames64, PER_FRAME_64K,
+                              "approx64k")
+    for name, count in launches64.items():
+        launches[name] = launches.get(name, 0) + count
+    window = port_knn.session_window_points()
+    with torch.inference_mode():
+        sample = frames64[0][consistent_sample_indices(APPROX_FRAME_POINTS, 65_536)]
+        x = torch.tensor(sample[None], device="cuda")
+        recall = float(port_knn.sampled_recall(
+            x, x, 32, port_knn.knn_window(x, x, 32, window_points=window)
+        ))
+    print(f"approx64k: session window {window}, exact fallback "
+          f"{port_knn.session_exact_fallback()}; sampled recall@32 of the window "
+          f"search on frame 0: {recall:.4f}", flush=True)
+    del predictor64
+    model64 = _card_vs_cpu(Model, APPROX_ARCHIVE, frames64[1], "approx64k")
 
-    # one frame's confidences on the card against the same call on the CPU
-    model = Model.load(ARCHIVE, device="cuda", transfer_dtype="float32")
-    cpu_model = Model.load(ARCHIVE, device="cpu", transfer_dtype="float32")
-    np.random.seed(7)
-    conf_gpu = model.predict(frames[1])
-    np.random.seed(7)
-    conf_cpu = cpu_model.predict(frames[1])
-    if conf_gpu.shape != (2, FRAME_POINTS) or not np.isfinite(conf_gpu).all():
-        raise RuntimeError(f"confidences of shape {conf_gpu.shape}, or not finite")
-    conf_err = float(np.abs(conf_gpu - conf_cpu).max())
-    near = np.abs(conf_cpu[1] - 0.5) <= 1e-4
-    mask_diff = int(((conf_gpu[1] > 0.5) != (conf_cpu[1] > 0.5))[~near].sum())
-    if conf_err > 1e-4 or mask_diff:
-        raise RuntimeError(
-            f"card vs CPU: max abs conf err {conf_err}, {mask_diff} mask points differ"
-        )
-    print(f"card vs CPU confidences: max abs err {conf_err:.3g}, masks equal "
-          f"({int(near.sum())} points within 1e-4 of the threshold)", flush=True)
-
-    # --- 4. each kernel against its plain version ---------------------------
-    # (after the main path: profiler sessions slow the launches that follow)
+    # --- 5. each kernel against its plain version ---------------------------
+    # (after the paths: profiler sessions slow the launches that follow)
     targets = [
         (port_knn, "knn_topk", "knn_topk"),
         (port_knn, "argmin_1nn", "argmin_1nn"),
+        (port_knn, "knn_window_topk", "knn_window_topk"),
         (lfa_kernels, "lfa_round1", "lfa_round1"),
         (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
     ]
-    np.random.seed(0)
-    with _Recorder(targets) as rec, torch.inference_mode():
-        model.predict(frames[0])
-    torch.cuda.synchronize()
-    for name, per_frame in PER_FRAME.items():
-        got = len(rec.calls[name])
-        if got != per_frame:
-            raise RuntimeError(f"{name}: recorded {got} calls, expected {per_frame}")
+    calls = _record_frame(model, frames[0], targets, PER_FRAME, "app path")
+    calls64 = _record_frame(model64, frames64[0], targets, PER_FRAME_64K, "approx64k")
 
-    results = {}
-
-    def add(name, err, ms, plain_ms, bound, library_ms):
-        r = results.setdefault(
-            name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                       t_bytes=0.0, t_ops=0.0, library_ms=None),
-        )
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["bound_ms"] += bound[0]
-        r["t_" + ("bytes" if bound[1] == "bytes" else "ops")] += bound[0]
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
-
+    # the gaussian probe bench.py reports, at the tuned default window
+    port_knn.reset_window_guard()
     with torch.inference_mode():
-        # B1: exact self-KNN, k = 32, at each encoder level
-        for (support, query, k), _ in rec.calls["knn_topk"]:
-            m, n = query.shape[1], support.shape[1]
-            idx, d2 = knn_kernels.knn_topk(support, query, k)
-            ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, k)
-            torch.cuda.synchronize()
-            same_sets = torch.equal(torch.sort(idx, -1)[0], torch.sort(ref_i, -1)[0])
-            err = (d2 - ref_d).abs().max().item()
-            if not same_sets or err > 1e-6:
-                raise RuntimeError(f"knn_topk N={n}: sets equal {same_sets}, d2 err {err}")
-            ms = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), 50,
-                            "knn_topk_kernel")
-            plain = _device_ms(torch, lambda: knn_kernels.knn_topk_plain(support, query, k), 10)
-            lib = _device_ms(
-                torch, lambda: torch.cdist(query, support).topk(k, -1, largest=False), 10
-            )
-            bound = _bound(*_knn_work(m, n, k))
-            add("knn_topk", err, ms, plain, bound, lib)
-            print(f"knn_topk M={m} N={n} k={k}: sets equal, max|d2 err| {err:.3g}; "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
-                  f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+        x64 = torch.tensor(
+            np.random.RandomState(0).randn(1, 65536, 3).astype(np.float32) * 0.2,
+            device="cuda",
+        )
+        probe = port_knn.measure_recall(x64, x64, 32, "approximate")
+    print(f"gaussian probe 0.2*randn(65536, 3), seed 0: sampled recall@32 of "
+          f"knn=\"approximate\" at window {port_knn.session_window_points()}: "
+          f"{probe:.4f}", flush=True)
 
-        # B4: 1-NN upsample from the sampled cloud onto the padded full cloud
-        for (support, query), _ in rec.calls["argmin_1nn"]:
-            m, n = query.shape[1], support.shape[1]
-            idx, d2 = knn_kernels.argmin_1nn(support, query)
-            ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, 2)
-            torch.cuda.synchronize()
-            untied = ref_d[..., 1] > ref_d[..., 0]
-            err = (d2[..., 0] - ref_d[..., 0]).abs().max().item()
-            bad = (idx[..., 0] != ref_i[..., 0]) & untied
-            if err > 1e-6 or bool(bad.any()):
-                raise RuntimeError(
-                    f"argmin_1nn: d2 err {err}, {int(bad.sum())} untied idx differ"
-                )
-            ms = _device_ms(torch, lambda: knn_kernels.argmin_1nn(support, query), 50,
-                            "argmin_kernel")
-            plain = _device_ms(torch, lambda: knn_kernels.argmin_1nn_plain(support, query), 5)
-            lib = _device_ms(torch, lambda: torch.cdist(query, support).argmin(-1), 5)
-            bound = _bound(*_knn_work(m, n, 1))
-            add("argmin_1nn", err, ms, plain, bound, lib)
-            print(f"argmin_1nn M={m} N={n}: idx equal on {int(untied.sum())} untied "
-                  f"queries, max|d2 err| {err:.3g}; kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, cdist+argmin {lib:.4f} ms, bound {bound[0]:.5f} ms "
-                  f"({bound[1]})", flush=True)
+    results = _Results()
+    with torch.inference_mode():
+        _check_kernels(torch, calls, results, "app path", plain_reps=10)
+        _check_kernels(torch, calls64, results, "approx64k", plain_reps=3)
+    del calls, calls64
 
-        # B2: fused LFA round 1 at encoder levels 0 and 1
-        for args, _ in rec.calls["lfa_round1"]:
-            gathered, d2, center = args[:3]
-            _, rows, k, c2 = gathered.shape
-            h = c2 // 2
-            pooled, rpe2 = lfa_kernels.lfa_round1(*args)
-            consts = lfa_kernels.round1_constants(*args[3:])
-            ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
-            torch.cuda.synchronize()
-            err = max((pooled - ref_p).abs().max().item(), (rpe2 - ref_r).abs().max().item())
-            if err > 1e-5:
-                raise RuntimeError(f"lfa_round1 h={h}: max abs err {err}")
-            ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
-                            "lfa_round1_kernel")
-            plain = _device_ms(
-                torch,
-                lambda: lfa_kernels.lfa_round1_plain(
-                    gathered, d2, center, lfa_kernels.round1_constants(*args[3:])
-                ),
-                20,
-            )
-            bound = _bound(*_round1_work(rows, k, h))
-            add("lfa_round1", err, ms, plain, bound, None)
-            print(f"lfa_round1 N={rows} K={k} h={h}: max abs err {err:.3g}; kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
-                  f"({bound[1]})", flush=True)
-
-        # B3: fused attentive pool 2 + residual at encoder levels 0 and 1
-        for args, kwargs in rec.calls["lfa_pool2_res"]:
-            rpe2, g2 = args[:2]
-            f_in = args[7]
-            _, rows, k, h = g2.shape
-            f = f_in.shape[-1]
-            out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
-            consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:])
-            ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if err > 1e-5:
-                raise RuntimeError(f"lfa_pool2_res h={h}: max abs err {err}")
-            ms = _device_ms(
-                torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
-                "lfa_pool2_res_kernel",
-            )
-            plain = _device_ms(
-                torch,
-                lambda: lfa_kernels.attentive_pool2_residual_plain(
-                    rpe2, g2, f_in,
-                    lfa_kernels.pool2_constants(*args[2:7], *args[8:]), k,
-                ),
-                20,
-            )
-            bound = _bound(*_pool2_work(rows, k, h, f))
-            add("lfa_pool2_res", err, ms, plain, bound, None)
-            print(f"lfa_pool2_res N={rows} K={k} h={h} F={f}: max abs err {err:.3g}; "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
-                  f"({bound[1]})", flush=True)
-    del rec
-
-    # --- 5. result lines ------------------------------------------------------
-    sources = {
-        "knn_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
-                     "recognizer3d_tpu/ops/knn_pallas.py:109"),
-        "argmin_1nn": ("recognizer3d_tpu_torch/csrc/knn.cu",
-                       "recognizer3d_tpu/ops/knn_pallas.py:402"),
-        "lfa_round1": ("recognizer3d_tpu_torch/csrc/lfa.cu",
-                       "recognizer3d_tpu/ops/lfa_pallas.py:138"),
-        "lfa_pool2_res": ("recognizer3d_tpu_torch/csrc/lfa.cu",
-                          "recognizer3d_tpu/ops/lfa_pallas.py:221"),
-    }
+    # --- 6. result lines ------------------------------------------------------
     kernels = []
-    for name in PER_FRAME:
-        r = results[name]
+    for name, (source, replaces) in KERNELS.items():
+        r = results.rows[name]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": sources[name][0],
-            "replaces": sources[name][1],
-            "launches": launches[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

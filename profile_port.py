@@ -1,78 +1,115 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py
+    python3 profile_port.py [app|approx64k ...]
 
-Loads ``Predictor(pretrained/mock_fingertip)`` on the card, warms it up on
-mock frames of 60,000 points, then traces ``FRAMES`` frames with
-``torch.profiler`` (CPU and CUDA activity) and prints: the wall time per
-frame, the device time per frame summed over kernels and copies, the
-device's idle share of the wall time, and the operators and kernels with
-the most device time. The card's name and power limit come first.
+For each path named (both by default): the app path is
+``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
+approx64k is the reference-default ``knn="approximate"`` at 65,536 points
+(the bundled weights with ``bench.py``'s ``settings64a``, saved under
+``build/`` as ``chip_smoke.py`` does) on mock frames of 150,000 points.
+Each path's predictor is warmed up on 5 frames, then its frames (20 of the
+app path, 10 of approx64k) are timed untraced, every path before any
+tracing, and then traced with ``torch.profiler`` (CPU and CUDA activity);
+the script prints: the wall time per frame, the device time per frame
+summed over kernels and copies, the device's idle share of the traced wall
+time, and the operators and kernels with the most device time. The card's
+name and power limit come first.
 """
 
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
 
-from chip_smoke import ARCHIVE, FRAME_POINTS, _gpu_line, _make_frame
+from chip_smoke import (
+    APPROX_ARCHIVE,
+    APPROX_FRAME_POINTS,
+    APPROX_SETTINGS,
+    ARCHIVE,
+    FRAME_POINTS,
+    _gpu_line,
+    _make_frame,
+)
 
 FRAMES = 20
 TOP = 25
 
 
-def main() -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_port: torch.cuda.is_available() is False")
-    from recognizer3d_tpu_torch import Predictor
-
-    print(f"gpu: {_gpu_line()}", flush=True)
-    make_frame = _make_frame()
-    frames = [
-        make_frame(np.random.RandomState(200 + i), 0.3 * i, FRAME_POINTS)[0]
-        for i in range(FRAMES)
-    ]
-    predictor = Predictor(ARCHIVE, warmup_points=FRAME_POINTS)
+def _time(torch, predictor, frames, label: str) -> None:
     for frame in frames[:5]:
         predictor.predict(frame)
     torch.cuda.synchronize()
-
     walls = []
     for frame in frames:
         t = time.perf_counter()
         predictor.predict(frame)
         walls.append((time.perf_counter() - t) * 1e3)
     q1, q2, q3 = statistics.quantiles(walls, n=4)
-    print(f"untraced wall per frame over {FRAMES} frames: p25 {q1:.3f} ms, "
-          f"p50 {q2:.3f} ms, p75 {q3:.3f} ms, min {min(walls):.3f} ms", flush=True)
+    print(f"{label}: untraced wall per frame over {len(frames)} frames of "
+          f"{frames[0].shape[0]} points: p25 {q1:.3f} ms, p50 {q2:.3f} ms, "
+          f"p75 {q3:.3f} ms, min {min(walls):.3f} ms", flush=True)
+
+
+def _profile(torch, predictor, frames, label: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for frame in frames:
             predictor.predict(frame)
         torch.cuda.synchronize()
-        traced_wall = (time.perf_counter() - t) * 1e3 / FRAMES
+        traced_wall = (time.perf_counter() - t) * 1e3 / len(frames)
     events = prof.key_averages()
     device_us = sum(
         e.self_device_time_total for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     if device_us == 0:
-        print("device time: not measured (the profiler recorded no CUDA activity)")
+        print(f"{label}: device time: not measured (the profiler recorded no CUDA activity)")
         return
-    device_ms = device_us / 1e3 / FRAMES
-    print(f"traced wall per frame {traced_wall:.3f} ms; device time per frame "
+    device_ms = device_us / 1e3 / len(frames)
+    print(f"{label}: traced wall per frame {traced_wall:.3f} ms; device time per frame "
           f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}",
           flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: torch.cuda.is_available() is False")
+    from recognizer3d_tpu_torch import Model, Predictor
+
+    paths = sys.argv[1:] or ["app", "approx64k"]
+    print(f"gpu: {_gpu_line()}", flush=True)
+    make_frame = _make_frame()
+    runs = []
+    for path in paths:
+        if path == "app":
+            archive, points, frames = ARCHIVE, FRAME_POINTS, FRAMES
+        elif path == "approx64k":
+            Model.load(ARCHIVE, device="cuda", **APPROX_SETTINGS).save(APPROX_ARCHIVE)
+            archive, points, frames = APPROX_ARCHIVE, APPROX_FRAME_POINTS, FRAMES // 2
+        else:
+            raise SystemExit(f"profile_port: unknown path {path!r}")
+        clouds = [
+            make_frame(np.random.RandomState(200 + i), 0.3 * i, points)[0]
+            for i in range(frames)
+        ]
+        runs.append((Predictor(archive, warmup_points=points), clouds, path))
+    # every untraced timing first: a profiler session slows the launches
+    # that follow it in the process
+    for run in runs:
+        _time(torch, *run)
+    for run in runs:
+        _profile(torch, *run)
     subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
                     "--format=csv"], check=False, timeout=60)
 

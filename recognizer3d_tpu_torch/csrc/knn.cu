@@ -7,6 +7,18 @@
 // merge survivors through packed keys, all to save VMEM sweeps; exactness
 // never depends on that machinery, so these versions are brute force.
 //
+// r3d_knn_window replaces the lax.approx_min_k selection inside
+// recognizer3d_tpu/ops/knn.py::knn_window (the Morton-window search of
+// knn="approximate"): on Morton-sorted clouds, query block j (query_block
+// consecutive queries) searches only support[starts[j], starts[j] + w).
+// It runs the same two kernels over the window instead of the whole
+// support (k >= 2: the KNN kernel; k = 1: the argmin kernel) and selects
+// EXACTLY within the window, where the TPU's approx_min_k is a partial
+// reduction with recall_target < 1: the in-window recall is 1 here. A CUDA
+// block's queries lie in one query block (the launcher refuses a
+// query_block that is not a multiple of the block's query count), so the
+// block stages one window.
+//
 // KNN design. One warp owns one query; the block's warps share support
 // tiles staged in shared memory. The warp holds the sorted best list in
 // registers, spread across lanes (entry p = 32*r + lane, r < R, R*32 >= k).
@@ -31,7 +43,8 @@
 // operations each) against O((M+N)*12) bytes of input, so both kernels are
 // bound by operations: the N = 2,500 self-KNN is 50 Mflop, the
 // 2,500 -> 61,440 upsample 1.2 Gflop. Culling tiles by box bounds (as the
-// TPU kernels do) is what would cut the operations themselves.
+// TPU kernels do) is what would cut the operations themselves. The window
+// search is O(M*w): 65,536 queries over 4,096-point windows are 2.1 Gflop.
 //
 // Distances: ((dx*dx + dy*dy) + dz*dz) with explicitly rounded intrinsics.
 // nvcc would otherwise contract a*a+b into an FMA, and the distances would
@@ -59,12 +72,15 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
 }
 
 // Best list of capacity 32 * R, R registers per lane; requires k <= 32 * R.
+// Searches W support rows from the block's window start (all N rows when
+// starts is null; then W = N).
 template <int R>
 __global__ void knn_topk_kernel(const float* __restrict__ query,
                                 const float* __restrict__ support,
+                                const int* __restrict__ starts,
                                 int* __restrict__ idx_out,
                                 float* __restrict__ d2_out,
-                                int M, int N, int k) {
+                                int M, int N, int W, int qb, int k) {
   __shared__ float s_pts[KNN_TILE * 3];
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
@@ -72,7 +88,8 @@ __global__ void knn_topk_kernel(const float* __restrict__ query,
   const bool active = m < M;  // uniform across the warp
   const float* q = query + (static_cast<size_t>(b) * M + (active ? m : 0)) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
-  const float* s = support + static_cast<size_t>(b) * N * 3;
+  const int start = starts ? starts[blockIdx.x * KNN_WARPS / qb] : 0;
+  const float* s = support + (static_cast<size_t>(b) * N + start) * 3;
 
   float best_d[R];
   int best_i[R];
@@ -84,8 +101,8 @@ __global__ void knn_topk_kernel(const float* __restrict__ query,
   const int kth_reg = (k - 1) >> 5, kth_lane = (k - 1) & 31;
   float theta = CUDART_INF_F;  // current k-th best distance, warp-uniform
 
-  for (int base = 0; base < N; base += KNN_TILE) {
-    const int n_tile = min(KNN_TILE, N - base);
+  for (int base = 0; base < W; base += KNN_TILE) {
+    const int n_tile = min(KNN_TILE, W - base);
     __syncthreads();
     for (int t = threadIdx.x; t < n_tile * 3; t += blockDim.x) {
       s_pts[t] = s[static_cast<size_t>(base) * 3 + t];
@@ -144,31 +161,36 @@ __global__ void knn_topk_kernel(const float* __restrict__ query,
   for (int r = 0; r < R; ++r) {
     const int p = 32 * r + lane;
     if (p < k) {
-      idx_out[out + p] = best_i[r];
+      idx_out[out + p] = best_i[r] + start;
       d2_out[out + p] = best_d[r];
     }
   }
 }
 
+// One thread per query (blockDim.x queries a block); W support rows from the
+// block's window start, as in knn_topk_kernel.
 __global__ void argmin_kernel(const float* __restrict__ query,
                               const float* __restrict__ support,
+                              const int* __restrict__ starts,
                               int* __restrict__ idx_out,
-                              float* __restrict__ d2_out, int M, int N) {
+                              float* __restrict__ d2_out, int M, int N, int W,
+                              int qb) {
   __shared__ float s_pts[ARGMIN_TILE * 3];
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int m = blockIdx.x * ARGMIN_THREADS + tid;
+  const int m = blockIdx.x * blockDim.x + tid;
   const bool active = m < M;
   const float* q = query + (static_cast<size_t>(b) * M + (active ? m : 0)) * 3;
   const float qx = q[0], qy = q[1], qz = q[2];
-  const float* s = support + static_cast<size_t>(b) * N * 3;
+  const int start = starts ? starts[blockIdx.x * blockDim.x / qb] : 0;
+  const float* s = support + (static_cast<size_t>(b) * N + start) * 3;
 
   float best = CUDART_INF_F;
   int best_i = 0;
-  for (int base = 0; base < N; base += ARGMIN_TILE) {
-    const int n_tile = min(ARGMIN_TILE, N - base);
+  for (int base = 0; base < W; base += ARGMIN_TILE) {
+    const int n_tile = min(ARGMIN_TILE, W - base);
     __syncthreads();
-    for (int t = tid; t < n_tile * 3; t += ARGMIN_THREADS) {
+    for (int t = tid; t < n_tile * 3; t += blockDim.x) {
       s_pts[t] = s[static_cast<size_t>(base) * 3 + t];
     }
     __syncthreads();
@@ -183,16 +205,25 @@ __global__ void argmin_kernel(const float* __restrict__ query,
     }
   }
   if (!active) return;
-  idx_out[static_cast<size_t>(b) * M + m] = best_i;
+  idx_out[static_cast<size_t>(b) * M + m] = best_i + start;
   d2_out[static_cast<size_t>(b) * M + m] = best;
 }
 
-template <int R>
-void launch_knn(const float* query, const float* support, int* idx, float* d2,
-                int B, int M, int N, int k, cudaStream_t stream) {
+void launch_knn(const float* query, const float* support, const int* starts,
+                int* idx, float* d2, int B, int M, int N, int W, int qb, int k,
+                cudaStream_t stream) {
   const dim3 grid((M + KNN_WARPS - 1) / KNN_WARPS, B);
-  knn_topk_kernel<R><<<grid, KNN_WARPS * 32, 0, stream>>>(query, support, idx,
-                                                          d2, M, N, k);
+  const dim3 block(KNN_WARPS * 32);
+  if (k <= 32) {
+    knn_topk_kernel<1><<<grid, block, 0, stream>>>(query, support, starts, idx,
+                                                    d2, M, N, W, qb, k);
+  } else if (k <= 64) {
+    knn_topk_kernel<2><<<grid, block, 0, stream>>>(query, support, starts, idx,
+                                                    d2, M, N, W, qb, k);
+  } else {
+    knn_topk_kernel<4><<<grid, block, 0, stream>>>(query, support, starts, idx,
+                                                    d2, M, N, W, qb, k);
+  }
 }
 
 }  // namespace
@@ -204,14 +235,8 @@ extern "C" int r3d_knn_topk(const float* query, const float* support,
                             void* stream) {
   if (B == 0 || M == 0) return 0;
   if (k < 1 || k > 128 || k > N) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 32) {
-    launch_knn<1>(query, support, idx, d2, B, M, N, k, s);
-  } else if (k <= 64) {
-    launch_knn<2>(query, support, idx, d2, B, M, N, k, s);
-  } else {
-    launch_knn<4>(query, support, idx, d2, B, M, N, k, s);
-  }
+  launch_knn(query, support, nullptr, idx, d2, B, M, N, N, 1, k,
+             static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,7 +248,35 @@ extern "C" int r3d_argmin(const float* query, const float* support, int* idx,
   if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((M + ARGMIN_THREADS - 1) / ARGMIN_THREADS, B);
   argmin_kernel<<<grid, ARGMIN_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(query, support, idx,
-                                                       d2, M, N);
+                  static_cast<cudaStream_t>(stream)>>>(query, support, nullptr,
+                                                       idx, d2, M, N, N, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// query (B, M, 3) and support (B, N, 3) float32, both Morton-sorted; starts
+// (ceil(M / qb),) int32 window starts in [0, N - w]. idx (B, M, k) int32
+// (into the support as given) and d2 (B, M, k) float32 out, nearest first.
+// k >= 2 needs qb % 8 == 0, k = 1 needs qb % 32 == 0. Returns
+// cudaGetLastError().
+extern "C" int r3d_knn_window(const float* query, const float* support,
+                              const int* starts, int* idx, float* d2, int B,
+                              int M, int N, int w, int qb, int k,
+                              void* stream) {
+  if (B == 0 || M == 0) return 0;
+  if (k < 1 || k > 128 || k > w || w > N || qb < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 1) {
+    int threads = ARGMIN_THREADS;  // the largest power of two <= 256 dividing qb
+    while (threads > 32 && qb % threads != 0) threads >>= 1;
+    if (qb % threads != 0) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((M + threads - 1) / threads, B);
+    argmin_kernel<<<grid, threads, 0, s>>>(query, support, starts, idx, d2, M,
+                                           N, w, qb);
+  } else {
+    if (qb % KNN_WARPS != 0) return static_cast<int>(cudaErrorInvalidValue);
+    launch_knn(query, support, starts, idx, d2, B, M, N, w, qb, k, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,8 @@
 //   w      = softmax_K(cat @ Ws)
 //   pooled = relu(sum_K(w * cat) @ Wp + op)                      (2h)
 //   out    = leaky_relu(pooled @ Wm + f_in @ Wsh + off, 0.01)    (4h)
+// r3d_lfa_pool2 replaces ::_pool2_kernel: the same kernel compiled without
+// the residual (RES = false), out = pooled (2h).
 // with every BatchNorm already folded into the constants by the Python
 // wrapper (ops/lfa_kernels.py), exactly as the JAX wrappers fold them.
 //
@@ -45,9 +47,14 @@ __host__ __device__ constexpr int round1_consts(int h) {
   return 5 * h + 7 * h * h;
 }
 
+__host__ __device__ constexpr int pool2_head_consts(int h) {
+  // Ws (2h x 2h) | Wp (2h x 2h) | op (2h): all that pool 2 alone reads
+  return 8 * h * h + 2 * h;
+}
+
 __host__ __device__ constexpr int pool2_consts(int h, int f) {
-  // Ws (2h x 2h) | Wp (2h x 2h) | op (2h) | Wm (2h x 4h) | Wsh (F x 4h) | off (4h)
-  return 16 * h * h + 6 * h + 4 * h * f;
+  // the head | Wm (2h x 4h) | Wsh (F x 4h) | off (4h)
+  return pool2_head_consts(h) + 8 * h * h + 4 * h + 4 * h * f;
 }
 
 // softmax over K per channel of sc (K, C2), then agg[j] = sum_k w * cat
@@ -139,7 +146,8 @@ __global__ void lfa_round1_kernel(const float* __restrict__ g,
   }
 }
 
-template <int H>
+// RES = false: pool 2 alone (F = 0, f_in unused), out (rows, 2h).
+template <int H, bool RES>
 __global__ void lfa_pool2_res_kernel(const float* __restrict__ rpe2,
                                      const float* __restrict__ g2,
                                      const float* __restrict__ f_in,
@@ -148,7 +156,7 @@ __global__ void lfa_pool2_res_kernel(const float* __restrict__ rpe2,
                                      int rows, int K, int F) {
   constexpr int C2 = 2 * H;
   constexpr int C4 = 4 * H;
-  const int NC = pool2_consts(H, F);
+  const int NC = RES ? pool2_consts(H, F) : pool2_head_consts(H);
   extern __shared__ float sm[];
   float* cst = sm;
   float* cat = cst + NC;        // K * C2
@@ -185,18 +193,25 @@ __global__ void lfa_pool2_res_kernel(const float* __restrict__ rpe2,
     for (int i = threadIdx.x; i < C2; i += blockDim.x) {
       float acc = 0.f;
       for (int j = 0; j < C2; ++j) acc += agg[j] * wp[j * C2 + i];
-      pooled[i] = fmaxf(acc + op[i], 0.f);
+      const float p = fmaxf(acc + op[i], 0.f);
+      if constexpr (RES) {
+        pooled[i] = p;
+      } else {
+        out[static_cast<size_t>(row) * C2 + i] = p;
+      }
     }
     __syncthreads();
-    for (int o = threadIdx.x; o < C4; o += blockDim.x) {
-      float a = 0.f;
-      for (int i = 0; i < C2; ++i) a += pooled[i] * wm[i * C4 + o];
-      float b = 0.f;
-      for (int f = 0; f < F; ++f) b += fin[f] * wsh[f * C4 + o];
-      const float res = (a + b) + off[o];
-      out[static_cast<size_t>(row) * C4 + o] = res > 0.f ? res : 0.01f * res;
+    if constexpr (RES) {
+      for (int o = threadIdx.x; o < C4; o += blockDim.x) {
+        float a = 0.f;
+        for (int i = 0; i < C2; ++i) a += pooled[i] * wm[i * C4 + o];
+        float b = 0.f;
+        for (int f = 0; f < F; ++f) b += fin[f] * wsh[f * C4 + o];
+        const float res = (a + b) + off[o];
+        out[static_cast<size_t>(row) * C4 + o] = res > 0.f ? res : 0.01f * res;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -243,14 +258,15 @@ extern "C" int r3d_lfa_round1(const float* g, const float* d2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rpe2 (rows, K, h), g2 (rows, K, h), f_in (rows, F), consts as laid out in
-// pool2_consts; out (rows, 4h). h in {8, 32}.
-extern "C" int r3d_lfa_pool2_res(const float* rpe2, const float* g2,
-                                 const float* f_in, const float* consts,
-                                 float* out, int rows, int K, int h, int F,
-                                 void* stream) {
+namespace {
+
+template <bool RES>
+int launch_pool2(const float* rpe2, const float* g2, const float* f_in,
+                 const float* consts, float* out, int rows, int K, int h,
+                 int F, void* stream) {
   if (rows == 0) return 0;
-  const size_t smem = (static_cast<size_t>(pool2_consts(h, F)) +
+  const int nc = RES ? pool2_consts(h, F) : pool2_head_consts(h);
+  const size_t smem = (static_cast<size_t>(nc) +
                        4 * static_cast<size_t>(K) * h + 4 * h + F) *
                       sizeof(float);
   const int grid = rows < LFA_MAX_BLOCKS ? rows : LFA_MAX_BLOCKS;
@@ -258,17 +274,37 @@ extern "C" int r3d_lfa_pool2_res(const float* rpe2, const float* g2,
   int err;
   switch (h) {
     case 8:
-      if ((err = launch_config(lfa_pool2_res_kernel<8>, smem))) return err;
-      lfa_pool2_res_kernel<8><<<grid, LFA_THREADS, smem, s>>>(rpe2, g2, f_in, consts,
-                                                              out, rows, K, F);
+      if ((err = launch_config(lfa_pool2_res_kernel<8, RES>, smem))) return err;
+      lfa_pool2_res_kernel<8, RES><<<grid, LFA_THREADS, smem, s>>>(
+          rpe2, g2, f_in, consts, out, rows, K, F);
       break;
     case 32:
-      if ((err = launch_config(lfa_pool2_res_kernel<32>, smem))) return err;
-      lfa_pool2_res_kernel<32><<<grid, LFA_THREADS, smem, s>>>(rpe2, g2, f_in, consts,
-                                                               out, rows, K, F);
+      if ((err = launch_config(lfa_pool2_res_kernel<32, RES>, smem))) return err;
+      lfa_pool2_res_kernel<32, RES><<<grid, LFA_THREADS, smem, s>>>(
+          rpe2, g2, f_in, consts, out, rows, K, F);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// rpe2 (rows, K, h), g2 (rows, K, h), f_in (rows, F), consts as laid out in
+// pool2_consts; out (rows, 4h). h in {8, 32}.
+extern "C" int r3d_lfa_pool2_res(const float* rpe2, const float* g2,
+                                 const float* f_in, const float* consts,
+                                 float* out, int rows, int K, int h, int F,
+                                 void* stream) {
+  return launch_pool2<true>(rpe2, g2, f_in, consts, out, rows, K, h, F, stream);
+}
+
+// rpe2 (rows, K, h), g2 (rows, K, h), consts as laid out in
+// pool2_head_consts; out (rows, 2h). h in {8, 32}.
+extern "C" int r3d_lfa_pool2(const float* rpe2, const float* g2,
+                             const float* consts, float* out, int rows, int K,
+                             int h, void* stream) {
+  return launch_pool2<false>(rpe2, g2, nullptr, consts, out, rows, K, h, 0,
+                             stream);
 }

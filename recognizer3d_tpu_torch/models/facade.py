@@ -14,6 +14,10 @@ model runs on the GPU). The per-call random permutation is a numpy draw
 under the caller's seed, as in the JAX package, so a seeded caller gives
 both packages the same permutation.
 
+With ``knn="approximate"`` in its Morton-window regime, the first predict of
+a ``Model`` runs the session recall guard (``ops/knn.ensure_window_recall``)
+on that cloud, as the JAX facade does.
+
 Not ported yet: training and evaluation (ROADMAP A6), the million-point
 forward (A8), reference PyTorch archives (listed in ROADMAP).
 """
@@ -37,6 +41,7 @@ from recognizer3d_tpu_torch.models.weights import (
     from_flax_variables,
     to_flax_variables,
 )
+from recognizer3d_tpu_torch.ops import knn as knn_ops
 from recognizer3d_tpu_torch.ops.upsample import upsample as upsample_features
 from recognizer3d_tpu_torch.utils import msgpack_lite
 from recognizer3d_tpu_torch.utils.device import resolve_device
@@ -93,6 +98,10 @@ class Model:
             self._module.load_state_dict(weights)
         self._module.to(self.device).eval()
         self._pad_buffer = None
+        self._recall_guard_ran = False
+        #: what the recall guard returned on this model's first
+        #: window-regime cloud (None until it ran)
+        self.recall_guard_result: Optional[dict] = None
 
     @property
     def module(self) -> RandLANet:
@@ -223,18 +232,53 @@ class Model:
             return out[..., :n_full].cpu().numpy()
 
     def _knn_regime_warnings(self) -> None:
-        """Guidance on the neighbour-search setting for this cloud size."""
-        if self.settings.knn in ("approximate", "kdtree"):
+        """Guidance on the neighbour-search setting for this cloud size
+        (the JAX facade's, for the routes this package has)."""
+        if self.settings.knn == "kdtree":
             logging.warning(
-                'knn="%s" is not ported to this package yet; predictions '
-                'will raise. Use knn="naive" (exact, kernel-backed).',
-                self.settings.knn,
+                'knn="kdtree" is not ported to this package yet; predictions '
+                'will raise. Use knn="naive" (exact, kernel-backed).'
             )
-        elif self.settings.n_points > 20000 and self.settings.knn == "naive":
+        if self.settings.n_points > 20000:
+            if self.settings.knn == "naive":
+                logging.warning(
+                    'knn="naive" for N > 20000 runs the brute-force exact KNN '
+                    'kernel, whose cost grows with N²; consider '
+                    'knn="approximate".'
+                )
+        elif self.settings.knn not in ("naive", "pallas", "kdtree"):
             logging.warning(
-                'knn="naive" at N > 20000 runs the brute-force exact KNN '
-                "kernel, whose cost grows with N²."
+                "For improved performance, it is recommended to "
+                'use knn="naive" when N < 20000.'
             )
+
+    def _maybe_run_recall_guard(self, full_cloud: np.ndarray) -> None:
+        """Session-first-frame recall guard, as the JAX facade's: when
+        ``knn="approximate"`` is in its Morton-window regime at this model's
+        n_points, probe the first cloud's sampled self-KNN recall and let
+        ``ops/knn.ensure_window_recall`` widen the session window
+        (4096 -> 8192 -> 16384) or demote the session to the exact route.
+        Runs once per Model instance; opt out with RECOGNIZER3D_KNN_RECALL=0.
+
+        :param full_cloud: (N, >=3) one representative host cloud; the
+            probe samples it to n_points exactly like the forward will.
+        """
+        if self._recall_guard_ran or self.settings.knn != "approximate":
+            return
+        if os.environ.get("RECOGNIZER3D_KNN_RECALL", "") == "0":
+            self._recall_guard_ran = True
+            return
+        if not knn_ops.window_regime_active(self.settings.n_points):
+            self._recall_guard_ran = True
+            return
+        full_cloud = np.asarray(full_cloud, np.float32)
+        if full_cloud.ndim != 2 or len(full_cloud) == 0:
+            return
+        self._recall_guard_ran = True
+        idx = consistent_sample_indices(len(full_cloud), self.settings.n_points)
+        self.recall_guard_result = knn_ops.ensure_window_recall(
+            full_cloud[idx, :3], self.settings.n_neighbors, device=self.device
+        )
 
     def _prepare_full(self, inputs: np.ndarray):
         """Host prep of the full-cloud predict paths: cached consistent
@@ -291,6 +335,7 @@ class Model:
         :return: (N,) or (B, N) bool, class-1 confidence > threshold.
         """
         inputs, batched = self._batch_inputs(xyz, features)
+        self._maybe_run_recall_guard(inputs[0])
         padded, indices, permutation, n_full = self._prepare_full(inputs)
         with torch.inference_mode():
             conf = self._predict_full(padded, indices, permutation)
@@ -313,6 +358,7 @@ class Model:
         """
         self._knn_regime_warnings()
         inputs, batched = self._batch_inputs(xyz, features)
+        self._maybe_run_recall_guard(inputs[0])
         if self.settings.upsampling == "none":
             prepostprocess = False
         with torch.inference_mode():

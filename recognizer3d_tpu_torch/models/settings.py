@@ -11,9 +11,14 @@ The same dataclass, field defaults and validation as the JAX package, so a
   tensor both use their plain PyTorch versions.
 * ``pallas`` — the same exact kernels (the JAX package's name for its
   kernel route).
-* ``approximate`` — the default, as in the JAX package. Not ported yet:
-  the search raises ``NotImplementedError`` (ROADMAP A7) rather than
-  quietly running the exact search, which would give a different result.
+* ``approximate`` — the default, as in the JAX package. Routed as there:
+  above 12,288 points (and a distance matrix over 64M entries) the
+  Morton-window search, on the window kernel; below, the exact KNN kernel;
+  1-NN upsamplings onto supports of up to 32,768 points, the exact route.
+  Where the TPU selects with ``approx_min_k`` at a recall target below 1,
+  the card selects exactly within the same candidates. The session recall
+  guard widens the window or falls back to the exact route as in the JAX
+  package (``ops/knn.ensure_window_recall``).
 * ``kdtree`` — not ported yet (ROADMAP A10).
 """
 

@@ -101,10 +101,14 @@ _SIGNATURES = {
     "r3d_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (query, support, idx_out, d2_out, B, M, N, stream)
     "r3d_argmin": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (query, support, starts, idx_out, d2_out, B, M, N, w, qb, k, stream)
+    "r3d_knn_window": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (gathered, d2, center, consts, pooled_out, rpe2_out, rows, K, h, stream)
     "r3d_lfa_round1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (rpe2, g2, f_in, consts, out, rows, K, h, F, stream)
     "r3d_lfa_pool2_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (rpe2, g2, consts, out, rows, K, h, stream)
+    "r3d_lfa_pool2": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

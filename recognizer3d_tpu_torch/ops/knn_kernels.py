@@ -4,8 +4,13 @@
   (exact k-NN, k <= 128): the encoder self-KNNs of the main path.
 * :func:`argmin_1nn` replaces ``::_argmin_kernel`` (exact streaming 1-NN):
   the final upsample onto the full cloud.
+* :func:`knn_window_topk` replaces the ``lax.approx_min_k`` selection of
+  ``recognizer3d_tpu/ops/knn.py::knn_window`` (the Morton-window search of
+  ``knn="approximate"``): each block of ``query_block`` sorted queries
+  selects its k nearest among a ``window_points`` slice of the sorted
+  support, exactly.
 
-Both take support (B, N, 3) and query (B, M, 3) float32 and return indices
+All take support (B, N, 3) and query (B, M, 3) float32 and return indices
 into the support as given (int32) and squared distances (float32, >= 0),
 nearest first. A CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. The plain versions compute distances as the
@@ -28,11 +33,12 @@ _PLAIN_CHUNK_ELEMS = 1 << 24
 
 
 def _sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
-    """(B, m, N) squared distances by direct differences, one rounding per
-    operation (eager ops are never contracted into FMAs)."""
-    dx = query[..., 0:1] - support[..., 0].unsqueeze(1)
-    dy = query[..., 1:2] - support[..., 1].unsqueeze(1)
-    dz = query[..., 2:3] - support[..., 2].unsqueeze(1)
+    """(..., m, N) squared distances of (..., m, 3) queries to (..., N, 3)
+    support points by direct differences, one rounding per operation (eager
+    ops are never contracted into FMAs)."""
+    dx = query[..., 0:1] - support[..., 0].unsqueeze(-2)
+    dy = query[..., 1:2] - support[..., 1].unsqueeze(-2)
+    dz = query[..., 2:3] - support[..., 2].unsqueeze(-2)
     return (dx * dx + dy * dy) + dz * dz
 
 
@@ -140,4 +146,86 @@ def argmin_1nn(
         B, m, n, _build.stream_ptr(support.device),
     )
     _build.check_status("r3d_argmin", status)
+    return idx, d2
+
+
+def knn_window_topk_plain(
+    support: torch.Tensor, query: torch.Tensor, k: int, starts: torch.Tensor,
+    window_points: int, query_block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the window kernel: per query block, the window's
+    distances + stable sort (k = 1: ``torch.min``, the first index of the
+    minimum, as the kernel's strict ``<``). The last block is padded with
+    copies of the last query, as ``knn_window`` pads it; padded rows are
+    dropped."""
+    B, _, _ = support.shape
+    m = query.shape[1]
+    w, qb = window_points, query_block
+    offsets = torch.arange(w, device=support.device)
+    per_chunk = max(1, _PLAIN_CHUNK_ELEMS // (qb * w))
+    idx_parts, d2_parts = [], []
+    for j0 in range(0, starts.shape[0], per_chunk):
+        j1 = min(starts.shape[0], j0 + per_chunk)
+        lo, hi = j0 * qb, min(m, j1 * qb)
+        q = query[:, lo:hi]
+        pad = (j1 - j0) * qb - (hi - lo)
+        if pad:
+            q = torch.cat([q, q[:, -1:].expand(B, pad, 3)], dim=1)
+        q = q.reshape(B, j1 - j0, qb, 3)
+        st = starts[j0:j1].long()
+        window = support[:, st[:, None] + offsets]  # (B, blocks, w, 3)
+        d2 = _sq_dists(q, window)  # (B, blocks, qb, w)
+        if k == 1:
+            best, arg = torch.min(d2, dim=-1, keepdim=True)
+        else:
+            d2_sorted, order = torch.sort(d2, dim=-1, stable=True)
+            best, arg = d2_sorted[..., :k], order[..., :k]
+        idx = arg + st[None, :, None, None]
+        idx_parts.append(idx.reshape(B, -1, k)[:, : hi - lo].to(torch.int32))
+        d2_parts.append(best.reshape(B, -1, k)[:, : hi - lo])
+    return torch.cat(idx_parts, 1), torch.cat(d2_parts, 1)
+
+
+def knn_window_topk(
+    support: torch.Tensor, query: torch.Tensor, k: int, starts: torch.Tensor,
+    window_points: int, query_block: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k nearest support points of every query within its query
+    block's window: query j searches ``support[:, s : s + window_points]``
+    with ``s = starts[j // query_block]``. (idx int32 (B, M, k) into the
+    support as given, d2 float32 (B, M, k)), nearest first.
+
+    :param starts: (ceil(M / query_block),) int32 window starts in
+        [0, N - window_points], on the clouds' device.
+    :param query_block: a multiple of 8 for k >= 2 (a CUDA block's eight
+        queries share one window) and of 32 for k = 1.
+    """
+    _check_clouds(support, query)
+    B, n, _ = support.shape
+    m = query.shape[1]
+    w, qb = window_points, query_block
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}] taken by the window kernel")
+    if not k <= w <= n:
+        raise ValueError(f"need k={k} <= window_points={w} <= support size {n}")
+    n_blocks = -(-m // qb)
+    if starts.dtype != torch.int32 or tuple(starts.shape) != (n_blocks,):
+        raise ValueError(
+            f"starts: {starts.dtype} {tuple(starts.shape)}, expected int32 ({n_blocks},)"
+        )
+    if support.device.type == "cpu":
+        return knn_window_topk_plain(support, query, k, starts, w, qb)
+    _check_cuda_clouds(support, query)
+    _build.check_cuda_tensor("starts", starts, torch.int32, (n_blocks,), support.device)
+    if qb % (32 if k == 1 else 8):
+        raise ValueError(f"query_block={qb} must be a multiple of {32 if k == 1 else 8}")
+    idx = torch.empty((B, m, k), dtype=torch.int32, device=support.device)
+    d2 = torch.empty((B, m, k), dtype=torch.float32, device=support.device)
+    lib = _build.library()
+    _build.LAUNCHES["knn_window_topk"] += 1
+    status = lib.r3d_knn_window(
+        query.data_ptr(), support.data_ptr(), starts.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), B, m, n, w, qb, k, _build.stream_ptr(support.device),
+    )
+    _build.check_status("r3d_knn_window", status)
     return idx, d2

@@ -6,6 +6,9 @@
 * :func:`attentive_pool2_residual` replaces ``::_pool2_res_kernel`` (wrapper
   ``attentive_pool2_residual_fused``): attentive pool 2 -> pool MLP + BN +
   relu -> mlp2 + shortcut on the block input -> leaky_relu(0.01).
+* :func:`attentive_pool2` replaces ``::_pool2_kernel`` (wrapper
+  ``attentive_pool2_fused``): the same kernel without the residual, ending
+  at the pool MLP + BN + relu.
 
 The wrappers take the JAX wrappers' arguments and fold the BatchNorm eval
 affines into the constants the same way (``lfa_pallas.py:329-359`` and
@@ -117,30 +120,70 @@ def lfa_round1(
     return pooled, rpe2
 
 
-def pool2_constants(ws, wp, bp, sp, op, wm, wsh, off) -> Dict:
+def pool2_constants(ws, wp, bp, sp, op, wm=None, wsh=None, off=None) -> Dict:
     """The BN-folded constants of pool 2: Wp <- Wp·sp, op <- sp·bp + op;
-    ``wm``, ``wsh`` and ``off`` arrive folded (as in the JAX call site)."""
+    the residual's ``wm``, ``wsh`` and ``off`` arrive folded (as in the JAX
+    call site) and are left out for pool 2 alone."""
     sp = _f32(sp)
-    return {
+    c = {
         "ws": _f32(ws),
         "wp": _f32(wp) * sp[None, :],
         "op": sp * _f32(bp) + _f32(op),
-        "wm": _f32(wm),
-        "wsh": _f32(wsh),
-        "off": _f32(off),
     }
+    if wm is not None:
+        c.update(wm=_f32(wm), wsh=_f32(wsh), off=_f32(off))
+    return c
+
+
+def attentive_pool2_plain(rpe2, g2, c: Dict, k: int) -> torch.Tensor:
+    """Plain version of the pool-2 kernel on folded constants:
+    rpe2 (B, N, K·h), g2 (B, N, K, h) -> (B, N, 2h)."""
+    B, n, kh = rpe2.shape
+    h = kh // k
+    cat = torch.cat([rpe2.reshape(B, n, k, h), g2.reshape(B, n, k, h)], dim=-1)
+    w = torch.softmax(cat @ c["ws"], dim=-2)
+    return torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
 
 
 def attentive_pool2_residual_plain(rpe2, g2, f_in, c: Dict, k: int) -> torch.Tensor:
     """Plain version of the pool-2 + residual kernel on folded constants:
     rpe2 (B, N, K·h), g2 (B, N, K, h), f_in (B, N, F) -> (B, N, 4h)."""
-    B, n, kh = rpe2.shape
-    h = kh // k
-    cat = torch.cat([rpe2.reshape(B, n, k, h), g2.reshape(B, n, k, h)], dim=-1)
-    w = torch.softmax(cat @ c["ws"], dim=-2)
-    pooled = torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
+    pooled = attentive_pool2_plain(rpe2, g2, c, k)
     res = (pooled @ c["wm"] + f_in @ c["wsh"]) + c["off"]
     return F.leaky_relu(res, 0.01)
+
+
+def attentive_pool2(rpe2, g2, ws, wp, bp, sp, op, k: int) -> torch.Tensor:
+    """Second attentive pooling without the residual, fused (arguments as
+    ``lfa_pallas.attentive_pool2_fused``): returns the pool MLP + BN + relu
+    output (B, N, 2h).
+
+    :param rpe2: (B, N, K·h) from :func:`lfa_round1`.
+    :param g2: (B, N, K, h) gathered pooled rows.
+    """
+    B, n, kh = rpe2.shape
+    h = kh // k
+    if not supports(k, h, "float32"):
+        raise ValueError(f"fused LFA does not take K={k}, half={h}")
+    c = pool2_constants(ws, wp, bp, sp, op)
+    if rpe2.device.type == "cpu":
+        return attentive_pool2_plain(rpe2, g2, c, k)
+    if rpe2.device.type != "cuda":
+        raise ValueError(f"unsupported device {rpe2.device}")
+    dev = rpe2.device
+    consts = _pack([c["ws"], c["wp"], c["op"]])
+    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev)
+    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev)
+    _build.check_cuda_tensor("consts", consts, torch.float32, (8 * h * h + 2 * h,), dev)
+    out = torch.empty((B, n, 2 * h), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    _build.LAUNCHES["lfa_pool2"] += 1
+    status = lib.r3d_lfa_pool2(
+        rpe2.data_ptr(), g2.data_ptr(), consts.data_ptr(), out.data_ptr(),
+        B * n, k, h, _build.stream_ptr(dev),
+    )
+    _build.check_status("r3d_lfa_pool2", status)
+    return out
 
 
 def attentive_pool2_residual(

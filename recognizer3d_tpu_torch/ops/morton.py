@@ -54,3 +54,16 @@ def sort_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return torch.gather(
         x, 1, order.unsqueeze(-1).expand(-1, -1, x.shape[-1])
     )
+
+
+def unsort_results(idx_sorted: torch.Tensor, d2_sorted: torch.Tensor,
+                   s_order: torch.Tensor, q_order: torch.Tensor):
+    """Map a search run on Morton-sorted clouds back to the given order:
+    indices into the sorted support become original support ids, and query
+    rows return to the original query order (counterpart of
+    ``knn_pallas._unsort_results``). idx (B, M, k) int32, d2 (B, M, k)."""
+    B, m, k = idx_sorted.shape
+    idx_orig = torch.gather(s_order, 1, idx_sorted.reshape(B, m * k).long())
+    idx_orig = idx_orig.reshape(B, m, k).to(torch.int32)
+    inv_q = invert_permutation(q_order)
+    return sort_rows(idx_orig, inv_q), sort_rows(d2_sorted, inv_q)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from recognizer3d_tpu_torch.ops import _build, knn_kernels, lfa_kernels
+from recognizer3d_tpu_torch.ops.knn import window_starts
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +69,33 @@ def test_argmin_kernel_matches_plain(dev, b, n, m, grid):
     assert torch.equal(idx, ref_i)
 
 
+@pytest.mark.parametrize(
+    "b,n,m,k,w,qb,grid",
+    [
+        (1, 20000, 20000, 32, 4096, 512, None),  # the encoder shape, both ends clamped
+        (1, 9000, 30000, 1, 4096, 512, None),     # the upsample shape (k = 1)
+        (2, 5000, 3000, 32, 1500, 128, 12),       # w not a multiple of the tile, ties
+        (1, 3000, 3000, 128, 700, 64, 10),        # widest best list, ties
+        (1, 3000, 90, 32, 1024, 512, None),       # m < qb: one clamped block
+        (2, 2000, 2500, 1, 333, 96, 8),           # k = 1, ties, qb = 3 * 32
+        (1, 1000, 1000, 64, 1000, 128, None),     # the window is the whole support
+    ],
+)
+def test_knn_window_kernel_matches_plain(dev, b, n, m, k, w, qb, grid):
+    """Bit-identical distances and the same indices, in order, as the
+    plain version, on each query block's window."""
+    s = _cloud(n + w, b, n, dev, grid)
+    q = _cloud(m + k, b, m, dev, grid)
+    starts = torch.from_numpy(window_starts(n, m, w, qb)).to(dev)
+    idx, d2 = knn_kernels.knn_window_topk(s, q, k, starts, w, qb)
+    ref_i, ref_d = knn_kernels.knn_window_topk_plain(s, q, k, starts, w, qb)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, ref_d)
+    assert torch.equal(idx, ref_i)
+    lo = starts.long()[torch.arange(m, device=dev) // qb]
+    assert bool(((idx >= lo[None, :, None]) & (idx < lo[None, :, None] + w)).all())
+
+
 def _rand(rng, dev, *shape, scale=0.3, low=None):
     x = rng.uniform(low, 1.5, shape) if low is not None else rng.randn(*shape) * scale
     return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -107,17 +135,32 @@ def test_lfa_kernels_match_plain(dev, b, n, h, f):
     )
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
+    pooled2 = lfa_kernels.attentive_pool2(rpe2, g2, *p2, k=k)
+    ref2 = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*p2), k)
+    torch.testing.assert_close(pooled2, ref2, rtol=0, atol=1e-5)
+
 
 def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
     s = _cloud(0, 1, 200, dev)
+    starts = torch.zeros(4, dtype=torch.int32, device=dev)
     _build.reset_launches()
     knn_kernels.knn_topk(s, s, 16)
     knn_kernels.argmin_1nn(s, s)
-    assert _build.LAUNCHES == {"knn_topk": 1, "argmin_1nn": 1}
+    knn_kernels.knn_window_topk(s, s, 16, starts, 100, 64)
+    counts = {"knn_topk": 1, "argmin_1nn": 1, "knn_window_topk": 1}
+    assert _build.LAUNCHES == counts
     with pytest.raises(ValueError, match="contiguous"):
         knn_kernels.knn_topk(s, s[:, ::2], 4)
     with pytest.raises(ValueError):
         knn_kernels.knn_topk(s, s.cpu(), 4)
     with pytest.raises(ValueError):
         knn_kernels.knn_topk(s, s, 129)
-    assert _build.LAUNCHES == {"knn_topk": 1, "argmin_1nn": 1}
+    with pytest.raises(ValueError, match="multiple of 8"):
+        knn_kernels.knn_window_topk(s, s, 16, starts, 100, 50)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        knn_kernels.knn_window_topk(s, s, 1, starts[:3], 100, 72)
+    with pytest.raises(ValueError, match="starts"):
+        knn_kernels.knn_window_topk(s, s, 16, starts.long(), 100, 64)
+    with pytest.raises(ValueError):
+        knn_kernels.knn_window_topk(s, s, 16, starts, 201, 64)
+    assert _build.LAUNCHES == counts

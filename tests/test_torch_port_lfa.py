@@ -89,6 +89,26 @@ def test_pool2_residual_plain_matches_pallas_kernel(h, f, n):
     np.testing.assert_allclose(out_p.numpy(), np.asarray(out_j), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("h,n", [(8, 300), (32, 200)])
+def test_pool2_plain_matches_pallas_kernel(h, n):
+    """Pool 2 without the residual (``_pool2_kernel``)."""
+    rng = np.random.RandomState(h + 1)
+    k, c2 = 32, 2 * h
+    args = [
+        np.abs(_rand(rng, 1, n, k * h, scale=0.5)),  # rpe2 (post-relu)
+        np.abs(_rand(rng, 1, n, k, h, scale=0.5)),   # g2 (post-relu)
+        _rand(rng, c2, c2),                          # ws
+        _rand(rng, c2, c2), _rand(rng, c2),          # wp, bp
+        _pos(rng, c2), _rand(rng, c2),               # sp, op
+    ]
+    out_j = lfa_pallas.attentive_pool2_fused(
+        *[jnp.asarray(a) for a in args], k=k, interpret=True
+    )
+    out_p = lfa_kernels.attentive_pool2(*[torch.from_numpy(a) for a in args], k=k)
+    assert tuple(out_p.shape) == (1, n, c2)
+    np.testing.assert_allclose(out_p.numpy(), np.asarray(out_j), rtol=0, atol=ATOL)
+
+
 def test_supports_gate_matches_jax():
     for k in (8, 16, 24, 32, 64, 128):
         for half in (4, 8, 16, 32, 64, 128):

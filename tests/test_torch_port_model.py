@@ -212,11 +212,22 @@ def test_cuda_entry_points_raise_without_cuda():
 
 
 def test_approximate_knn_raises_not_implemented():
+    """The default ``knn="approximate"`` predicts; below the window regime
+    (2,048 points) every search it routes is exact, so it equals
+    ``knn="naive"``. The unported ``knn="kdtree"`` raises."""
     settings = RandLANetSettings(n_classes=2, n_points=2048)
     assert settings.knn == "approximate"
+    cloud = np.random.RandomState(0).rand(2100, 3).astype(np.float32)
     model = Model(settings, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.predict(np.random.RandomState(0).rand(2100, 3).astype(np.float32))
+    np.random.seed(3)
+    conf = model.predict(cloud)
+    exact = Model(RandLANetSettings(n_classes=2, n_points=2048, knn="naive"), device="cpu")
+    np.random.seed(3)
+    np.testing.assert_array_equal(conf, exact.predict(cloud))
+    assert model.recall_guard_result is None  # nothing to guard at 2,048 points
+    kdtree = Model(RandLANetSettings(n_classes=2, n_points=2048, knn="kdtree"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        kdtree.predict(cloud)
 
 
 def test_cpu_predictor_runs_the_app_path():

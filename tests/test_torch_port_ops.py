@@ -174,11 +174,17 @@ def test_knn_routes_like_the_accelerator(monkeypatch, n, m, k, route):
 
 
 def test_knn_approximate_and_kdtree_raise():
+    """``"kdtree"`` is not ported and raises, as does an unknown approach;
+    ``"approximate"`` is ported and, below the window regime, runs the exact
+    KNN kernel (tests/test_torch_port_approx.py holds it against JAX)."""
     s = _t(_cloud(0, 1, 100))
-    with pytest.raises(NotImplementedError, match="A7"):
-        port_knn.knn(s, s, 16, "approximate")
     with pytest.raises(NotImplementedError, match="A10"):
         port_knn.knn(s, s, 16, "kdtree")
+    with pytest.raises(ValueError, match="not understood"):
+        port_knn.knn(s, s, 16, "faiss")
+    idx, d2 = port_knn.knn(s, s, 16, "approximate")
+    ref_i, ref_d = knn_kernels.knn_topk_plain(s, s, 16)
+    assert torch.equal(idx, ref_i) and torch.equal(d2, ref_d)
 
 
 def test_knn_tiled_and_naive_agree_with_the_plain_kernel():
