@@ -21,13 +21,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    recall on the first frame, the frame p50, the card against the CPU on one
    frame, and the sampled recall of the default window on the gaussian
    probe ``0.2·randn(65536, 3)`` (seed 0) that ``bench.py`` reports;
-5. run one frame of each path while recording the inputs it hands to each
+5. the live depth path: ``LivePredictor(Model.load(pretrained/mock_fingertip))``
+   at the L515's 1024×768 intrinsics and 16,384 display points answers
+   z16 depth frames made from 60,000-point mock frames, launch counts
+   checked per frame as in 3, frame p50 printed. On one frame the card is
+   held against the CPU port given the same uniform draw and permutation:
+   selected indices equal, the float32 cloud within one ulp, packed xyz
+   within one float16 ulp, masks equal away from the threshold;
+6. B7's entry point: the table of
+   ``recognizer3d_tpu_torch.benchmarks.bench_roll_stages`` at
+   (512, 128, 1024), with the launch counts set to 0 before it;
+7. a reference-layout torch archive of the bundled weights, written under
+   ``build/``, loaded on the card: the same state and the same predictions
+   as the msgpack archive;
+8. run one frame of each path while recording the inputs it hands to each
    kernel wrapper, then hold every kernel against its plain PyTorch version
-   on those inputs (B5, which neither path runs, on the inputs of B3's
-   level-0 call) and time the kernel, the plain version and (where one
-   exists) a PyTorch library call computing the same function (device time
-   from torch.profiler);
-6. print the ``{"kernels": [...]}`` line, then the result line.
+   on those inputs (B5, which no path runs, on the inputs of B3's
+   level-0 call; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
+   the kernels line reporting S = 45)
+   and time the kernel, the plain version and (where one exists) a PyTorch
+   library call computing the same function (device time from
+   torch.profiler); time the live path's subsample selection (a stable
+   sort) against ``torch.topk``;
+9. print the ``{"kernels": [...]}`` line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -66,6 +82,22 @@ PER_FRAME_64K = {
     "argmin_1nn": 2,
 }
 
+# the live depth path: the app archive at the L515's default intrinsics, 16,384
+# display points (main.py's LivePredictor), depth frames made from mock frames
+# of 60,000 points; per frame the four encoder self-KNNs, the fused LFA at
+# levels 0 and 1, and the 2,500 -> 16,384 1-NN upsample
+LIVE_DISPLAY = 16_384
+PER_FRAME_LIVE = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
+
+# B7 at the TPU benchmark's shape, and its entry point's launches: five runs
+# (the 1-stage base and S = 1, 5, 15, 45), each an untimed and a timed chain
+# of 5 calls
+ROLL_SHAPE = (512, 128, 1024)
+ROLL_STAGES = (1, 5, 15, 45)
+ROLL_TABLE_LAUNCHES = 5 * 2 * 5
+
+TORCH_ARCHIVE = ROOT / "build" / "torch_archive" / "mock_fingertip_reference"
+
 # kernel -> (source, the TPU kernel it replaces), in the order of the line
 KERNELS = {
     "knn_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
@@ -80,12 +112,19 @@ KERNELS = {
                   "recognizer3d_tpu/ops/lfa_pallas.py:192"),
     "knn_window_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
                         "recognizer3d_tpu/ops/knn.py:348"),
+    "roll_stages": ("recognizer3d_tpu_torch/csrc/bitonic.cu",
+                    "benchmarks/bench_roll_stages.py:56"),
 }
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores (the kernels run no tensor-core op)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# float32 lane instructions/s: the 67 TFLOP/s count an FMA as two
+# operations; a compare or a select is one instruction, executed at the
+# FMA's instruction rate, so work made of them is bounded at half the flop
+# rate
+PEAK_F32_INSTR_PER_S = PEAK_F32_OPS_PER_S / 2
 
 
 def _make_frame():
@@ -129,11 +168,12 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> float:
     return device_us / 1e3 / reps
 
 
-def _bound(nbytes: float, nops: float):
+def _bound(nbytes: float, nops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and float32 operations over the float32 rate."""
+    memory rate and float32 operations over ``ops_per_s`` (the flop rate,
+    or the instruction rate for work that is no FMA)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -180,6 +220,13 @@ def _pool2_work(rows: int, k: int, h: int, f: int, residual: bool = True):
         + 2 * c2 * c4 + 2 * f * c4 + 3 * c4        # mlp2, shortcut, lrelu
     )
     return nbytes, rows * per_row
+
+
+def _roll_work(n_elem: int, stages: int):
+    # each element read and written once; per stage a compare and six
+    # selects, then the epilogue's conversion, multiply and add: lane
+    # instructions, bounded at PEAK_F32_INSTR_PER_S
+    return 8 * n_elem, n_elem * (7 * stages + 3)
 
 
 class _Recorder:
@@ -261,13 +308,13 @@ def _card_vs_cpu(Model, archive, frame, label):
     return model
 
 
-def _record_frame(model, frame, targets, per_frame, label):
-    """One Model.predict with the wrappers recording their inputs."""
+def _record_frame(run_frame, targets, per_frame, label):
+    """One frame (``run_frame()``) with the wrappers recording their inputs."""
     import torch
 
     np.random.seed(0)
     with _Recorder(targets) as rec, torch.inference_mode():
-        model.predict(frame)
+        run_frame()
     torch.cuda.synchronize()
     for name, count in per_frame.items():
         if len(rec.calls[name]) != count:
@@ -476,13 +523,192 @@ def _check_kernels(torch, calls, results, label, plain_reps):
               f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
 
 
+def _check_roll_stages(torch, results):
+    """B7 against its plain version, bit-exact, at the TPU benchmark's
+    shape for each stage count, with both timed. The kernels line takes
+    the largest stage count, the TPU benchmark's S = 45."""
+    from recognizer3d_tpu_torch.ops import bitonic_kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.rand(ROLL_SHAPE, generator=gen, device="cuda")
+    for stages in ROLL_STAGES:
+        out = bitonic_kernels.roll_stages(x, stages)
+        ref = bitonic_kernels.roll_stages_plain(x, stages)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            n_diff = int((out != ref).sum())
+            raise RuntimeError(f"roll_stages S={stages}: {n_diff} elements differ")
+        del out, ref
+        ms = _device_ms(torch, lambda: bitonic_kernels.roll_stages(x, stages), 20,
+                        "roll_stages_kernel")
+        plain = _device_ms(torch, lambda: bitonic_kernels.roll_stages_plain(x, stages), 3)
+        bound = _bound(*_roll_work(x.numel(), stages), PEAK_F32_INSTR_PER_S)
+        if stages == ROLL_STAGES[-1]:
+            results.add("roll_stages", 0.0, ms, plain, bound, None)
+        print(f"roll_stages {tuple(x.shape)} S={stages}: bit-exact; kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+
+
+def _time_selection(torch, pipeline, depth):
+    """The live path's subsample selection at its shape (786,432 priorities
+    -> 16,384): the port's stable sort, which reproduces the JAX package's
+    off-TPU ``lax.top_k`` (where the TPU runs ``approx_min_k``), against
+    ``torch.topk`` on the same priorities, and the whole ``subsample_order``
+    (band test, priorities, sort); device ms from torch.profiler."""
+    intr = pipeline.DepthIntrinsics()
+    z = pipeline.depth_to_cloud(torch.from_numpy(depth).cuda(), intr)[None, :, 2].contiguous()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    uniform = torch.rand(z.shape, generator=gen, device="cuda")
+    valid = (z > pipeline.Z_MIN) & (z < pipeline.Z_MAX)
+    priority = torch.where(valid, uniform, torch.full_like(uniform, float("inf")))
+    order_ms = _device_ms(
+        torch, lambda: pipeline.subsample_order(uniform, z, LIVE_DISPLAY), 20
+    )
+    sort_ms = _device_ms(torch, lambda: torch.sort(priority, dim=-1, stable=True), 20)
+    topk_ms = _device_ms(
+        torch, lambda: torch.topk(priority, LIVE_DISPLAY, dim=-1, largest=False), 20
+    )
+    print(f"live selection {z.shape[1]} -> {LIVE_DISPLAY} ({int(valid.sum())} valid): "
+          f"subsample_order {order_ms:.4f} ms, of which stable sort {sort_ms:.4f} ms; "
+          f"torch.topk {topk_ms:.4f} ms", flush=True)
+
+
+def _live_path(torch, build, Model, pipeline, LivePredictor, make_frame):
+    """The depth-camera tick at the app config; returns the launches summed
+    over its frames and a function running one recorded frame."""
+    intr = pipeline.DepthIntrinsics()
+    depths = [
+        pipeline.cloud_to_depth(
+            make_frame(np.random.RandomState(500 + i), 0.45 * i, FRAME_POINTS)[0], intr
+        )
+        for i in range(N_FRAMES)
+    ]
+    t0 = time.perf_counter()
+    live = LivePredictor(Model.load(ARCHIVE, device="cuda"), n_display=LIVE_DISPLAY,
+                         intrinsics=intr)
+    torch.cuda.synchronize()
+    print(f"live: LivePredictor at {intr.width}x{intr.height}, {LIVE_DISPLAY} display "
+          f"points, ready in {time.perf_counter() - t0:.3f} s", flush=True)
+    latencies, totals = [], {}
+    for depth in depths:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        cloud, mask = live.predict_depth(depth)
+        latencies.append((time.perf_counter() - t) * 1e3)
+        launches = dict(build.LAUNCHES)
+        if launches != PER_FRAME_LIVE:
+            raise RuntimeError(f"live: launches {launches} in a frame, expected {PER_FRAME_LIVE}")
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+        valid = (cloud != 0).any(-1)
+        if cloud.shape != (LIVE_DISPLAY, 3) or cloud.dtype != np.float32 or mask.dtype != np.bool_:
+            raise RuntimeError(f"live: cloud {cloud.shape} {cloud.dtype}, mask {mask.dtype}")
+        if not np.isfinite(cloud).all() or valid.sum() < LIVE_DISPLAY // 2:
+            raise RuntimeError(f"live: {int(valid.sum())} valid display points, or not finite")
+        if not 0 < mask.sum() < valid.sum() or (mask & ~valid).any():
+            raise RuntimeError(f"live: degenerate mask: {int(mask.sum())} positives")
+    print(f"live: {len(depths)} depth frames, launches {totals}", flush=True)
+    print(f"live: per-frame latency ms: {[round(x, 3) for x in latencies]}; p50 "
+          f"{statistics.median(latencies):.3f} ms", flush=True)
+    _live_card_vs_cpu(torch, Model, pipeline, LivePredictor, live, intr, depths[1])
+    return totals, lambda: live.predict_depth(depths[0])
+
+
+def _live_card_vs_cpu(torch, Model, pipeline, LivePredictor, live, intr, depth):
+    """The card's live program against the CPU port's on one frame, both
+    given the same uniform draw and permutation. Tolerances: the selected
+    indices equal; the float32 cloud within one ulp (the dewarp divides by
+    tensors, so it should be exact); packed xyz within one float16 ulp;
+    masks equal where the CPU's class-1 confidence lies more than 1e-4
+    from the threshold (read off its masks at 0.5 ± 1e-4)."""
+    thr = 0.5
+    cpu_model = Model.load(ARCHIVE, device="cpu")
+    cpu_live = LivePredictor(cpu_model, n_display=LIVE_DISPLAY, intrinsics=intr)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    uniform = torch.rand((1, depth.size), generator=gen)
+    perm = np.random.RandomState(7).permutation(cpu_model.settings.n_points)
+    perm = torch.from_numpy(perm.astype(np.int32))
+    depth_bits = torch.from_numpy(depth)
+    with torch.inference_mode():
+        cloud_cpu = pipeline.depth_to_cloud(depth_bits, intr)
+        cloud_gpu = pipeline.depth_to_cloud(depth_bits.cuda(), intr)
+        order_cpu, _ = pipeline.subsample_order(uniform, cloud_cpu[None, :, 2], LIVE_DISPLAY)
+        order_gpu, _ = pipeline.subsample_order(
+            uniform.cuda(), cloud_gpu[None, :, 2], LIVE_DISPLAY
+        )
+        if not torch.equal(order_gpu.cpu(), order_cpu):
+            n_diff = int((order_gpu.cpu() != order_cpu).sum())
+            raise RuntimeError(f"live: {n_diff} selected indices differ between card and CPU")
+        cloud_gpu = cloud_gpu.cpu()
+        ulp = torch.from_numpy(np.spacing(np.abs(cloud_cpu.numpy())))
+        cloud_diff = int((cloud_gpu != cloud_cpu).sum())
+        if bool(((cloud_gpu - cloud_cpu).abs() > ulp).any()):
+            raise RuntimeError(f"live: dewarp differs by more than one ulp ({cloud_diff} coords)")
+        packed_gpu = live.program_fn(
+            depth_bits.cuda(), uniform.cuda(), perm.cuda(), thr
+        ).cpu().numpy()
+        packed_cpu = cpu_live.program_fn(depth_bits, uniform, perm, thr).numpy()
+        near = (
+            (cpu_live.program_fn(depth_bits, uniform, perm, thr - 1e-4).numpy()[:, 3] > 0)
+            != (cpu_live.program_fn(depth_bits, uniform, perm, thr + 1e-4).numpy()[:, 3] > 0)
+        )
+    xyz_gpu = packed_gpu[:, :3].astype(np.float32)
+    xyz_cpu = packed_cpu[:, :3].astype(np.float32)
+    if (np.abs(xyz_gpu - xyz_cpu) > np.spacing(np.abs(packed_cpu[:, :3]))).any():
+        raise RuntimeError("live: packed xyz differ by more than one float16 ulp")
+    mask_gpu, mask_cpu = packed_gpu[:, 3] > 0, packed_cpu[:, 3] > 0
+    mask_diff = int((mask_gpu != mask_cpu)[~near].sum())
+    if mask_diff:
+        raise RuntimeError(f"live: {mask_diff} mask points differ away from the threshold")
+    print(f"live: card vs CPU on one frame: {LIVE_DISPLAY} selected indices equal, "
+          f"{cloud_diff} of {cloud_cpu.numel()} dewarped coordinates differ (at most one "
+          f"ulp), packed xyz {int((xyz_gpu != xyz_cpu).sum())} differ (at most one float16 "
+          f"ulp), masks equal ({int(near.sum())} points within 1e-4 of the threshold; "
+          f"{int(mask_cpu.sum())} positives)", flush=True)
+
+
+def _torch_archive(torch, Model, model, frame):
+    """The bundled weights re-saved as a reference-layout torch archive and
+    loaded on the card: the same state and the same predictions."""
+    from recognizer3d_tpu_torch.models import torch_compat
+    from recognizer3d_tpu_torch.models.weights import to_flax_variables
+
+    state = model.module.state_dict()
+    torch_compat.save_reference_archive(
+        TORCH_ARCHIVE, model.settings,
+        torch_compat.variables_to_torch_state_dict(to_flax_variables(state), model.settings),
+    )
+    loaded = Model.load(TORCH_ARCHIVE, device="cuda", transfer_dtype="float32")
+    other = loaded.module.state_dict()
+    if sorted(other) != sorted(state) or not all(torch.equal(state[k], other[k]) for k in state):
+        raise RuntimeError("torch archive: the loaded state differs from the msgpack archive's")
+    np.random.seed(7)
+    ref = model.predict(frame)
+    np.random.seed(7)
+    conf = loaded.predict(frame)
+    if not np.array_equal(conf, ref):
+        raise RuntimeError(
+            f"torch archive: predictions differ by {float(np.abs(conf - ref).max())}"
+        )
+    print(f"torch archive: {TORCH_ARCHIVE.relative_to(ROOT)} loaded on the card; state and "
+          f"predictions on a {frame.shape[0]}-point frame equal the msgpack archive's",
+          flush=True)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from recognizer3d_tpu_torch import Model, Predictor
+    from recognizer3d_tpu_torch.benchmarks import bench_roll_stages
+    from recognizer3d_tpu_torch.data import pipeline
     from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
+    from recognizer3d_tpu_torch.models.live import LivePredictor
     from recognizer3d_tpu_torch.ops import _build, knn as port_knn
     from recognizer3d_tpu_torch.ops import lfa_kernels
 
@@ -546,7 +772,29 @@ def main() -> None:
     del predictor64
     model64 = _card_vs_cpu(Model, APPROX_ARCHIVE, frames64[1], "approx64k")
 
-    # --- 5. each kernel against its plain version ---------------------------
+    # --- 5. the live depth path -----------------------------------------------
+    port_knn.reset_window_guard()
+    launches_live, live_frame = _live_path(
+        torch, _build, Model, pipeline, LivePredictor, make_frame
+    )
+    for name, count in launches_live.items():
+        launches[name] = launches.get(name, 0) + count
+
+    # --- 6. B7's entry point ------------------------------------------------
+    _build.reset_launches()
+    rows = bench_roll_stages.table()
+    launches["roll_stages"] = _build.LAUNCHES["roll_stages"]
+    if dict(_build.LAUNCHES) != {"roll_stages": ROLL_TABLE_LAUNCHES}:
+        raise RuntimeError(f"bench_roll_stages: launches {dict(_build.LAUNCHES)}, expected "
+                           f"{ROLL_TABLE_LAUNCHES} of roll_stages")
+    for stages, total_ms, per_block, per_stage in rows:
+        print(f"bench_roll_stages {ROLL_SHAPE}: stages={stages:3d}  total {total_ms:.4f} ms  "
+              f"per-block {per_block:.4f} us  marginal/stage {per_stage:.4f} us", flush=True)
+
+    # --- 7. a reference torch archive -----------------------------------------
+    _torch_archive(torch, Model, model, frames[1])
+
+    # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
     targets = [
         (port_knn, "knn_topk", "knn_topk"),
@@ -555,8 +803,10 @@ def main() -> None:
         (lfa_kernels, "lfa_round1", "lfa_round1"),
         (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
     ]
-    calls = _record_frame(model, frames[0], targets, PER_FRAME, "app path")
-    calls64 = _record_frame(model64, frames64[0], targets, PER_FRAME_64K, "approx64k")
+    calls = _record_frame(lambda: model.predict(frames[0]), targets, PER_FRAME, "app path")
+    calls64 = _record_frame(lambda: model64.predict(frames64[0]), targets, PER_FRAME_64K,
+                            "approx64k")
+    calls_live = _record_frame(live_frame, targets, PER_FRAME_LIVE, "live")
 
     # the gaussian probe bench.py reports, at the tuned default window
     port_knn.reset_window_guard()
@@ -574,9 +824,15 @@ def main() -> None:
     with torch.inference_mode():
         _check_kernels(torch, calls, results, "app path", plain_reps=10)
         _check_kernels(torch, calls64, results, "approx64k", plain_reps=3)
-    del calls, calls64
+        _check_kernels(torch, calls_live, results, "live", plain_reps=10)
+        _check_roll_stages(torch, results)
+        _time_selection(torch, pipeline, pipeline.cloud_to_depth(
+            make_frame(np.random.RandomState(500), 0.0, FRAME_POINTS)[0],
+            pipeline.DepthIntrinsics(),
+        ))
+    del calls, calls64, calls_live
 
-    # --- 6. result lines ------------------------------------------------------
+    # --- 9. result lines ------------------------------------------------------
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results.rows[name]

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [app|approx64k ...]
+    python3 profile_port.py [app|approx64k|live ...]
 
-For each path named (both by default): the app path is
+For each path named (all three by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
 approx64k is the reference-default ``knn="approximate"`` at 65,536 points
 (the bundled weights with ``bench.py``'s ``settings64a``, saved under
-``build/`` as ``chip_smoke.py`` does) on mock frames of 150,000 points.
+``build/`` as ``chip_smoke.py`` does) on mock frames of 150,000 points;
+live is the depth-camera tick, ``LivePredictor`` of the bundled archive at
+the L515's 1024×768 intrinsics and 16,384 display points, on z16 frames
+made from mock frames of 60,000 points.
 Each path's predictor is warmed up on 5 frames, then its frames (20 of the
-app path, 10 of approx64k) are timed untraced, every path before any
-tracing, and then traced with ``torch.profiler`` (CPU and CUDA activity);
-the script prints: the wall time per frame, the device time per frame
-summed over kernels and copies, the device's idle share of the traced wall
-time, and the operators and kernels with the most device time. The card's
-name and power limit come first.
+app and live paths, 10 of approx64k) are timed untraced, every path before
+any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
+activity); the script prints: the wall time per frame, the device time per
+frame summed over kernels and copies, the device's idle share of the
+traced wall time, the device kernels and copies per frame, and the
+operators and kernels with the most device time. The card's name and power
+limit come first.
 """
 
 import statistics
@@ -30,6 +34,7 @@ from chip_smoke import (
     APPROX_SETTINGS,
     ARCHIVE,
     FRAME_POINTS,
+    LIVE_DISPLAY,
     _gpu_line,
     _make_frame,
 )
@@ -38,28 +43,28 @@ FRAMES = 20
 TOP = 25
 
 
-def _time(torch, predictor, frames, label: str) -> None:
+def _time(torch, predict, frames, label: str) -> None:
     for frame in frames[:5]:
-        predictor.predict(frame)
+        predict(frame)
     torch.cuda.synchronize()
     walls = []
     for frame in frames:
         t = time.perf_counter()
-        predictor.predict(frame)
+        predict(frame)
         walls.append((time.perf_counter() - t) * 1e3)
     q1, q2, q3 = statistics.quantiles(walls, n=4)
-    print(f"{label}: untraced wall per frame over {len(frames)} frames of "
-          f"{frames[0].shape[0]} points: p25 {q1:.3f} ms, p50 {q2:.3f} ms, "
+    print(f"{label}: untraced wall per frame over {len(frames)} frames of shape "
+          f"{frames[0].shape}: p25 {q1:.3f} ms, p50 {q2:.3f} ms, "
           f"p75 {q3:.3f} ms, min {min(walls):.3f} ms", flush=True)
 
 
-def _profile(torch, predictor, frames, label: str) -> None:
+def _profile(torch, predict, frames, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for frame in frames:
-            predictor.predict(frame)
+            predict(frame)
         torch.cuda.synchronize()
         traced_wall = (time.perf_counter() - t) * 1e3 / len(frames)
     events = prof.key_averages()
@@ -71,8 +76,12 @@ def _profile(torch, predictor, frames, label: str) -> None:
         print(f"{label}: device time: not measured (the profiler recorded no CUDA activity)")
         return
     device_ms = device_us / 1e3 / len(frames)
+    device_ops = sum(
+        e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+    )
     print(f"{label}: traced wall per frame {traced_wall:.3f} ms; device time per frame "
-          f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}",
+          f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}; "
+          f"{device_ops / len(frames):.1f} device kernels and copies per frame",
           flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
@@ -86,13 +95,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: torch.cuda.is_available() is False")
     from recognizer3d_tpu_torch import Model, Predictor
+    from recognizer3d_tpu_torch.data import pipeline
+    from recognizer3d_tpu_torch.models.live import LivePredictor
 
-    paths = sys.argv[1:] or ["app", "approx64k"]
+    paths = sys.argv[1:] or ["app", "approx64k", "live"]
     print(f"gpu: {_gpu_line()}", flush=True)
     make_frame = _make_frame()
     runs = []
     for path in paths:
-        if path == "app":
+        if path in ("app", "live"):
             archive, points, frames = ARCHIVE, FRAME_POINTS, FRAMES
         elif path == "approx64k":
             Model.load(ARCHIVE, device="cuda", **APPROX_SETTINGS).save(APPROX_ARCHIVE)
@@ -103,7 +114,14 @@ def main() -> None:
             make_frame(np.random.RandomState(200 + i), 0.3 * i, points)[0]
             for i in range(frames)
         ]
-        runs.append((Predictor(archive, warmup_points=points), clouds, path))
+        if path == "live":
+            intr = pipeline.DepthIntrinsics()
+            live = LivePredictor(Model.load(archive, device="cuda"), n_display=LIVE_DISPLAY,
+                                 intrinsics=intr)
+            depths = [pipeline.cloud_to_depth(c, intr) for c in clouds]
+            runs.append((live.predict_depth, depths, path))
+        else:
+            runs.append((Predictor(archive, warmup_points=points).predict, clouds, path))
     # every untraced timing first: a profiler session slows the launches
     # that follow it in the process
     for run in runs:

@@ -18,8 +18,11 @@ With ``knn="approximate"`` in its Morton-window regime, the first predict of
 a ``Model`` runs the session recall guard (``ops/knn.ensure_window_recall``)
 on that cloud, as the JAX facade does.
 
+``Model.load`` also reads the reference implementation's archives, whose
+``model`` blob is a torch ``state_dict`` (``models/torch_compat.py``).
+
 Not ported yet: training and evaluation (ROADMAP A6), the million-point
-forward (A8), reference PyTorch archives (listed in ROADMAP).
+forward (A8).
 """
 
 import json
@@ -37,6 +40,7 @@ import torch
 from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
 from recognizer3d_tpu_torch.models.randlanet import RandLANet
 from recognizer3d_tpu_torch.models.settings import RandLANetSettings
+from recognizer3d_tpu_torch.models.torch_compat import load_reference_weights
 from recognizer3d_tpu_torch.models.weights import (
     from_flax_variables,
     to_flax_variables,
@@ -120,7 +124,8 @@ class Model:
     def load(path: Path, device="cuda", transfer_dtype: str = "float32",
              **kwargs) -> "Model":
         """Load a model archive written by either package (flax msgpack
-        weights). kwargs override settings fields after load."""
+        weights) or by the reference implementation (a torch
+        ``state_dict``). kwargs override settings fields after load."""
         path = Path(path)
         assert path.is_file(), f"Could not find model file at {path}!"
         with tempfile.TemporaryDirectory() as tmp_str:
@@ -137,24 +142,25 @@ class Model:
         for key, value in kwargs.items():
             if hasattr(settings, key):
                 setattr(settings, key, value)
-        try:
-            variables = msgpack_lite.msgpack_restore(blob)
-        except ValueError as err:
-            raise NotImplementedError(
-                f"{path}: weights are not a flax msgpack blob; reference "
-                "PyTorch archives are not supported yet (see ROADMAP)"
-            ) from err
-        if not isinstance(variables, dict) or "params" not in variables:
-            raise NotImplementedError(
-                f"{path}: no flax variables in the archive; reference "
-                "PyTorch archives are not supported yet (see ROADMAP)"
-            )
         return Model(
             settings,
-            weights=from_flax_variables(variables),
+            weights=from_flax_variables(Model._decode_weights(blob, settings)),
             device=device,
             transfer_dtype=transfer_dtype,
         )
+
+    @staticmethod
+    def _decode_weights(blob: bytes, settings: RandLANetSettings) -> Dict:
+        """The archive's ``model`` blob -> flax-layout variables: a flax
+        msgpack blob as it is, else a reference PyTorch ``state_dict``
+        (``models/torch_compat.py``)."""
+        try:
+            restored = msgpack_lite.msgpack_restore(blob)
+        except ValueError:
+            restored = None
+        if isinstance(restored, dict) and "params" in restored:
+            return restored
+        return load_reference_weights(blob, settings)
 
     def save(self, path: Path) -> None:
         """Save as a zip of ``config`` (JSON) + ``model`` (flax msgpack),

@@ -109,6 +109,8 @@ _SIGNATURES = {
     "r3d_lfa_pool2_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (rpe2, g2, consts, out, rows, K, h, stream)
     "r3d_lfa_pool2": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (x, out, rows, ts, stages, stream)
+    "r3d_roll_stages": [_P, _P, _I, _I, _I, _P],
 }
 
 

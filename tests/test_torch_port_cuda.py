@@ -3,18 +3,27 @@
 These need an NVIDIA GPU and skip without one. They cover the shapes the
 main path does not reach (``chip_smoke.py`` holds the main path's): every
 best-list width of the KNN kernel up to k = 128, ragged support tiles,
-batches, and the wrappers' refusals. The file imports neither JAX nor the
-JAX package, so it also runs where only the port is installed:
+batches, the bitonic stage kernel at other shapes and stage counts, one
+small live depth frame on the card against the CPU, and the wrappers'
+refusals. The file imports neither JAX nor the JAX package, so it also
+runs where only the port is installed:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from recognizer3d_tpu_torch.ops import _build, knn_kernels, lfa_kernels
+from recognizer3d_tpu_torch import Model
+from recognizer3d_tpu_torch.data import pipeline
+from recognizer3d_tpu_torch.models.live import LivePredictor
+from recognizer3d_tpu_torch.ops import _build, bitonic_kernels, knn_kernels, lfa_kernels
 from recognizer3d_tpu_torch.ops.knn import window_starts
+
+ARCHIVE = Path(__file__).resolve().parents[1] / "pretrained" / "mock_fingertip"
 
 pytestmark = pytest.mark.cuda
 
@@ -164,3 +173,57 @@ def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
     with pytest.raises(ValueError):
         knn_kernels.knn_window_topk(s, s, 16, starts, 201, 64)
     assert _build.LAUNCHES == counts
+
+
+@pytest.mark.parametrize(
+    "shape,stages,grid",
+    [
+        ((3, 5, 64), 7, None),      # the narrowest row, d = 32 reached
+        ((1, 7, 256), 2, 4),        # two stages only, ties
+        ((2, 3, 1024), 13, None),   # the widest row
+        ((4, 512), 0, None),        # no stage: the epilogue alone
+        ((33, 128), 6, 2),          # 2-D input, heavy ties
+    ],
+)
+def test_roll_stages_kernel_matches_plain(dev, shape, stages, grid):
+    """Bit-identical to the plain version, the duplicated payloads of tied
+    values included."""
+    x = np.random.RandomState(stages).rand(*shape)
+    if grid:
+        x = np.round(x * grid) / grid
+    x = torch.tensor(x, dtype=torch.float32, device=dev)
+    _build.reset_launches()
+    out = bitonic_kernels.roll_stages(x, stages)
+    assert _build.LAUNCHES == {"roll_stages": 1}
+    ref = bitonic_kernels.roll_stages_plain(x, stages)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="contiguous"):
+        bitonic_kernels.roll_stages(x.transpose(0, -1).contiguous().transpose(0, -1), 1)
+
+
+def test_live_frame_on_the_card_matches_the_cpu(dev):
+    """One 160×120 depth frame through the live program on the card and on
+    the CPU, given the same uniform draw and permutation: equal selections
+    and clouds (the dewarp divides by tensors on both), packed xyz within
+    one float16 ulp, masks equal away from the threshold."""
+    intr = pipeline.DepthIntrinsics(width=160, height=120, fx=115.0, fy=115.0,
+                                    cx=80.0, cy=60.0)
+    rng = np.random.RandomState(0)
+    z = rng.uniform(0.3, 0.6, 40_000).astype(np.float32)
+    xy = rng.uniform(-0.6, 0.6, (40_000, 2)).astype(np.float32) * z[:, None]
+    depth = pipeline.cloud_to_depth(np.column_stack([xy, z]), intr)
+    uniform = torch.rand((1, depth.size), generator=torch.Generator().manual_seed(1))
+    perm = torch.from_numpy(rng.permutation(2500).astype(np.int32))
+    bits = torch.from_numpy(depth)
+    gpu = LivePredictor(Model.load(ARCHIVE, device="cuda"), n_display=4096, intrinsics=intr)
+    cpu = LivePredictor(Model.load(ARCHIVE, device="cpu"), n_display=4096, intrinsics=intr)
+    cloud = pipeline.depth_to_cloud(bits, intr)
+    assert torch.equal(pipeline.depth_to_cloud(bits.to(dev), intr).cpu(), cloud)
+    out = gpu.program_fn(bits.to(dev), uniform.to(dev), perm.to(dev), 0.5).cpu().numpy()
+    ref = cpu.program_fn(bits, uniform, perm, 0.5).numpy()
+    near = (cpu.program_fn(bits, uniform, perm, 0.5 - 1e-4).numpy()[:, 3] > 0) != (
+        cpu.program_fn(bits, uniform, perm, 0.5 + 1e-4).numpy()[:, 3] > 0
+    )
+    np.testing.assert_array_equal(out[:, :3], ref[:, :3])
+    np.testing.assert_array_equal((out[:, 3] > 0)[~near], (ref[:, 3] > 0)[~near])

@@ -11,6 +11,8 @@ neighbour sets. (The JAX CPU route for ``knn="naive"`` uses the expanded
 
 import importlib.machinery
 import importlib.util
+import io
+import pickle
 import subprocess
 import sys
 import zipfile
@@ -25,9 +27,11 @@ import torch
 from flax import serialization
 
 from recognizer3d_tpu.models import randlanet as jax_rl
+from recognizer3d_tpu.models import torch_compat as jax_compat
 from recognizer3d_tpu.models.facade import Model as JaxModel
 from recognizer3d_tpu.models.settings import RandLANetSettings as JaxSettings
 from recognizer3d_tpu_torch import Model, Predictor, RandLANetSettings
+from recognizer3d_tpu_torch.models import torch_compat as port_compat
 from recognizer3d_tpu_torch.models.weights import from_flax_variables, to_flax_variables
 from recognizer3d_tpu_torch.utils import msgpack_lite
 
@@ -121,6 +125,88 @@ def test_save_load_round_trips_through_both_packages(tmp_path):
     again = Model.load(tmp_path / "from_jax", device="cpu")
     _assert_state_equal(again.module.state_dict(), port.module.state_dict())
     assert again.settings == port.settings
+
+
+def _reference_archive(path: Path, state_dict) -> Path:
+    """A reference-layout archive: the bundled config beside a torch.save
+    of ``{"model": state_dict}``."""
+    with zipfile.ZipFile(ARCHIVE) as z:
+        config = z.read("config")
+    tensors = {k: torch.from_numpy(np.array(v)) for k, v in state_dict.items()}
+    buf = io.BytesIO()
+    torch.save({"model": tensors}, buf)
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("config", config)
+        z.writestr("model", buf.getvalue())
+    return path
+
+
+def test_torch_compat_copy_matches_the_jax_package():
+    """The port's copy of the converter maps the bundled weights to the
+    same reference state_dict and back to the same flax tree, leaf for leaf
+    and bit for bit, as the JAX package's."""
+    variables = _flax_variables()
+    settings = JaxSettings(n_classes=2, layer_sizes=[16, 64, 128, 256])
+    sd = port_compat.variables_to_torch_state_dict(variables, settings)
+    ref_sd = jax_compat.variables_to_torch_state_dict(variables, settings)
+    assert sorted(sd) == sorted(ref_sd)
+    for key in sd:
+        np.testing.assert_array_equal(sd[key], ref_sd[key], err_msg=key)
+    back = jax.tree_util.tree_leaves_with_path(
+        port_compat.torch_state_dict_to_variables(sd, settings)
+    )
+    ref = jax.tree_util.tree_leaves_with_path(
+        jax_compat.torch_state_dict_to_variables(ref_sd, settings)
+    )
+    assert [p for p, _ in back] == [p for p, _ in ref]
+    for (_, x), (_, y) in zip(back, ref):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_reference_torch_archive_loads_in_both_packages(tmp_path, force_fused):
+    """The JAX package's ``variables_to_torch_state_dict`` of the bundled
+    weights, written as a reference torch archive, loads in the port to the
+    msgpack archive's exact state, and its logits match the JAX package's
+    load of the same file within 1e-4 (a 2,500-point mock cloud)."""
+    jax_settings = JaxSettings(n_classes=2, layer_sizes=[16, 64, 128, 256])
+    sd = jax_compat.variables_to_torch_state_dict(_flax_variables(), jax_settings)
+    path = _reference_archive(tmp_path / "reference", sd)
+    port = Model.load(path, device="cpu")
+    _assert_state_equal(port.module.state_dict(), Model.load(ARCHIVE, device="cpu")
+                        .module.state_dict())
+    jax_model = JaxModel.load(path)
+    frame, _ = _make_frame()(np.random.RandomState(6), 0.9, 2500)
+    perm = np.random.RandomState(3).permutation(2500)
+    kwargs = dict(vars(port.settings), knn="pallas")
+    ref = _jax_logits(kwargs, jax_model.variables, frame[None], perm)
+    with torch.inference_mode():
+        out = port.module(torch.from_numpy(frame[None]), torch.from_numpy(perm))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
+
+
+def test_port_writes_reference_archives_the_jax_package_reads(tmp_path):
+    """``torch_compat.save_reference_archive`` of the port's weights: the
+    JAX package loads it to the bundled flax variables exactly, and the
+    port reads it back to the same state. A blob that is neither msgpack
+    nor a torch archive raises."""
+    port = Model.load(ARCHIVE, device="cpu")
+    sd = port_compat.variables_to_torch_state_dict(
+        to_flax_variables(port.module.state_dict()), port.settings
+    )
+    path = tmp_path / "from_port"
+    port_compat.save_reference_archive(path, port.settings, sd)
+    jax_vars = jax.tree_util.tree_leaves_with_path(
+        jax.device_get(JaxModel.load(path).variables)
+    )
+    ref = jax.tree_util.tree_leaves_with_path(_flax_variables())
+    assert [p for p, _ in jax_vars] == [p for p, _ in ref]
+    for (_, x), (_, y) in zip(jax_vars, ref):
+        np.testing.assert_array_equal(np.asarray(x), y)
+    again = Model.load(path, device="cpu")
+    _assert_state_equal(again.module.state_dict(), port.module.state_dict())
+    assert again.settings == port.settings
+    with pytest.raises(pickle.UnpicklingError):
+        Model._decode_weights(b"not weights", port.settings)
 
 
 # --- the slice -----------------------------------------------------------------
