@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. require CUDA and print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``recognizer3d_tpu_torch/csrc`` into
-   ``build/torch_kernels/`` and print the build seconds;
+   ``build/torch_kernels/`` and print the build seconds and the compiler's
+   registers, shared memory and spills for the window kernel (B6) and the
+   tiled pool-2 kernel (B3, B5);
 3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
    frames of 60,000 points with every launch count set to 0 just before
    each frame; each kernel must have been launched its expected number of
@@ -98,6 +100,9 @@ ROLL_TABLE_LAUNCHES = 5 * 2 * 5
 
 TORCH_ARCHIVE = ROOT / "build" / "torch_archive" / "mock_fingertip_reference"
 
+# kernels whose registers, shared memory and spills the build report prints
+PTXAS_KERNELS = ("knn_window_kernel", "lfa_pool2_tile_kernel")
+
 # kernel -> (source, the TPU kernel it replaces), in the order of the line
 KERNELS = {
     "knn_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
@@ -181,13 +186,16 @@ def _bound(nbytes: float, nops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
 
 
 def _knn_work(m: int, n: int, k: int):
-    # 3 subtractions, 3 multiplications, 2 additions per (query, support) pair
-    return 4 * 3 * (m + n) + 8 * m * k, 8 * m * n
+    # 3 subtractions, 3 multiplications, 2 additions and a compare per
+    # (query, support) pair, no FMA (the kernels forbid contraction): lane
+    # instructions, bounded at PEAK_F32_INSTR_PER_S
+    return 4 * 3 * (m + n) + 8 * m * k, 9 * m * n
 
 
 def _window_work(m: int, n: int, w: int, k: int):
-    # the window search evaluates w distances per query
-    return 4 * 3 * (m + n) + 4 * m * 2 * k, 8 * m * w
+    # the window search evaluates w distances per query, 9 lane
+    # instructions each as in _knn_work
+    return 4 * 3 * (m + n) + 4 * m * 2 * k, 9 * m * w
 
 
 def _round1_work(rows: int, k: int, h: int):
@@ -367,7 +375,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         lib = _device_ms(
             torch, lambda: torch.cdist(query, support).topk(k, -1, largest=False), plain_reps
         )
-        bound = _bound(*_knn_work(m, n, k))
+        bound = _bound(*_knn_work(m, n, k), PEAK_F32_INSTR_PER_S)
         results.add("knn_topk", err, ms, plain, bound, lib)
         print(f"{label} knn_topk M={m} N={n} k={k}: sets equal, max|d2 err| {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
@@ -392,7 +400,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
                            max(1, plain_reps // 2))
         lib = _device_ms(torch, lambda: torch.cdist(query, support).argmin(-1),
                          max(1, plain_reps // 2))
-        bound = _bound(*_knn_work(m, n, 1))
+        bound = _bound(*_knn_work(m, n, 1), PEAK_F32_INSTR_PER_S)
         results.add("argmin_1nn", err, ms, plain, bound, lib)
         print(f"{label} argmin_1nn M={m} N={n}: idx equal on {int(untied.sum())} untied "
               f"queries, max|d2 err| {err:.3g}; kernel {ms:.4f} ms, plain "
@@ -424,14 +432,14 @@ def _check_kernels(torch, calls, results, label, plain_reps):
 
         ms = _device_ms(
             torch, lambda: knn_kernels.knn_window_topk(support, query, k, starts, w, qb),
-            20, "argmin_kernel" if k == 1 else "knn_topk_kernel",
+            20, "argmin_kernel" if k == 1 else "knn_window_kernel",
         )
         plain = _device_ms(
             torch, lambda: knn_kernels.knn_window_topk_plain(support, query, k, starts, w, qb),
             plain_reps,
         )
         lib = _device_ms(torch, library, plain_reps)
-        bound = _bound(*_window_work(m, n, w, k))
+        bound = _bound(*_window_work(m, n, w, k), PEAK_F32_INSTR_PER_S)
         results.add("knn_window_topk", 0.0, ms, plain, bound, lib)
         print(f"{label} knn_window_topk M={m} N={n} w={w} qb={qb} k={k}: indices and "
               f"d2 equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, window cdist+"
@@ -481,7 +489,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             raise RuntimeError(f"{label} lfa_pool2_res h={h}: max abs err {err}")
         ms = _device_ms(
             torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
-            "lfa_pool2_res_kernel",
+            "lfa_pool2_tile_kernel",
         )
         plain = _device_ms(
             torch,
@@ -508,7 +516,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         if err > 1e-5:
             raise RuntimeError(f"{label} lfa_pool2 h={h}: max abs err {err}")
         ms = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
-                        50, "lfa_pool2_res_kernel")
+                        50, "lfa_pool2_tile_kernel")
         plain = _device_ms(
             torch,
             lambda: lfa_kernels.attentive_pool2_plain(
@@ -570,9 +578,11 @@ def _time_selection(torch, pipeline, depth):
     topk_ms = _device_ms(
         torch, lambda: torch.topk(priority, LIVE_DISPLAY, dim=-1, largest=False), 20
     )
+    # bound: the float32 priorities read once, the int64 indices written once
+    bound = _bound(4 * z.shape[1] + 8 * LIVE_DISPLAY, 0)
     print(f"live selection {z.shape[1]} -> {LIVE_DISPLAY} ({int(valid.sum())} valid): "
           f"subsample_order {order_ms:.4f} ms, of which stable sort {sort_ms:.4f} ms; "
-          f"torch.topk {topk_ms:.4f} ms", flush=True)
+          f"torch.topk {topk_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
 
 
 def _live_path(torch, build, Model, pipeline, LivePredictor, make_frame):
@@ -725,6 +735,8 @@ def main() -> None:
     lib_path = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s -> {lib_path}", flush=True)
+    for line in _build.ptxas_report(PTXAS_KERNELS):
+        print(f"ptxas: {line}", flush=True)
 
     make_frame = _make_frame()
     frames = [

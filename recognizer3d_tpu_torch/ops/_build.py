@@ -59,9 +59,14 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _ptxas_log(lib_path: Path) -> Path:
+    return lib_path.with_suffix(".ptxas.log")
+
+
 def build() -> Path:
     """Compile the kernels if the library for this source hash is missing;
-    return its path."""
+    return its path. The compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept beside the library."""
     lib_path = BUILD_DIR / f"libr3d_kernels_{_source_hash()}.so"
     if lib_path.is_file():
         return lib_path
@@ -73,18 +78,20 @@ def build() -> Path:
         for src in sorted(CSRC.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
-        failed = []
+        failed, logs = [], []
         for cmd, proc in procs:
             log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n{log}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        _ptxas_log(lib_path).write_text("".join(logs))
         tmp_lib = Path(tmp) / lib_path.name
         cmd = [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -92,6 +99,22 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
         os.replace(tmp_lib, lib_path)
     return lib_path
+
+
+def ptxas_report(names) -> list:
+    """One line per compiled kernel whose (mangled) name contains one of
+    ``names``: its registers, shared memory and spills, from the
+    ``-Xptxas -v`` report of the last build of this source hash."""
+    log = _ptxas_log(build()).read_text().splitlines()
+    lines, kernel = [], None
+    for line in log:
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and any(n in kernel for n in names) and (
+            "spill" in line or "Used" in line
+        ):
+            lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 _P = ctypes.c_void_p

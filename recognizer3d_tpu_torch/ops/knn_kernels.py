@@ -197,8 +197,9 @@ def knn_window_topk(
 
     :param starts: (ceil(M / query_block),) int32 window starts in
         [0, N - window_points], on the clouds' device.
-    :param query_block: a multiple of 8 for k >= 2 (a CUDA block's eight
-        queries share one window) and of 32 for k = 1.
+    :param query_block: a multiple of 8 for k >= 2 and of 32 for k = 1
+        (the k = 1 kernel's CUDA blocks of 32 to 256 queries must each lie
+        in one query block, so that a block stages one window).
     """
     _check_clouds(support, query)
     B, n, _ = support.shape

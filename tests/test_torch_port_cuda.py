@@ -3,7 +3,9 @@
 These need an NVIDIA GPU and skip without one. They cover the shapes the
 main path does not reach (``chip_smoke.py`` holds the main path's): every
 best-list width of the KNN kernel up to k = 128, ragged support tiles,
-batches, the bitonic stage kernel at other shapes and stage counts, one
+batches, the window kernel on Morton-sorted clouds at every window of the
+recall guard's ladder, the pool-2 kernels on ragged row tiles and other
+neighbour counts, the bitonic stage kernel at other shapes and stage counts, one
 small live depth frame on the card against the CPU, and the wrappers'
 refusals. The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
@@ -20,7 +22,7 @@ import torch
 from recognizer3d_tpu_torch import Model
 from recognizer3d_tpu_torch.data import pipeline
 from recognizer3d_tpu_torch.models.live import LivePredictor
-from recognizer3d_tpu_torch.ops import _build, bitonic_kernels, knn_kernels, lfa_kernels
+from recognizer3d_tpu_torch.ops import _build, bitonic_kernels, knn_kernels, lfa_kernels, morton
 from recognizer3d_tpu_torch.ops.knn import window_starts
 
 ARCHIVE = Path(__file__).resolve().parents[1] / "pretrained" / "mock_fingertip"
@@ -105,6 +107,28 @@ def test_knn_window_kernel_matches_plain(dev, b, n, m, k, w, qb, grid):
     assert bool(((idx >= lo[None, :, None]) & (idx < lo[None, :, None] + w)).all())
 
 
+@pytest.mark.parametrize(
+    "n,w,k,grid",
+    [(20000, 4096, 16, None), (20000, 4096, 32, None), (20000, 4096, 64, None),
+     (20000, 8192, 16, None), (20000, 8192, 32, None), (20000, 8192, 64, None),
+     (40000, 16384, 16, None), (40000, 16384, 32, None), (40000, 16384, 64, None),
+     (20000, 8192, 32, 12)],  # the last: a coarse grid, many tied distances
+)
+def test_knn_window_kernel_on_morton_sorted_clouds(dev, n, w, k, grid):
+    """The main path's layout (Morton-sorted self-KNN, query_block 512) at
+    every window of the recall guard's ladder: the kernel scans each window
+    outward from the query's curve position, out of index order, and must
+    still equal the plain version's stable sort, ties included."""
+    x = _cloud(w + k, 1, n, dev, grid)
+    x = morton.sort_rows(x, morton.morton_order(x)).contiguous()
+    starts = torch.from_numpy(window_starts(n, n, w, 512)).to(dev)
+    idx, d2 = knn_kernels.knn_window_topk(x, x, k, starts, w, 512)
+    ref_i, ref_d = knn_kernels.knn_window_topk_plain(x, x, k, starts, w, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, ref_d)
+    assert torch.equal(idx, ref_i)
+
+
 def _rand(rng, dev, *shape, scale=0.3, low=None):
     x = rng.uniform(low, 1.5, shape) if low is not None else rng.randn(*shape) * scale
     return torch.tensor(x, dtype=torch.float32, device=dev)
@@ -147,6 +171,37 @@ def test_lfa_kernels_match_plain(dev, b, n, h, f):
     pooled2 = lfa_kernels.attentive_pool2(rpe2, g2, *p2, k=k)
     ref2 = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*p2), k)
     torch.testing.assert_close(pooled2, ref2, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "n,h,f,k",
+    [(n, h, f, 32) for n in (1, 77, 16387) for h in (8, 32) for f in (3, 8, 32)]
+    + [(77, 8, 8, 128), (300, 8, 3, 16), (77, 32, 32, 16), (40, 32, 8, 8)],
+)
+def test_pool2_kernels_on_ragged_tiles(dev, n, h, f, k):
+    """B3 and B5 within 1e-5 of their plain versions at row counts that
+    are no multiple of the kernel's row tile (8 rows at h = 32, 16 at
+    h = 8), and at K of one softmax chunk (8, 16) and of several (128)."""
+    rng = np.random.RandomState(n + h + f + k)
+    c2 = 2 * h
+    rpe2 = _rand(rng, dev, 1, n, k * h).abs()
+    g2 = _rand(rng, dev, 1, n, k, h).abs()
+    head = [
+        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
+        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
+    ]
+    f_in = _rand(rng, dev, 1, n, f, scale=1.0)
+    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
+    _build.reset_launches()
+    out = lfa_kernels.attentive_pool2_residual(rpe2, g2, *head, f_in, *tail, k=k)
+    pooled = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+    assert _build.LAUNCHES == {"lfa_pool2_res": 1, "lfa_pool2": 1}
+    ref = lfa_kernels.attentive_pool2_residual_plain(
+        rpe2, g2, f_in, lfa_kernels.pool2_constants(*head, *tail), k
+    )
+    ref_p = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*head), k)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
 
 
 def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
