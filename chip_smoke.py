@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. require CUDA and print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``recognizer3d_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build seconds and the compiler's
-   registers, shared memory and spills for the window kernel (B6) and the
-   tiled pool-2 kernel (B3, B5);
+   registers, shared memory and spills for the culled exact KNN kernel
+   (B1), the window kernel (B6), the tiled round-1 kernel (B2) and the tiled
+   pool-2 kernel (B3, B5);
 3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
    frames of 60,000 points with every launch count set to 0 just before
    each frame; each kernel must have been launched its expected number of
@@ -43,8 +44,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    the kernels line reporting S = 45)
    and time the kernel, the plain version and (where one exists) a PyTorch
    library call computing the same function (device time from
-   torch.profiler); time the live path's subsample selection (a stable
-   sort) against ``torch.topk``;
+   torch.profiler). B1 must equal its plain version with the indices in
+   order, as the window kernel must; its bound counts the distances its
+   culled selection evaluates at those inputs (the CPU model in
+   ``benchmarks/knn_cull.py``), not every pair. Time the live path's subsample
+   selection (a stable sort) against ``torch.topk``, and the exact k = 32
+   self-KNN of the approx64k frame's Morton-sorted 65,536-point level 0
+   (the recall guard's exact fallback) on B1 and on the brute-force
+   streaming kernel that B1 replaced, both held against the plain version;
 9. print the ``{"kernels": [...]}`` line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -101,7 +108,8 @@ ROLL_TABLE_LAUNCHES = 5 * 2 * 5
 TORCH_ARCHIVE = ROOT / "build" / "torch_archive" / "mock_fingertip_reference"
 
 # kernels whose registers, shared memory and spills the build report prints
-PTXAS_KERNELS = ("knn_window_kernel", "lfa_pool2_tile_kernel")
+PTXAS_KERNELS = ("knn_cull_kernel", "knn_window_kernel", "lfa_round1_tile_kernel",
+                 "lfa_pool2_tile_kernel")
 
 # kernel -> (source, the TPU kernel it replaces), in the order of the line
 KERNELS = {
@@ -190,6 +198,22 @@ def _knn_work(m: int, n: int, k: int):
     # (query, support) pair, no FMA (the kernels forbid contraction): lane
     # instructions, bounded at PEAK_F32_INSTR_PER_S
     return 4 * 3 * (m + n) + 8 * m * k, 9 * m * n
+
+
+def _cull_work(support, query, k: int):
+    # B1 reads each input once and writes (idx, d2) once, and spends 9 lane
+    # instructions (as in _knn_work) on each distance the culled selection
+    # evaluates, counted by its CPU model (benchmarks/knn_cull.py) at these
+    # inputs with one query a warp, the launcher's choice for a launch of
+    # one wave, as every call of the served paths is
+    from recognizer3d_tpu_torch.benchmarks import knn_cull
+
+    b, m, n = query.shape[0], query.shape[1], support.shape[1]
+    distances = sum(
+        int(knn_cull.select(s, q, k, 1)[2]["distances"].sum())
+        for s, q in zip(support.cpu().numpy(), query.cpu().numpy())
+    )
+    return b * (4 * 3 * (m + n) + 8 * m * k), 9 * distances
 
 
 def _window_work(m: int, n: int, w: int, k: int):
@@ -364,20 +388,21 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         idx, d2 = knn_kernels.knn_topk(support, query, k)
         ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, k)
         torch.cuda.synchronize()
-        same_sets = torch.equal(torch.sort(idx, -1)[0], torch.sort(ref_i, -1)[0])
-        err = (d2 - ref_d).abs().max().item()
-        if not same_sets or err > 1e-6:
-            raise RuntimeError(f"{label} knn_topk N={n}: sets equal {same_sets}, d2 err {err}")
+        if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
+            raise RuntimeError(
+                f"{label} knn_topk N={n}: indices equal {torch.equal(idx, ref_i)}, "
+                f"d2 equal {torch.equal(d2, ref_d)}"
+            )
         ms = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), 50,
-                        "knn_topk_kernel")
+                        "knn_cull_kernel")
         plain = _device_ms(torch, lambda: knn_kernels.knn_topk_plain(support, query, k),
                            plain_reps)
         lib = _device_ms(
             torch, lambda: torch.cdist(query, support).topk(k, -1, largest=False), plain_reps
         )
-        bound = _bound(*_knn_work(m, n, k), PEAK_F32_INSTR_PER_S)
-        results.add("knn_topk", err, ms, plain, bound, lib)
-        print(f"{label} knn_topk M={m} N={n} k={k}: sets equal, max|d2 err| {err:.3g}; "
+        bound = _bound(*_cull_work(support, query, k), PEAK_F32_INSTR_PER_S)
+        results.add("knn_topk", 0.0, ms, plain, bound, lib)
+        print(f"{label} knn_topk M={m} N={n} k={k}: indices (in order) and d2 equal; "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
               f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
 
@@ -459,7 +484,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         if err > 1e-5:
             raise RuntimeError(f"{label} lfa_round1 h={h}: max abs err {err}")
         ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
-                        "lfa_round1_kernel")
+                        "lfa_round1_tile_kernel")
         plain = _device_ms(
             torch,
             lambda: lfa_kernels.lfa_round1_plain(
@@ -529,6 +554,41 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         print(f"{label} lfa_pool2 (B5, on B3's level-0 inputs) N={rows} K={k} h={h}: "
               f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
               f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+
+
+def _exact_64k(torch, morton, knn_kernels, cloud):
+    """The exact k = 32 self-KNN of a Morton-sorted 65,536-point level (the
+    recall guard's exact fallback at approx64k) on B1 and on the brute-force
+    streaming kernel it replaced (reached through the window route with the whole
+    support as one window, which takes that kernel above 19,370 points),
+    both bit-identical to the plain version, timed in the same process."""
+    k = 32
+    x = torch.tensor(cloud[None], device="cuda")
+    x = morton.sort_rows(x, morton.morton_order(x)).contiguous()
+    n = x.shape[1]
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ref_i, ref_d = knn_kernels.knn_topk_plain(x, x, k)
+    for name, fn in (("B1", lambda: knn_kernels.knn_topk(x, x, k)),
+                     ("streaming", lambda: knn_kernels.knn_window_topk(x, x, k, starts, n, n))):
+        idx, d2 = fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
+            raise RuntimeError(f"exact 64k self-KNN on the {name} kernel: indices equal "
+                               f"{torch.equal(idx, ref_i)}, d2 equal {torch.equal(d2, ref_d)}")
+    del ref_i, ref_d
+    new_ms = _device_ms(torch, lambda: knn_kernels.knn_topk(x, x, k), 10, "knn_cull_kernel")
+    old_ms = _device_ms(torch, lambda: knn_kernels.knn_window_topk(x, x, k, starts, n, n), 3,
+                        "knn_topk_kernel")
+    # the bound is the bytes (the culled selection's distance count is out
+    # of the CPU model's reach at this size); the brute-force instruction
+    # count, the streaming kernel's work, is printed beside it as a reference
+    nbytes, brute = _knn_work(n, n, k)
+    bound = _bound(nbytes, 0)
+    print(f"exact self-KNN M=N={n} k={k} (Morton-sorted approx64k level 0): B1 and the streaming "
+          f"kernel equal the plain version (indices in order, d2); B1 {new_ms:.4f} ms, "
+          f"streaming kernel {old_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); reference, "
+          f"not a bound: 9*M*N brute-force lane instructions take "
+          f"{brute / PEAK_F32_INSTR_PER_S * 1e3:.5f} ms", flush=True)
 
 
 def _check_roll_stages(torch, results):
@@ -720,7 +780,7 @@ def main() -> None:
     from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
     from recognizer3d_tpu_torch.models.live import LivePredictor
     from recognizer3d_tpu_torch.ops import _build, knn as port_knn
-    from recognizer3d_tpu_torch.ops import lfa_kernels
+    from recognizer3d_tpu_torch.ops import knn_kernels, lfa_kernels, morton
 
     gpu = _gpu_line()
     print(f"gpu: {gpu}", flush=True)
@@ -842,6 +902,7 @@ def main() -> None:
             make_frame(np.random.RandomState(500), 0.0, FRAME_POINTS)[0],
             pipeline.DepthIntrinsics(),
         ))
+        _exact_64k(torch, morton, knn_kernels, sample)
     del calls, calls64, calls_live
 
     # --- 9. result lines ------------------------------------------------------

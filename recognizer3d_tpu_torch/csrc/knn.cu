@@ -1,11 +1,10 @@
 // Exact neighbour search kernels for Hopper (sm_90a), C ABI for ctypes.
 //
 // r3d_knn_topk replaces recognizer3d_tpu/ops/knn_pallas.py::_knn_kernel
-// (exact k-NN, k <= 128). r3d_argmin replaces ::_argmin_kernel (exact
-// streaming 1-NN). Both compute what the TPU kernels compute, not how:
-// the TPU kernels Morton-sort, cull support tiles by bounding box and
-// merge survivors through packed keys, all to save VMEM sweeps; exactness
-// never depends on that machinery, so these versions are brute force.
+// (exact k-NN, k <= 128) with knn_cull_kernel, which ports what the TPU
+// kernel's box culling and nearest-tile-first traversal are for (below).
+// r3d_argmin replaces ::_argmin_kernel (exact streaming 1-NN) by brute
+// force: the TPU kernel's culling is not ported there yet.
 //
 // r3d_knn_window replaces the lax.approx_min_k selection inside
 // recognizer3d_tpu/ops/knn.py::knn_window (the Morton-window search of
@@ -53,34 +52,81 @@
 // holds (over 19,370 points; no path asks for one) take knn_topk_kernel
 // with the window start table.
 //
-// KNN design. One warp owns one query; the block's warps share support
-// tiles staged in shared memory. The warp holds the sorted best list in
-// registers, spread across lanes (entry p = 32*r + lane, r < R, R*32 >= k).
-// Each step the 32 lanes evaluate 32 support points at once; a ballot
-// collects the points closer than the current k-th best, and each such
-// candidate is inserted by the whole warp: its position is a popcount of
-// a ballot, the shift is a shuffle. So the insertions, which are rare
-// after the first few steps, cost a few warp instructions each and never
-// diverge. (One thread per query with the list in shared memory took 1.65
-// ms at N = 2,500 on an H100: the lanes' insertions fall at different
-// steps, and the warp executes the union of them.)
+// knn_cull_kernel (r3d_knn_topk). The streaming kernel it replaced
+// (knn_topk_kernel, kept below) scans every support point in increasing
+// index with theta = +inf at the start: on a Morton-sorted 2,500-point
+// level at k = 32 that is 2,500 distances and 390 insertions a query, each
+// insertion a chain of dependent shuffles (benchmarks/knn_cull.py counts
+// them). The TPU kernel
+// visits support tiles nearest-box-first from its query block's box, exits
+// when the next tile's bound exceeds the block's largest k-th best, and
+// skips a tile whose box no query can reach. This kernel computes what that
+// machinery is for, in a form that suits a warp:
+// - the support is cut into tiles of 32 points (one warp step), and
+//   super tiles of 32 tiles; each block computes the boxes of all of them
+//   into shared memory (a warp reduction a tile), and stages the support
+//   itself there when support and boxes fit in CULL_STAGE_BYTES (the main
+//   path's levels: up to 4,096 points); above that, visited tiles are read
+//   from global memory, which L2 holds (65,536 points are 786 KB);
+// - a warp serves a group of 1 or 2 consecutive queries: 2 where the
+//   launch fills the card several times over (one point load then feeds
+//   two distances), 1 where the whole launch is one wave, since a launch
+//   takes as long as its slowest warp (cull_group);
+// - each query starts warm: the 2R tiles around the group's position
+//   mapped onto the support curve (query m -> m * N / M: its own
+//   neighbourhood on a Morton-sorted self-KNN and on the recall guard's
+//   evenly spaced re-search) are sorted by (distance, index) with a warp
+//   bitonic network and the first 32R kept, so theta starts near its final
+//   value instead of +inf;
+// - the other tiles are walked nearest-box-first, without a sort: in each
+//   batch of 32 super tiles (in increasing index) the alive super tile of
+//   least bound comes next, and in it the alive tile of least bound (a vote
+//   and a min reduction each, against the thetas of the moment). A tile is
+//   alive while its bound is <= theta's distance for some query of the
+//   group: a bound equal to it can hold a point at that distance with a
+//   smaller index, which the stable sort puts first, so the cull is strict.
+//   The walk ends when nothing is alive, the TPU kernel's exact early exit.
+//   In increasing index instead, the slowest queries (those whose warm start
+//   is poor) made up to 277 insertions on the level above, against 102
+//   nearest-first, and a one-wave launch waits for its slowest warp;
+// - the box bound is computed with the same explicitly rounded operations
+//   as the distances, in the same order; rounding is monotone, so it never
+//   exceeds the rounded distance of a point in the box, and culling is
+//   exact;
+// - the warm tiles are left out of the walk, so no point is offered twice;
+//   every comparison (the filter, the insertion position, the refusal) is
+//   lexicographic on (distance, index), so the list is the first k of a
+//   stable sort by distance, the plain version's order, in any visit
+//   order, for queries and supports in any order (Morton order only makes
+//   the culling effective);
+// - the best list sits in registers across the lanes (entry p = 32 * r +
+//   lane, r < R, 32R >= k); an insertion is one warp-wide step (position by
+//   ballot + popcount, shift by shuffles), as in the window kernel.
+// Supports whose tile boxes do not fit in shared memory (over about
+// 300,000 points; only a million-point 1-NN routed here would) take the
+// streaming knn_topk_kernel.
 //
-// Ties: candidates arrive in increasing support index and enter behind
-// every entry with an equal distance, and one equal to the k-th best is
-// refused; so the list equals the first k entries of a stable sort by
-// distance, which is the plain version's order.
+// knn_topk_kernel (the window route's kernel for windows wider than shared
+// memory holds, and the exact route's above). One warp owns one query; the
+// block's warps share support tiles staged in shared memory; each step the
+// 32 lanes evaluate 32 support points, a ballot collects those closer than
+// the current k-th best, and each is inserted by the whole warp.
+// Candidates arrive in increasing support index and enter behind every
+// entry with an equal distance, and one equal to the k-th best is refused,
+// so the list equals the first k of a stable sort by distance.
 //
 // argmin design: one thread per query, a running (min, argmin) in
 // registers; strict "<" keeps the first index on ties, as torch.min does.
 //
-// Bound on this card. The work is O(M*N) distance evaluations against
+// Bound on this card. Brute force is O(M*N) distance evaluations against
 // O((M+N)*12) bytes of input, so all three are bound by operations: 9 lane
 // instructions a pair (3 subtractions, 3 multiplications, 2 additions, a
 // compare; no FMA, see below) at 33.5 T instructions/s. The N = 2,500
 // self-KNN is 56 M instructions, the 2,500 -> 61,440 upsample 1.4 G.
-// Culling tiles by box bounds (as the TPU kernels do) is what would cut
-// the operations themselves. The window search is O(M*w): 65,536 queries
-// over 4,096-point windows are 2.4 G instructions, 0.072 ms.
+// Culling cuts the operations themselves: the culled kernel evaluates about
+// 270 distances a query on a Morton-sorted 2,500-point level, not 2,500.
+// The window search is O(M*w): 65,536 queries over 4,096-point windows are
+// 2.4 G instructions, 0.072 ms.
 //
 // Distances: ((dx*dx + dy*dy) + dz*dz) with explicitly rounded intrinsics.
 // nvcc would otherwise contract a*a+b into an FMA, and the distances would
@@ -95,6 +141,7 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_SMEM = 232448;   // shared memory a block may use
 constexpr int KNN_WARPS = 8;       // queries per block, one warp each
 constexpr int KNN_TILE = 1024;     // support points staged per step
 constexpr int ARGMIN_THREADS = 256;
@@ -102,7 +149,11 @@ constexpr int ARGMIN_TILE = 1024;
 constexpr int WIN_WARPS = 8;       // knn_window_kernel: warps per block,
 constexpr int WIN_GROUP = 2;       // queries a warp scans together,
 constexpr int WIN_QUERIES = 32;    // queries per block
-constexpr int WIN_MAX_SMEM = 232448;  // shared memory a block may use
+constexpr int CULL_WARPS = 8;      // knn_cull_kernel: warps per block,
+constexpr int CULL_BOX_UNROLL = 4; // tiles a warp boxes at once,
+constexpr int CULL_STAGE_UNROLL = 4;  // support loads in flight a thread,
+constexpr int CULL_ONE_WAVE_QUERIES_PER_SM = 64;  // see cull_group
+constexpr int CULL_STAGE_BYTES = 100 * 1024;  // support + boxes staged up to
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                                          float sx, float sy, float sz) {
@@ -527,6 +578,312 @@ void launch_knn(const float* query, const float* support, const int* starts,
   }
 }
 
+// Lower bound of the rounded squared distance of q to any point of the box
+// [lo, hi]: the gaps, their squares and their sums rounded as sq_dist
+// rounds the differences, squares and sums, in the same order. Rounding is
+// monotone, so the bound never exceeds the distance of a point in the box.
+__device__ __forceinline__ float box_bound(float qx, float qy, float qz,
+                                           const float* box, int stride) {
+  const float gx =
+      fmaxf(__fsub_rn(box[0], qx), 0.f) + fmaxf(__fsub_rn(qx, box[3 * stride]), 0.f);
+  const float gy =
+      fmaxf(__fsub_rn(box[stride], qy), 0.f) + fmaxf(__fsub_rn(qy, box[4 * stride]), 0.f);
+  const float gz =
+      fmaxf(__fsub_rn(box[2 * stride], qz), 0.f) + fmaxf(__fsub_rn(qz, box[5 * stride]), 0.f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+}
+
+// The warp's min of lo and max of hi (xyz each), on every lane.
+__device__ __forceinline__ void warp_box(float (&lo)[3], float (&hi)[3]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(FULL, lo[a], o));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(FULL, hi[a], o));
+    }
+  }
+}
+
+// Component `lane` (< 6) of the box: lo x, y, z, hi x, y, z (selects, so
+// the register arrays are not indexed at run time).
+__device__ __forceinline__ float box_component(const float (&lo)[3], const float (&hi)[3],
+                                               int lane) {
+  const float l = lane == 0 ? lo[0] : (lane == 1 ? lo[1] : lo[2]);
+  const float h = lane == 3 ? hi[0] : (lane == 4 ? hi[1] : hi[2]);
+  return lane < 3 ? l : h;
+}
+
+// The lane with the least key among the lanes where `alive` holds (ties to
+// the lowest lane), or -1 where it holds on none. Keys are >= +0, whose
+// bits order as the floats do.
+__device__ __forceinline__ int nearest_lane(bool alive, float key) {
+  if (!__ballot_sync(FULL, alive)) return -1;
+  const unsigned bits = alive ? __float_as_uint(key) : 0xffffffffu;
+  const unsigned least = __reduce_min_sync(FULL, bits);
+  return __ffs(__ballot_sync(FULL, bits == least)) - 1;
+}
+
+// Exact k-NN with box culling, k <= 32 * R (see the design note at the
+// top). Block blockIdx.x owns queries [qpb * blockIdx.x, +qpb) of batch
+// blockIdx.y. Dynamic shared memory: tile boxes (6 rows of nt: lo xyz | hi
+// xyz) | super-tile boxes (6 rows of ns) | the support (3N, staged only).
+template <int R, int Q>
+__global__ void __launch_bounds__(CULL_WARPS * 32, 2)
+knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ support,
+                int* __restrict__ idx_out, float* __restrict__ d2_out, int M, int N,
+                int k, int qpb, int staged) {
+  constexpr int E = 2 * R;  // warm start: E tiles, 32 * R points kept
+  extern __shared__ float cull_sm[];
+  const int nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  float* tbox = cull_sm;
+  float* sbox = tbox + 6 * nt;
+  float* spts = sbox + 6 * ns;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* sg = support + static_cast<size_t>(b) * N * 3;
+  if (staged) {  // CULL_STAGE_UNROLL loads in flight a thread
+    for (int t0 = threadIdx.x; t0 < 3 * N; t0 += CULL_STAGE_UNROLL * blockDim.x) {
+      float v[CULL_STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
+        const int t = t0 + u * blockDim.x;
+        v[u] = t < 3 * N ? sg[t] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
+        const int t = t0 + u * blockDim.x;
+        if (t < 3 * N) spts[t] = v[u];
+      }
+    }
+    __syncthreads();
+  }
+  const float* pts = staged ? spts : sg;  // points as x, y, z triples
+
+  // tile boxes, CULL_BOX_UNROLL tiles a warp at a time (their loads overlap)
+  for (int t0 = warp; t0 < nt; t0 += CULL_WARPS * CULL_BOX_UNROLL) {
+    float lo[CULL_BOX_UNROLL][3], hi[CULL_BOX_UNROLL][3];
+#pragma unroll
+    for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
+      const int j = 32 * (t0 + u * CULL_WARPS) + lane;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float v = j < N ? pts[3 * j + a] : CUDART_INF_F;
+        lo[u][a] = v;
+        hi[u][a] = j < N ? v : -CUDART_INF_F;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
+      warp_box(lo[u], hi[u]);
+      const int t = t0 + u * CULL_WARPS;
+      if (lane < 6 && t < nt) tbox[lane * nt + t] = box_component(lo[u], hi[u], lane);
+    }
+  }
+  __syncthreads();
+  for (int s = warp; s < ns; s += CULL_WARPS) {
+    const int t = 32 * s + lane;
+    float lo[3], hi[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = t < nt ? tbox[a * nt + t] : CUDART_INF_F;
+      hi[a] = t < nt ? tbox[(3 + a) * nt + t] : -CUDART_INF_F;
+    }
+    warp_box(lo, hi);
+    if (lane < 6) sbox[lane * ns + s] = box_component(lo, hi, lane);
+  }
+  __syncthreads();
+
+  const int q_hi = min(blockIdx.x * qpb + qpb, M);
+  for (int g0 = blockIdx.x * qpb + warp * Q; g0 < q_hi; g0 += CULL_WARPS * Q) {
+    const int nq = min(Q, q_hi - g0);
+    float qx[Q], qy[Q], qz[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {  // a short group repeats its last query
+      const float* qp = query + (static_cast<size_t>(b) * M + g0 + min(q, nq - 1)) * 3;
+      qx[q] = qp[0];
+      qy[q] = qp[1];
+      qz[q] = qp[2];
+    }
+    // warm start: the E tiles around the group's middle query mapped onto
+    // the support curve, sorted by (distance, index), 32 * R kept
+    const int c = static_cast<int>(static_cast<long long>(g0 + nq / 2) * N / M);
+    const int tw0 = min(max((c + 16) / 32 - E / 2, 0), max(nt - E, 0));
+    float px[E], py[E], pz[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = 32 * (tw0 + e) + lane;
+      px[e] = j < N ? pts[3 * j] : 0.f;
+      py[e] = j < N ? pts[3 * j + 1] : 0.f;
+      pz[e] = j < N ? pts[3 * j + 2] : 0.f;
+    }
+    float best_d[Q][R], thd[Q];
+    int best_i[Q][R], thi[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      float d[E];
+      int i[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int j = 32 * (tw0 + e) + lane;
+        d[e] = j < N ? sq_dist(qx[q], qy[q], qz[q], px[e], py[e], pz[e]) : CUDART_INF_F;
+        i[e] = j < N ? j : INT_MAX;
+      }
+      warp_sort<E>(d, i, lane);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        best_d[q][r] = d[r];
+        best_i[q][r] = i[r];
+      }
+      list_kth<R>(best_d[q], best_i[q], k, thd[q], thi[q]);
+    }
+
+    // the walk: batches of 32 super tiles in increasing index; in a batch,
+    // the alive super tile of least bound next, and in it the alive tile of
+    // least bound next. A tile is alive while its bound is <= the theta of
+    // the moment of some query of the group (an equal bound can hold a
+    // point at theta's distance with a smaller index); the warm tiles are
+    // done. The bounds are fixed, the thetas only fall, so a super tile or
+    // tile found dead stays dead.
+    for (int sb = 0; sb < ns; sb += 32) {
+      float slb[Q];
+      bool s_open = sb + lane < ns;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        slb[q] = s_open ? box_bound(qx[q], qy[q], qz[q], sbox + sb + lane, ns) : CUDART_INF_F;
+      }
+      while (true) {
+        bool s_alive = false;
+        float s_key = CUDART_INF_F;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          s_alive |= slb[q] <= thd[q];
+          s_key = fminf(s_key, slb[q]);
+        }
+        const int sl = nearest_lane(s_open & s_alive, s_key);
+        if (sl < 0) break;
+        s_open &= lane != sl;
+        const int s = sb + sl;
+        const int t = 32 * s + lane;
+        bool t_open = (t < nt) & ((t < tw0) | (t >= tw0 + E));
+        float lb[Q];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          lb[q] = t_open ? box_bound(qx[q], qy[q], qz[q], tbox + t, nt) : CUDART_INF_F;
+        }
+        while (true) {
+          bool t_alive = false;
+          float t_key = CUDART_INF_F;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            t_alive |= lb[q] <= thd[q];
+            t_key = fminf(t_key, lb[q]);
+          }
+          const int tl = nearest_lane(t_open & t_alive, t_key);
+          if (tl < 0) break;
+          t_open &= lane != tl;
+          const int base = 32 * (32 * s + tl);
+          const int j = base + lane;
+          const bool pv = j < N;
+          const float sx = pv ? pts[3 * j] : 0.f;
+          const float sy = pv ? pts[3 * j + 1] : 0.f;
+          const float sz = pv ? pts[3 * j + 2] : 0.f;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const float d = sq_dist(qx[q], qy[q], qz[q], sx, sy, sz);
+            take_candidates<R>(__ballot_sync(FULL, pv & (d <= thd[q])), d, base,
+                               best_d[q], best_i[q], thd[q], thi[q], k, lane);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (q >= nq) break;
+      const size_t out = (static_cast<size_t>(b) * M + g0 + q) * k;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int p = 32 * r + lane;
+        if (p < k) {
+          idx_out[out + p] = best_i[q][r];
+          d2_out[out + p] = best_d[q][r];
+        }
+      }
+    }
+  }
+}
+
+template <int R, int Q>
+int launch_cull_rq(const float* query, const float* support, int* idx, float* d2,
+                   int B, int M, int N, int k, int qpb, int staged, size_t smem,
+                   cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_cull_kernel<R, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((M + qpb - 1) / qpb, B);
+  knn_cull_kernel<R, Q><<<grid, CULL_WARPS * 32, smem, stream>>>(
+      query, support, idx, d2, M, N, k, qpb, staged);
+  return 0;
+}
+
+template <int R>
+int launch_cull_r(const float* query, const float* support, int* idx, float* d2,
+                  int B, int M, int N, int k, int group, int qpb, int staged,
+                  size_t smem, cudaStream_t stream) {
+  if (group == 1) {
+    return launch_cull_rq<R, 1>(query, support, idx, d2, B, M, N, k, qpb, staged, smem, stream);
+  }
+  return launch_cull_rq<R, 2>(query, support, idx, d2, B, M, N, k, qpb, staged, smem, stream);
+}
+
+// Queries a warp serves: 2 (one point load feeds two distances) where the
+// launch fills the card several times over; 1 where it is one wave, so
+// that the launch, which takes as long as its slowest warp, is not held by
+// two queries in series. benchmarks/launch_ab.py times both choices at
+// every size (on an H100 80GB HBM3 at 700 W: 2 at 2,500 points 0.0332
+// against 0.0257 ms, 1 at 65,536 points 2.92 against 0.59 ms).
+int cull_group(int queries, int sms) {
+  return queries > CULL_ONE_WAVE_QUERIES_PER_SM * sms ? 2 : 1;
+}
+
+// The exact k-NN route: knn_cull_kernel with the support staged in shared
+// memory up to CULL_STAGE_BYTES, read from global memory (L2) above; the
+// streaming knn_topk_kernel when even the tile boxes do not fit in shared
+// memory (over about 300,000 support points).
+int launch_exact(const float* query, const float* support, int* idx, float* d2,
+                 int B, int M, int N, int k, cudaStream_t stream) {
+  const size_t nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  const size_t box_bytes = 6 * (nt + ns) * sizeof(float);
+  const size_t stage_bytes = 3 * static_cast<size_t>(N) * sizeof(float);
+  if (box_bytes > MAX_SMEM) {
+    launch_knn(query, support, nullptr, idx, d2, B, M, N, N, 1, k, stream);
+    return 0;
+  }
+  const int staged = box_bytes + stage_bytes <= CULL_STAGE_BYTES;
+  const size_t smem = box_bytes + (staged ? stage_bytes : 0);
+  int device = 0, sms = 0, err;
+  if ((err = cudaGetDevice(&device)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) {
+    return err;
+  }
+  const int group = cull_group(B * M, sms);
+  // one wave: a query group a warp; else about two blocks an SM, 16 to 256
+  // queries a block: larger blocks share the box pass of a large support
+  // among more queries
+  const int per_block = (M + 2 * sms - 1) / (2 * sms);
+  const int qpb = group == 1 ? CULL_WARPS : min(max((per_block + 15) / 16 * 16, 16), 256);
+  if (k <= 32) {
+    return launch_cull_r<1>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
+  } else if (k <= 64) {
+    return launch_cull_r<2>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
+  }
+  return launch_cull_r<4>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
+}
+
 }  // namespace
 
 // query (B, M, 3), support (B, N, 3) float32; idx (B, M, k) int32 and
@@ -536,8 +893,9 @@ extern "C" int r3d_knn_topk(const float* query, const float* support,
                             void* stream) {
   if (B == 0 || M == 0) return 0;
   if (k < 1 || k > 128 || k > N) return static_cast<int>(cudaErrorInvalidValue);
-  launch_knn(query, support, nullptr, idx, d2, B, M, N, N, 1, k,
-             static_cast<cudaStream_t>(stream));
+  const int err = launch_exact(query, support, idx, d2, B, M, N, k,
+                               static_cast<cudaStream_t>(stream));
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -579,7 +937,7 @@ extern "C" int r3d_knn_window(const float* query, const float* support,
     if (qb % KNN_WARPS != 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = static_cast<size_t>(w) * 3 * sizeof(float);
     int err = 0;
-    if (smem > WIN_MAX_SMEM) {
+    if (smem > MAX_SMEM) {
       launch_knn(query, support, starts, idx, d2, B, M, N, w, qb, k, s);
     } else if (k <= 32) {
       err = launch_window<1>(query, support, starts, idx, d2, B, M, N, w, qb, k, smem, s);

@@ -29,27 +29,34 @@
 // operations at the float32 rate. At h=8 (level 0) it is ~16 kflop per
 // 2 kB row: bound by the bytes.
 //
-// Round 1 (lfa_round1_kernel): a block owns one row (point) at a time; the
-// row's (K, 2h) tile, its scores and the small weight matrices sit in
-// shared memory; blocks stride over rows. Most of its 256 threads idle in
-// the softmax and the small products: its redesign is later work.
-//
-// Pool 2 (lfa_pool2_tile_kernel, with and without the residual). One row
-// per block left most threads idle, paid 4-5 barriers a row, and read two
-// shared-memory operands per FMA in the score product, which made it slower
-// than its plain version at h=32. The design:
+// Both kernels share one design (lfa_round1_tile_kernel and
+// lfa_pool2_tile_kernel, with and without the residual). One row per block
+// left most threads idle (round 1's softmax ran one thread a channel with
+// three passes over K and two expf a score; its pool MLP kept h of 256
+// threads busy), paid 4-5 barriers a row, and read two shared-memory
+// operands per FMA in the score product. The design:
 // - a persistent grid (as many blocks as fit on the SMs) walks tiles of
-//   TR rows (4 at h=32, 16 at h=8); each block loads Ws, Wp and op into
-//   shared memory once, and mlp2/shortcut weights are read through L1;
-// - thread (row, channel j) keeps the row's K scores of channel j in
+//   TR rows (4 at h=32; at h=8 16 for pool 2 and 8 for round 1; fewer
+//   where K is large); each block loads the small constant matrices into
+//   shared memory once (round 1 by cp.async with its first tile; pool 2's
+//   mlp2/shortcut weights are read through L1);
+// - thread (row, channel j < 2h) keeps the row's K scores of channel j in
 //   registers, so the score product reads one float4 of the row's tile (4
 //   inner steps, a broadcast to the row's threads) per 4 FMAs, and the
 //   softmax over K runs in registers: one expf a score, one division a
-//   channel, online over chunks of 32 neighbours;
-// - pool MLP, mlp2 and shortcut run over the tile's rows, 1 and 2 outputs
-//   a thread, with 3 barriers a tile (2 without the residual);
-// - the next tile's rpe2/g2 rows (16-byte cp.async) and f_in (4-byte)
-//   load into the second of two buffers while the current tile computes.
+//   channel, online over chunks of 32 neighbours (K = 8, 16: one chunk);
+// - the next tile's rows (16-byte cp.async: the wrappers refuse gathered
+//   rows that are not 16-byte aligned) and its small per-row inputs (d2
+//   and centre term, or f_in) load into the second of two buffers while
+//   the current tile computes;
+// - round 1 applies the RPE transform in place to the tile's rpe lanes,
+//   in the plain version's order of operations; its rpe2 product (K*h
+//   outputs a row) is spread over the row's 2h threads, K/2 neighbours
+//   each (channel j mod h, neighbour half j / h), so consecutive threads
+//   store consecutive channels; pooled (h a row) takes the row's first h
+//   threads. 3 barriers a tile;
+// - pool 2's pool MLP, mlp2 and shortcut run over the tile's rows, 1 and 2
+//   outputs a thread, with 3 barriers a tile (2 without the residual).
 // Plain float32 FFMA throughout (TF32 tensor cores would break the 1e-5
 // contract against the plain version).
 
@@ -57,9 +64,6 @@
 #include <math_constants.h>
 
 namespace {
-
-constexpr int LFA_THREADS = 256;
-constexpr int LFA_MAX_BLOCKS = 2048;
 
 __host__ __device__ constexpr int round1_consts(int h) {
   // w9, s1, o1 (h each) | Ws (2h x 2h) | Wp (2h x h) | op (h) | W2 (h x h) | o2 (h)
@@ -71,98 +75,9 @@ __host__ __device__ constexpr int pool2_head_consts(int h) {
   return 8 * h * h + 2 * h;
 }
 
-// softmax over K per channel of sc (K, C2), then agg[j] = sum_k w * cat
-__device__ __forceinline__ void softmax_pool(const float* sc, const float* cat,
-                                             float* agg, int K, int C2) {
-  for (int j = threadIdx.x; j < C2; j += blockDim.x) {
-    float m = -CUDART_INF_F;
-    for (int k = 0; k < K; ++k) m = fmaxf(m, sc[k * C2 + j]);
-    float z = 0.f;
-    for (int k = 0; k < K; ++k) z += expf(sc[k * C2 + j] - m);
-    float a = 0.f;
-    for (int k = 0; k < K; ++k) {
-      a += (expf(sc[k * C2 + j] - m) / z) * cat[k * C2 + j];
-    }
-    agg[j] = a;
-  }
-}
-
-// sc (K, C2) = cat (K, C2) @ ws (C2, C2)
-__device__ __forceinline__ void scores(const float* cat, const float* ws,
-                                       float* sc, int K, int C2) {
-  for (int e = threadIdx.x; e < K * C2; e += blockDim.x) {
-    const int k = e / C2, j = e % C2;
-    const float* x = cat + k * C2;
-    float acc = 0.f;
-    for (int c = 0; c < C2; ++c) acc += x[c] * ws[c * C2 + j];
-    sc[e] = acc;
-  }
-}
-
-template <int H>
-__global__ void lfa_round1_kernel(const float* __restrict__ g,
-                                  const float* __restrict__ d2,
-                                  const float* __restrict__ center,
-                                  const float* __restrict__ consts,
-                                  float* __restrict__ pooled_out,
-                                  float* __restrict__ rpe2_out,
-                                  int rows, int K) {
-  constexpr int C2 = 2 * H;
-  constexpr int NC = round1_consts(H);
-  extern __shared__ float sm[];
-  float* cst = sm;
-  float* cat = cst + NC;       // K * C2
-  float* sc = cat + K * C2;    // K * C2
-  float* agg = sc + K * C2;    // C2
-  const float* w9 = cst;
-  const float* s1 = w9 + H;
-  const float* o1 = s1 + H;
-  const float* ws = o1 + H;
-  const float* wp = ws + C2 * C2;
-  const float* op = wp + C2 * H;
-  const float* w2 = op + H;
-  const float* o2 = w2 + H * H;
-
-  for (int i = threadIdx.x; i < NC; i += blockDim.x) cst[i] = consts[i];
-  __syncthreads();
-
-  const int L = K * C2;
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const float* grow = g + static_cast<size_t>(row) * L;
-    for (int e = threadIdx.x; e < L; e += blockDim.x) {
-      const int k = e / C2, c = e % C2;
-      float v = grow[e];
-      if (c < H) {
-        const float dist = sqrtf(fmaxf(d2[static_cast<size_t>(row) * K + k], 0.f));
-        const float pre = (v + center[static_cast<size_t>(row) * H + c]) + dist * w9[c];
-        v = fmaxf(pre * s1[c] + o1[c], 0.f);
-      }
-      cat[e] = v;
-    }
-    __syncthreads();
-    scores(cat, ws, sc, K, C2);
-    __syncthreads();
-    softmax_pool(sc, cat, agg, K, C2);
-    __syncthreads();
-    for (int i = threadIdx.x; i < H; i += blockDim.x) {
-      float acc = 0.f;
-      for (int j = 0; j < C2; ++j) acc += agg[j] * wp[j * H + i];
-      pooled_out[static_cast<size_t>(row) * H + i] = fmaxf(acc + op[i], 0.f);
-    }
-    for (int e = threadIdx.x; e < K * H; e += blockDim.x) {
-      const int k = e / H, i = e % H;
-      const float* x = cat + k * C2;
-      float acc = 0.f;
-      for (int c = 0; c < H; ++c) acc += x[c] * w2[c * H + i];
-      rpe2_out[static_cast<size_t>(row) * K * H + e] = fmaxf(acc + o2[i], 0.f);
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int POOL_THREADS = 256;
-constexpr int POOL_TILE_BYTES = 72 * 1024;  // at most one row buffer
-constexpr int POOL_ROW_PAD = 16;  // floats: rows of a tile on other banks
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_BUFFER_BYTES = 72 * 1024;  // at most one row buffer
+constexpr int TILE_ROW_PAD = 16;  // floats: rows of a tile on other banks
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -189,14 +104,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // row buffers of TR * (K*2h + pad) | Ws | Wp | op | agg (TR, 2h) | pooled
 // (TR, 2h) | two f_in buffers of TR * F.
 template <int H, int KC, bool RES>
-__global__ void __launch_bounds__(POOL_THREADS)
+__global__ void __launch_bounds__(TILE_THREADS)
 lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ g2,
                       const float* __restrict__ f_in, const float* __restrict__ consts,
                       float* __restrict__ out, int rows, int K, int F) {
   constexpr int C2 = 2 * H;
   constexpr int C4 = 4 * H;
   const int TR = blockDim.x / C2;
-  const int RS = K * C2 + POOL_ROW_PAD;
+  const int RS = K * C2 + TILE_ROW_PAD;
   extern __shared__ __align__(16) float pool_sm[];
   float* tiles = pool_sm;
   float* ws = tiles + 2 * TR * RS;
@@ -313,6 +228,160 @@ lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ 
   }
 }
 
+// Round 1 over tiles of rows (see the design note at the top). Thread
+// (r, j) of a tile owns channel j < 2h of row r; blockDim.x = TR * 2h. KC:
+// neighbours per softmax chunk (K is a multiple of it); the rpe2 product
+// runs in chunks of KC / 2 neighbours. Dynamic shared memory: two row buffers of TR * (K*2h + pad) |
+// two d2 buffers of TR * K | two centre buffers of TR * h | the constants
+// of round1_consts | agg (TR, 2h).
+template <int H, int KC>
+__global__ void __launch_bounds__(TILE_THREADS)
+lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2,
+                       const float* __restrict__ center, const float* __restrict__ consts,
+                       float* __restrict__ pooled_out, float* __restrict__ rpe2_out,
+                       int rows, int K) {
+  constexpr int C2 = 2 * H;
+  constexpr int KR = KC / 2;
+  const int TR = blockDim.x / C2;
+  const int RS = K * C2 + TILE_ROW_PAD;
+  extern __shared__ __align__(16) float r1_sm[];
+  float* tiles = r1_sm;
+  float* dbuf = tiles + 2 * TR * RS;
+  float* cbuf = dbuf + 2 * TR * K;
+  float* cst = cbuf + 2 * TR * H;
+  float* agg = cst + round1_consts(H);
+  const float* w9 = cst;
+  const float* s1 = w9 + H;
+  const float* o1 = s1 + H;
+  const float* ws = o1 + H;
+  const float* wp = ws + C2 * C2;
+  const float* op = wp + C2 * H;
+  const float* w2 = op + H;
+  const float* o2 = w2 + H * H;
+
+  // the constants arrive with the first tile (one cp.async group): a block
+  // of one tile would otherwise wait for them load after load
+  for (int i = threadIdx.x; i < round1_consts(H); i += blockDim.x) cp_async4(cst + i, consts + i);
+
+  const int L = K * C2;
+  const int n_tiles = (rows + TR - 1) / TR;
+  // rows [tile * TR, +TR) of g, d2 and center into buffer buf
+  auto load_tile = [&](int tile, int buf) {
+    float* t = tiles + buf * TR * RS;
+    const int row0 = tile * TR;
+    const int nr = min(TR, rows - row0);
+    const float* src = g + static_cast<size_t>(row0) * L;
+    const int chunks = L / 4;
+    for (int e = threadIdx.x; e < nr * chunks; e += blockDim.x) {
+      const int rr = e / chunks, q = 4 * (e - rr * chunks);
+      cp_async16(t + rr * RS + q, src + rr * L + q);
+    }
+    for (int e = threadIdx.x; e < nr * K; e += blockDim.x) {
+      cp_async4(dbuf + buf * TR * K + e, d2 + static_cast<size_t>(row0) * K + e);
+    }
+    for (int e = threadIdx.x; e < nr * H; e += blockDim.x) {
+      cp_async4(cbuf + buf * TR * H + e, center + static_cast<size_t>(row0) * H + e);
+    }
+    cp_async_commit();
+  };
+
+  const int r = threadIdx.x / C2, j = threadIdx.x - r * C2;
+  const int ch = j % H, half = j / H;  // the rpe2 channel and neighbour half
+  int buf = 0;
+  if (blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile (and, first time, the constants) visible
+    // every thread is past the previous tile: its buffers may be refilled
+    if (tile + gridDim.x < n_tiles) load_tile(tile + gridDim.x, buf ^ 1);
+    float* tb = tiles + buf * TR * RS;
+    const float* db = dbuf + buf * TR * K;
+    const float* cb = cbuf + buf * TR * H;
+
+    // rpe = relu(((g_rpe + center) + dist * w9) * s1 + o1), in place
+    for (int e = threadIdx.x; e < TR * K * H; e += blockDim.x) {
+      const int rk = e / H, c = e - rk * H;  // rk = rr * K + k
+      const int rr = rk / K;
+      float* v = tb + rr * RS + (rk - rr * K) * C2 + c;
+      const float dist = sqrtf(fmaxf(db[rk], 0.f));
+      const float pre = (*v + cb[rr * H + c]) + dist * w9[c];
+      *v = fmaxf(pre * s1[c] + o1[c], 0.f);
+    }
+    __syncthreads();  // the rpe lanes of the tile transformed
+
+    const int row = tile * TR + r;
+    const float* cat = tb + r * RS;
+    // scores[k] = cat[k, :] @ Ws[:, j], softmax over K online by chunks of
+    // KC, a = sum_k e^(score - max) * cat[k, j], z = sum_k e^(score - max)
+    float m = -CUDART_INF_F, z = 0.f, a = 0.f;
+    for (int k0 = 0; k0 < K; k0 += KC) {
+      float s[KC];
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) s[kk] = 0.f;
+      const float* ck = cat + k0 * C2;
+#pragma unroll 2
+      for (int c = 0; c < C2; c += 4) {
+        const float w0 = ws[c * C2 + j], w1 = ws[(c + 1) * C2 + j];
+        const float w2c = ws[(c + 2) * C2 + j], w3 = ws[(c + 3) * C2 + j];
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const float4 x = *reinterpret_cast<const float4*>(ck + kk * C2 + c);
+          s[kk] = fmaf(x.w, w3, fmaf(x.z, w2c, fmaf(x.y, w1, fmaf(x.x, w0, s[kk]))));
+        }
+      }
+      float mc = s[0];
+#pragma unroll
+      for (int kk = 1; kk < KC; ++kk) mc = fmaxf(mc, s[kk]);
+      const float mn = fmaxf(m, mc);
+      const float scale = expf(m - mn);  // 0 on the first chunk
+      float zc = 0.f, ac = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const float e = expf(s[kk] - mn);
+        zc += e;
+        ac = fmaf(e, ck[kk * C2 + j], ac);
+      }
+      z = fmaf(z, scale, zc);
+      a = fmaf(a, scale, ac);
+      m = mn;
+    }
+    agg[r * C2 + j] = a / z;
+
+    // rpe2[k, ch] = relu(rpe[k, :] @ W2[:, ch] + o2[ch]) for the K/2
+    // neighbours of this thread's half, KR at a time
+    for (int k0 = half * (K / 2); k0 < (half + 1) * (K / 2); k0 += KR) {
+      float acc[KR];
+#pragma unroll
+      for (int kk = 0; kk < KR; ++kk) acc[kk] = 0.f;
+      const float* ck = cat + k0 * C2;
+#pragma unroll
+      for (int c = 0; c < H; c += 4) {
+        const float w0 = w2[c * H + ch], w1 = w2[(c + 1) * H + ch];
+        const float w2c = w2[(c + 2) * H + ch], w3 = w2[(c + 3) * H + ch];
+#pragma unroll
+        for (int kk = 0; kk < KR; ++kk) {
+          const float4 x = *reinterpret_cast<const float4*>(ck + kk * C2 + c);
+          acc[kk] = fmaf(x.w, w3, fmaf(x.z, w2c, fmaf(x.y, w1, fmaf(x.x, w0, acc[kk]))));
+        }
+      }
+      if (row < rows) {
+        float* o = rpe2_out + static_cast<size_t>(row) * K * H + k0 * H + ch;
+#pragma unroll
+        for (int kk = 0; kk < KR; ++kk) o[kk * H] = fmaxf(acc[kk] + o2[ch], 0.f);
+      }
+    }
+    __syncthreads();  // agg of the tile visible
+
+    // pool MLP + BN + relu: pooled (TR, h) = relu(agg @ Wp + op)
+    if (j < H) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < C2; ++i) acc = fmaf(agg[r * C2 + i], wp[i * H + j], acc);
+      if (row < rows) pooled_out[static_cast<size_t>(row) * H + j] = fmaxf(acc + op[j], 0.f);
+    }
+  }
+}
+
 template <typename Kernel>
 int launch_config(Kernel kernel, size_t smem) {
   if (smem > 48 * 1024) {
@@ -324,56 +393,19 @@ int launch_config(Kernel kernel, size_t smem) {
   return 0;
 }
 
-}  // namespace
-
-// gathered (rows, K, 2h), d2 (rows, K), center (rows, h), consts as laid out
-// in round1_consts; pooled (rows, h) and rpe2 (rows, K, h) out. h in {8, 32}.
-extern "C" int r3d_lfa_round1(const float* g, const float* d2,
-                              const float* center, const float* consts,
-                              float* pooled, float* rpe2, int rows, int K,
-                              int h, void* stream) {
-  if (rows == 0) return 0;
-  const size_t smem =
-      (static_cast<size_t>(round1_consts(h)) + 4 * static_cast<size_t>(K) * h + 2 * h) *
-      sizeof(float);
-  const int grid = rows < LFA_MAX_BLOCKS ? rows : LFA_MAX_BLOCKS;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (h) {
-    case 8:
-      if ((err = launch_config(lfa_round1_kernel<8>, smem))) return err;
-      lfa_round1_kernel<8><<<grid, LFA_THREADS, smem, s>>>(g, d2, center, consts,
-                                                           pooled, rpe2, rows, K);
-      break;
-    case 32:
-      if ((err = launch_config(lfa_round1_kernel<32>, smem))) return err;
-      lfa_round1_kernel<32><<<grid, LFA_THREADS, smem, s>>>(g, d2, center, consts,
-                                                            pooled, rpe2, rows, K);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Rows a tile for half width h: as many as fit TILE_THREADS threads and one
+// TILE_BUFFER_BYTES buffer of (K*2h + pad)-float rows.
+int tile_rows(int K, int h) {
+  const int rs = K * 2 * h + TILE_ROW_PAD;
+  int tr = TILE_THREADS / (2 * h);
+  while (tr > 1 && tr * rs * static_cast<int>(sizeof(float)) > TILE_BUFFER_BYTES) tr >>= 1;
+  return tr;
 }
 
-namespace {
-
-// One launch of lfa_pool2_tile_kernel<H, KC, RES>: TR rows a tile, as many
-// as fit POOL_THREADS threads and one POOL_TILE_BYTES buffer; a persistent
-// grid of as many blocks as are resident on the card at once.
-template <int H, int KC, bool RES>
-int launch_pool2_tiles(const float* rpe2, const float* g2, const float* f_in,
-                       const float* consts, float* out, int rows, int K, int F,
-                       cudaStream_t stream) {
-  const int rs = K * 2 * H + POOL_ROW_PAD;
-  int tr = POOL_THREADS / (2 * H);
-  while (tr > 1 && tr * rs * static_cast<int>(sizeof(float)) > POOL_TILE_BYTES) tr >>= 1;
-  const int threads = tr * 2 * H;
-  const size_t smem = (2 * static_cast<size_t>(tr) * rs + pool2_head_consts(H) +
-                       4 * static_cast<size_t>(tr) * H +
-                       (RES ? 2 * static_cast<size_t>(tr) * F : 0)) *
-                      sizeof(float);
-  const auto kernel = lfa_pool2_tile_kernel<H, KC, RES>;
+// A persistent grid: as many blocks of the kernel as are resident on the
+// card at once, at most one a tile.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, int n_tiles, int* grid) {
   int err = launch_config(kernel, smem);
   if (err) return err;
   int per_sm = 0, device = 0, sms = 0;
@@ -383,8 +415,92 @@ int launch_pool2_tiles(const float* rpe2, const float* g2, const float* f_in,
     return err;
   }
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int n_tiles = (rows + tr - 1) / tr;
-  const int grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  *grid = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  return 0;
+}
+
+// One launch of lfa_round1_tile_kernel<H, KC>.
+template <int H, int KC>
+int launch_round1_tiles(const float* g, const float* d2, const float* center,
+                        const float* consts, float* pooled, float* rpe2, int rows,
+                        int K, cudaStream_t stream) {
+  // at h = 8, half the rows of pool 2's tile: 128-thread blocks, more of
+  // them an SM (benchmarks/launch_ab.py times pool 2's tile as
+  // r1_full_tile; on an H100 80GB HBM3 at 700 W: 0.0119 against 0.0099 ms
+  // at 2,500 rows, 0.168 against 0.153 ms at 65,536)
+  const int tr = H == 8 ? tile_rows(K, H) / 2 : tile_rows(K, H);
+  const int threads = tr * 2 * H;
+  const size_t smem = (2 * static_cast<size_t>(tr) * (K * 2 * H + TILE_ROW_PAD) +
+                       2 * static_cast<size_t>(tr) * (K + H) + round1_consts(H) +
+                       static_cast<size_t>(tr) * 2 * H) *
+                      sizeof(float);
+  const auto kernel = lfa_round1_tile_kernel<H, KC>;
+  int grid = 0;
+  const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
+  if (err) return err;
+  kernel<<<grid, threads, smem, stream>>>(g, d2, center, consts, pooled, rpe2, rows, K);
+  return 0;
+}
+
+// K in {8, 16} takes one chunk of K; larger multiples of 32 chunks of 32.
+template <int H>
+int launch_round1_k(const float* g, const float* d2, const float* center,
+                    const float* consts, float* pooled, float* rpe2, int rows, int K,
+                    cudaStream_t s) {
+  switch (K) {
+    case 8:
+      return launch_round1_tiles<H, 8>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+    case 16:
+      return launch_round1_tiles<H, 16>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+    default:
+      if (K < 32 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_round1_tiles<H, 32>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+  }
+}
+
+}  // namespace
+
+// gathered (rows, K, 2h), d2 (rows, K), center (rows, h), consts as laid out
+// in round1_consts; pooled (rows, h) and rpe2 (rows, K, h) out. h in {8, 32};
+// K in {8, 16} or a multiple of 32.
+extern "C" int r3d_lfa_round1(const float* g, const float* d2,
+                              const float* center, const float* consts,
+                              float* pooled, float* rpe2, int rows, int K,
+                              int h, void* stream) {
+  if (rows == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (h) {
+    case 8:
+      err = launch_round1_k<8>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      break;
+    case 32:
+      err = launch_round1_k<32>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// One launch of lfa_pool2_tile_kernel<H, KC, RES>.
+template <int H, int KC, bool RES>
+int launch_pool2_tiles(const float* rpe2, const float* g2, const float* f_in,
+                       const float* consts, float* out, int rows, int K, int F,
+                       cudaStream_t stream) {
+  const int tr = tile_rows(K, H);
+  const int threads = tr * 2 * H;
+  const size_t smem = (2 * static_cast<size_t>(tr) * (K * 2 * H + TILE_ROW_PAD) +
+                       pool2_head_consts(H) + 4 * static_cast<size_t>(tr) * H +
+                       (RES ? 2 * static_cast<size_t>(tr) * F : 0)) *
+                      sizeof(float);
+  const auto kernel = lfa_pool2_tile_kernel<H, KC, RES>;
+  int grid = 0;
+  const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
+  if (err) return err;
   kernel<<<grid, threads, smem, stream>>>(rpe2, g2, f_in, consts, out, rows, K, F);
   return 0;
 }

@@ -51,9 +51,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
+    for path in sorted(csrc.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -63,19 +63,20 @@ def _ptxas_log(lib_path: Path) -> Path:
     return lib_path.with_suffix(".ptxas.log")
 
 
-def build() -> Path:
-    """Compile the kernels if the library for this source hash is missing;
-    return its path. The compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills per kernel) is kept beside the library."""
-    lib_path = BUILD_DIR / f"libr3d_kernels_{_source_hash()}.so"
+def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the kernels of ``csrc`` into ``out_dir`` if the library for
+    this source hash is missing; return its path. The compiler's
+    ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
+    kept beside the library."""
+    lib_path = out_dir / f"libr3d_kernels_{_source_hash(csrc)}.so"
     if lib_path.is_file():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         procs = []
         objs = []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sorted(csrc.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
@@ -137,17 +138,22 @@ _SIGNATURES = {
 }
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, its C functions typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
     return _lib
 
 
@@ -156,9 +162,11 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                      shape: tuple, device: torch.device) -> None:
+                      shape: tuple, device: torch.device, align: int = 1) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device`` (a ``None`` in ``shape`` matches any size)."""
+    ``device`` (a ``None`` in ``shape`` matches any size) whose data starts
+    at a multiple of ``align`` bytes (kernels that copy rows 16 bytes at a
+    time ask for 16)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -169,6 +177,8 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data not {align}-byte aligned")
 
 
 def check_status(name: str, status: int) -> None:

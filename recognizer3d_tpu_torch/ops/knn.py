@@ -33,9 +33,10 @@ least the TPU's, and on the CPU, where JAX's ``approx_min_k`` is an exact
 top-k, the two packages pick the same neighbours up to near-ties.
 
 The kernels' wrappers run their plain versions on CPU tensors, so the route
-is the same on every device. The exact kernels are brute force and
-indifferent to point order, so outside the window regime ``knn_presorted``
-(Morton-sorted callers) routes exactly as ``knn``.
+is the same on every device. The exact kernels return the same neighbours
+for points in any order (B1's culling is only faster on Morton-sorted
+ones), so outside the window regime ``knn_presorted`` (Morton-sorted
+callers) routes exactly as ``knn``.
 """
 
 import functools
@@ -211,19 +212,26 @@ def _recall_telemetry_enabled() -> bool:
     return os.environ.get("RECOGNIZER3D_KNN_RECALL", "") not in ("", "0")
 
 
+def recall_sample_positions(m: int) -> np.ndarray:
+    """The ``min(256, m)`` evenly spaced query positions that
+    :func:`sampled_recall` re-searches (every query block is touched), by
+    a float64 ``linspace``."""
+    return np.linspace(0, m - 1, min(_RECALL_SAMPLES, m)).astype(np.int64)
+
+
 def sampled_recall(support, query, k, result) -> torch.Tensor:
     """Recall@k of an (idx, d2) KNN result against an exact re-search of
-    ``min(256, M)`` evenly spaced queries (every query block is touched;
-    JAX's float32 ``linspace`` may place a few of them one lower), as a 0-d
-    float32 tensor. A returned neighbour counts as a hit when its
+    the queries at :func:`recall_sample_positions`, as a 0-d float32
+    tensor. JAX's float32 ``linspace``, truncated, can place a position
+    one higher than the port's float64 one (two positions at M = 150,000,
+    one at M = 163,840); at every M the recall guard probes, the two
+    agree. A returned neighbour counts as a hit when its
     distance ranks within the exact top k, so equidistant ties cannot miss.
     The exact re-search is the ``"naive"`` route (the KNN kernel for
     k >= 2), whose distances come from the same formula as the window
     kernel's."""
     _, d2 = result
-    m = query.shape[1]
-    s = min(_RECALL_SAMPLES, m)
-    pos = torch.from_numpy(np.linspace(0, m - 1, s).astype(np.int64)).to(query.device)
+    pos = torch.from_numpy(recall_sample_positions(query.shape[1])).to(query.device)
     q_sub = query[:, pos].contiguous()
     _, exact_d2 = knn(support, q_sub, k, "naive")
     kth = exact_d2[..., k - 1 : k]

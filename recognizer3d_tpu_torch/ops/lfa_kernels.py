@@ -103,7 +103,7 @@ def lfa_round1(
     dev = gathered.device
     consts = _pack([c["w9"], c["s1"], c["o1"], c["ws"], c["wp"], c["op"],
                     c["w2"], c["o2"]])
-    _build.check_cuda_tensor("gathered", gathered, torch.float32, (B, n, k, c2), dev)
+    _build.check_cuda_tensor("gathered", gathered, torch.float32, (B, n, k, c2), dev, align=16)
     _build.check_cuda_tensor("d2", d2, torch.float32, (B, n, k), dev)
     _build.check_cuda_tensor("center_term", center_term, torch.float32, (B, n, h), dev)
     _build.check_cuda_tensor("consts", consts, torch.float32, (5 * h + 7 * h * h,), dev)
@@ -172,8 +172,8 @@ def attentive_pool2(rpe2, g2, ws, wp, bp, sp, op, k: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {rpe2.device}")
     dev = rpe2.device
     consts = _pack([c["ws"], c["wp"], c["op"]])
-    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev)
-    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev)
+    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev, align=16)
+    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev, align=16)
     _build.check_cuda_tensor("consts", consts, torch.float32, (8 * h * h + 2 * h,), dev)
     out = torch.empty((B, n, 2 * h), dtype=torch.float32, device=dev)
     lib = _build.library()
@@ -211,8 +211,8 @@ def attentive_pool2_residual(
         raise ValueError(f"unsupported device {rpe2.device}")
     dev = rpe2.device
     consts = _pack([c["ws"], c["wp"], c["op"], c["wm"], c["wsh"], c["off"]])
-    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev)
-    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev)
+    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev, align=16)
+    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev, align=16)
     _build.check_cuda_tensor("f_in", f_in, torch.float32, (B, n, nf), dev)
     _build.check_cuda_tensor(
         "consts", consts, torch.float32, (16 * h * h + 6 * h + 4 * h * nf,), dev

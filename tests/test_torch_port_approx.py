@@ -250,6 +250,18 @@ def test_sampled_recall_matches_jax():
     assert port_knn.measure_recall(xt, xt, k, "naive") == 1.0
 
 
+@pytest.mark.parametrize("m,higher", [(2500, 0), (65_536, 0), (163_840, 1)])
+def test_recall_sample_positions_against_jax(m, higher):
+    """JAX's positions as its ``sampled_recall`` computes them (float32
+    ``linspace``, truncated) against the port's float64 ones: equal at the
+    sizes the recall guard probes, and at M = 163,840 (the approx64k
+    frame's final upsample) JAX's is one higher wherever they differ."""
+    ref = np.asarray(jnp.linspace(0, m - 1, 256).astype(jnp.int32)).astype(np.int64)
+    diff = ref - port_knn.recall_sample_positions(m)
+    assert int((diff != 0).sum()) == higher
+    assert set(diff[diff != 0].tolist()) <= {1}
+
+
 @pytest.mark.parametrize(
     "ladder,target",
     [

@@ -3,11 +3,15 @@
 These need an NVIDIA GPU and skip without one. They cover the shapes the
 main path does not reach (``chip_smoke.py`` holds the main path's): every
 best-list width of the KNN kernel up to k = 128, ragged support tiles,
-batches, the window kernel on Morton-sorted clouds at every window of the
-recall guard's ladder, the pool-2 kernels on ragged row tiles and other
-neighbour counts, the bitonic stage kernel at other shapes and stage counts, one
-small live depth frame on the card against the CPU, and the wrappers'
-refusals. The file imports neither JAX nor the JAX package, so it also
+batches, Morton-sorted self-searches at every level size of the served
+paths, tie-heavy grids, unsorted queries and supports, both of the exact
+route's support layouts (staged in shared memory, read from global memory)
+and its streaming kernel for the largest supports, the round-1 kernel on
+ragged row tiles at every neighbour count it takes, the window kernel on
+Morton-sorted clouds at every window of the recall guard's ladder, the
+pool-2 kernels on ragged row tiles and other neighbour counts, the bitonic
+stage kernel at other shapes and stage counts, one small live depth frame
+on the card against the CPU, and the wrappers' refusals. The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -44,25 +48,75 @@ def _cloud(seed, b, n, dev, grid=None):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
+def _sorted(x):
+    return morton.sort_rows(x, morton.morton_order(x)).contiguous()
+
+
 @pytest.mark.parametrize(
-    "b,n,m,k,grid",
+    "b,n,m,k,grid,layout",
     [
-        (1, 2500, 2500, 32, None),
-        (2, 1500, 700, 1, None),
-        (1, 3000, 333, 8, 10),
-        (2, 1025, 64, 33, None),
-        (1, 4100, 100, 64, 20),
-        (1, 700, 90, 100, None),
-        (2, 2049, 50, 128, 8),
-        (1, 40, 40, 40, None),
+        (1, 2500, 2500, 32, None, "unsorted"),
+        (2, 1500, 700, 1, None, "unsorted"),
+        (1, 3000, 333, 8, 10, "unsorted"),
+        (2, 1025, 64, 33, None, "unsorted"),
+        (1, 4100, 100, 64, 20, "unsorted"),
+        (1, 700, 90, 100, None, "unsorted"),
+        (2, 2049, 50, 128, 8, "unsorted"),
+        (1, 40, 40, 40, None, "unsorted"),
+        # Morton-sorted self-KNN at the served levels: app and live 2,500,
+        # 625, 156 and 39 points (k close to N), approx64k 4,096 and 1,024,
+        # and the recall guard's 65,536-point exact fallback
+        (1, 2500, None, 32, None, "self"),
+        (1, 625, None, 32, None, "self"),
+        (1, 156, None, 32, None, "self"),
+        (1, 39, None, 32, None, "self"),
+        (1, 4096, None, 32, None, "self"),
+        (1, 1024, None, 32, None, "self"),
+        (1, 65536, None, 32, None, "self"),
+        (2, 2500, None, 32, None, "self"),    # a batch
+        (1, 3000, None, 32, 8, "self"),       # tie-heavy grids
+        (1, 2000, None, 32, 10, "self"),
+        (2, 1500, None, 64, 20, "self"),
+        (1, 1000, None, 1, 10, "self"),       # every list width
+        (1, 1000, None, 8, None, "self"),
+        (1, 1000, None, 33, 20, "self"),
+        (1, 1000, None, 100, None, "self"),
+        (1, 1000, None, 128, 8, "self"),
+        (1, 128, None, 128, None, "self"),    # k = N
+        (1, 20000, 256, 32, None, "guard"),   # the guard's evenly spaced re-search
+        (1, 65536, 256, 32, 20, "guard"),
+        (1, 4000, 500, 32, 10, "sorted_support"),  # unsorted queries, sorted support
+        (2, 9000, 300, 64, None, "sorted_support"),  # support read from global memory
+        # launches of more than one wave (over 64 queries an SM): two queries
+        # a warp, the short last group of an odd M repeating its last query
+        (1, 4000, 9001, 128, 8, "sorted_support"),  # staged support, widest list
+        (1, 12000, None, 64, 10, "self"),     # support read from global memory
+        (2, 5000, None, 32, None, "self"),    # one wave a batch item, not for the batch
+        (3, 3001, None, 100, 20, "self"),     # a batch of odd M, ties
+        (1, 320000, 64, 8, None, "unsorted"),  # boxes over shared memory: streaming kernel
     ],
 )
-def test_knn_topk_kernel_matches_plain(dev, b, n, m, k, grid):
+def test_knn_topk_kernel_matches_plain(dev, b, n, m, k, grid, layout):
     """Bit-identical distances and, the order of ties included, the same
-    indices as the plain version's stable sort."""
+    indices as the plain version's stable sort, for supports and queries
+    in any order: unsorted, a Morton-sorted self-search, a Morton-sorted
+    support with evenly spaced queries of it (the recall guard) or with
+    unsorted queries."""
     s = _cloud(n + k, b, n, dev, grid)
-    q = _cloud(m + 7, b, m, dev, grid)
+    if layout == "unsorted":
+        q = _cloud(m + 7, b, m, dev, grid)
+    else:
+        s = _sorted(s)
+        if layout == "self":
+            q = s
+        elif layout == "guard":
+            q = s[:, torch.from_numpy(np.linspace(0, n - 1, m).astype(np.int64)).to(dev)]
+            q = q.contiguous()
+        else:
+            q = _cloud(m + 7, b, m, dev, grid)
+    _build.reset_launches()
     idx, d2 = knn_kernels.knn_topk(s, q, k)
+    assert _build.LAUNCHES == {"knn_topk": 1}
     ref_i, ref_d = knn_kernels.knn_topk_plain(s, q, k)
     torch.cuda.synchronize()
     assert torch.equal(d2, ref_d)
@@ -134,13 +188,10 @@ def _rand(rng, dev, *shape, scale=0.3, low=None):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("b,n,h,f", [(1, 2500, 8, 8), (2, 301, 32, 32), (1, 77, 8, 3)])
-def test_lfa_kernels_match_plain(dev, b, n, h, f):
-    """Both fused LFA kernels against their plain versions within 1e-5: the
-    same float32 maths, summed in another order."""
-    rng = np.random.RandomState(n)
-    k, c2 = 32, 2 * h
-    r1 = [
+def _round1_args(rng, dev, b, n, h, k):
+    """lfa_round1's arguments: gathered, d2, center_term, then the weights."""
+    c2 = 2 * h
+    return [
         _rand(rng, dev, b, n, k, c2, scale=0.5), _rand(rng, dev, b, n, k, low=0.0) * 0.01,
         _rand(rng, dev, b, n, h),
         _rand(rng, dev, h), _rand(rng, dev, h), _rand(rng, dev, h, low=0.5), _rand(rng, dev, h),
@@ -148,6 +199,15 @@ def test_lfa_kernels_match_plain(dev, b, n, h, f):
         _rand(rng, dev, h, low=0.5), _rand(rng, dev, h),
         _rand(rng, dev, h, h), _rand(rng, dev, h), _rand(rng, dev, h, low=0.5), _rand(rng, dev, h),
     ]
+
+
+@pytest.mark.parametrize("b,n,h,f", [(1, 2500, 8, 8), (2, 301, 32, 32), (1, 77, 8, 3)])
+def test_lfa_kernels_match_plain(dev, b, n, h, f):
+    """Both fused LFA kernels against their plain versions within 1e-5: the
+    same float32 maths, summed in another order."""
+    rng = np.random.RandomState(n)
+    k, c2 = 32, 2 * h
+    r1 = _round1_args(rng, dev, b, n, h, k)
     pooled, rpe2 = lfa_kernels.lfa_round1(*r1)
     ref_p, ref_r = lfa_kernels.lfa_round1_plain(
         *r1[:3], lfa_kernels.round1_constants(*r1[3:])
@@ -171,6 +231,29 @@ def test_lfa_kernels_match_plain(dev, b, n, h, f):
     pooled2 = lfa_kernels.attentive_pool2(rpe2, g2, *p2, k=k)
     ref2 = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*p2), k)
     torch.testing.assert_close(pooled2, ref2, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "n,h,k",
+    [(n, h, k) for n in (1, 77, 16387)
+     for h, ks in ((8, (8, 16, 32, 64)), (32, (8, 16, 32))) for k in ks]
+    + [(2500, 8, 32), (625, 32, 32),  # the main path's levels 0 and 1
+       (77, 8, 128), (301, 8, 32)],
+)
+def test_round1_kernel_on_ragged_tiles(dev, n, h, k):
+    """B2 within 1e-5 of its plain version on both outputs, at row counts
+    that are no multiple of the kernel's row tile (4 rows at h = 32, 8 at
+    h = 8), and at K of one softmax chunk (8, 16) and of several (64, 128)."""
+    rng = np.random.RandomState(n + h + k)
+    args = _round1_args(rng, dev, 1, n, h, k)
+    _build.reset_launches()
+    pooled, rpe2 = lfa_kernels.lfa_round1(*args)
+    assert _build.LAUNCHES == {"lfa_round1": 1}
+    ref_p, ref_r = lfa_kernels.lfa_round1_plain(
+        *args[:3], lfa_kernels.round1_constants(*args[3:])
+    )
+    torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rpe2, ref_r, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -202,6 +285,38 @@ def test_pool2_kernels_on_ragged_tiles(dev, n, h, f, k):
     ref_p = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*head), k)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
+
+
+def _misaligned(t):
+    """The same values at an address 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device)
+    flat[1:] = t.reshape(-1)
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+def test_lfa_wrappers_refuse_misaligned_rows(dev):
+    """The three LFA kernels copy gathered rows 16 bytes at a time; their
+    wrappers refuse rows that do not start on a 16-byte boundary, and
+    launch nothing."""
+    rng = np.random.RandomState(5)
+    h, k, n = 8, 32, 40
+    r1 = _round1_args(rng, dev, 1, n, h, k)
+    rpe2, g2 = _rand(rng, dev, 1, n, k * h), _rand(rng, dev, 1, n, k, h)
+    head = [_rand(rng, dev, 2 * h, 2 * h), _rand(rng, dev, 2 * h, 2 * h),
+            _rand(rng, dev, 2 * h), _rand(rng, dev, 2 * h, low=0.5), _rand(rng, dev, 2 * h)]
+    f_in = _rand(rng, dev, 1, n, 8)
+    tail = [_rand(rng, dev, 2 * h, 4 * h), _rand(rng, dev, 8, 4 * h), _rand(rng, dev, 4 * h)]
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="gathered: data not 16-byte aligned"):
+        lfa_kernels.lfa_round1(_misaligned(r1[0]), *r1[1:])
+    for bad_rpe2, bad_g2, name in ((_misaligned(rpe2), g2, "rpe2"), (rpe2, _misaligned(g2), "g2")):
+        with pytest.raises(ValueError, match=f"{name}: data not 16-byte aligned"):
+            lfa_kernels.attentive_pool2(bad_rpe2, bad_g2, *head, k=k)
+        with pytest.raises(ValueError, match=f"{name}: data not 16-byte aligned"):
+            lfa_kernels.attentive_pool2_residual(bad_rpe2, bad_g2, *head, f_in, *tail, k=k)
+    assert not _build.LAUNCHES
 
 
 def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
