@@ -16,8 +16,9 @@ app and live paths, 10 of approx64k) are timed untraced, every path before
 any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
 activity); the script prints: the wall time per frame, the device time per
 frame summed over kernels and copies, the device's idle share of the
-traced wall time, the device kernels and copies per frame, and the
-operators and kernels with the most device time. The card's name and power
+traced wall time, the device kernels and copies per frame, the host's
+``cudaLaunchKernel`` calls per frame, and the operators and kernels with
+the most device time. The card's name and power
 limit come first.
 """
 
@@ -79,10 +80,11 @@ def _profile(torch, predict, frames, label: str) -> None:
     device_ops = sum(
         e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
     )
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(f"{label}: traced wall per frame {traced_wall:.3f} ms; device time per frame "
           f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}; "
-          f"{device_ops / len(frames):.1f} device kernels and copies per frame",
-          flush=True)
+          f"{device_ops / len(frames):.1f} device kernels and copies per frame; "
+          f"{launches / len(frames):.1f} cudaLaunchKernel per frame", flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,

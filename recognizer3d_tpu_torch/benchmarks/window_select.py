@@ -158,6 +158,19 @@ def count_increasing(support, query, k, starts, w, qb, queries):
     return _scan(d, order, 0, k, 32 * list_registers(k))[2]
 
 
+def _mock_frame(frame_points: int, seed: int = 300) -> np.ndarray:
+    """A mock frame of ``bin/make_mock_data`` (``frame_points`` points, in
+    the order it makes them)."""
+    root = Path(__file__).resolve().parents[2]
+    loader = importlib.machinery.SourceFileLoader(
+        "make_mock_data", str(root / "bin" / "make_mock_data")
+    )
+    spec = importlib.util.spec_from_loader("make_mock_data", loader)
+    module = importlib.util.module_from_spec(spec)
+    loader.exec_module(module)
+    return module.make_frame(np.random.RandomState(seed), 0.0, frame_points)[0]
+
+
 def _mock_level0(points: int = 65_536, frame_points: int = 150_000):
     """A Morton-sorted level-0 cloud of the approx64k path: a mock frame
     of ``frame_points`` points, its consistent ``points``-point sample,
@@ -167,14 +180,7 @@ def _mock_level0(points: int = 65_536, frame_points: int = 150_000):
     from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
     from recognizer3d_tpu_torch.ops.morton import morton_order
 
-    root = Path(__file__).resolve().parents[2]
-    loader = importlib.machinery.SourceFileLoader(
-        "make_mock_data", str(root / "bin" / "make_mock_data")
-    )
-    spec = importlib.util.spec_from_loader("make_mock_data", loader)
-    module = importlib.util.module_from_spec(spec)
-    loader.exec_module(module)
-    frame = module.make_frame(np.random.RandomState(300), 0.0, frame_points)[0]
+    frame = _mock_frame(frame_points)
     cloud = frame[consistent_sample_indices(frame_points, points)]
     order = morton_order(torch.from_numpy(cloud)[None])[0].numpy()
     return cloud[order]

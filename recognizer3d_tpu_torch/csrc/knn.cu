@@ -3,8 +3,9 @@
 // r3d_knn_topk replaces recognizer3d_tpu/ops/knn_pallas.py::_knn_kernel
 // (exact k-NN, k <= 128) with knn_cull_kernel, which ports what the TPU
 // kernel's box culling and nearest-tile-first traversal are for (below).
-// r3d_argmin replaces ::_argmin_kernel (exact streaming 1-NN) by brute
-// force: the TPU kernel's culling is not ported there yet.
+// r3d_argmin replaces ::_argmin_kernel (exact streaming 1-NN) with
+// argmin_cull_kernel, which culls as the TPU kernel's tile boxes do, over a
+// grid of cells that the kernel builds itself (below).
 //
 // r3d_knn_window replaces the lax.approx_min_k selection inside
 // recognizer3d_tpu/ops/knn.py::knn_window (the Morton-window search of
@@ -115,8 +116,54 @@
 // entry with an equal distance, and one equal to the k-th best is refused,
 // so the list equals the first k of a stable sort by distance.
 //
-// argmin design: one thread per query, a running (min, argmin) in
-// registers; strict "<" keeps the first index on ties, as torch.min does.
+// argmin_kernel (the window route's k = 1): one thread per query, a
+// running (min, argmin) in registers; strict "<" keeps the first index on
+// ties, as torch.min does.
+//
+// argmin_cull_kernel (r3d_argmin, the exact 1-NN of the upsamples). The
+// brute-force argmin_kernel evaluated every support point for every query
+// (2,500 distances a query on the app frame, 16,384 at approx64k's last
+// decoder level). The TPU kernel seeds each query block with its nearest
+// tile and skips every tile whose box bound beats no query's best; it runs
+// on Morton-sorted clouds, so that tiles are tight. On the app and live
+// frames the support (the subsample) and the queries (the full cloud) come
+// in no spatial order, and sorting them costs launches on frames that the
+// host bounds. So the kernel orders the support itself, by cells:
+// - a grid over the support's box, cubic cells, g along the longest side
+//   (the least g with g^3 >= 2N, at most NN_GRID_MAX); a point's bin along
+//   an axis is int(clamp((x - lo) * inv, 0, G - 1)) in explicitly rounded
+//   float32, monotone in x, so a point of a higher bin never has a smaller
+//   coordinate;
+// - each CUDA block counting-sorts the support by cell in shared memory
+//   (histogram by shared atomics, a block scan, a scatter), with the least
+//   and largest coordinate of every bin along every axis (slabs), one
+//   shared atomic a point (gathering a warp's lanes of one cell into one
+//   atomic with __match_any_sync was slower on every served call, sorted
+//   supports included: PERF.md). Supports whose
+//   cells and points do not fit in NN_STAGE_BYTES (over 4,500 points:
+//   approx64k's 16,384-point level) are ordered once, by
+//   argmin_order_kernel in a launch before, into global memory (L2);
+// - NN_LANES = 4 lanes walk a query's cells together, in growing shells
+//   around its own cell; a plane, row or cell is skipped when the rounded
+//   bound of its slab gaps is strictly greater than the best distance, a
+//   scanned cell's points are split among the lanes, and their bests are
+//   merged after the cell (two shuffles), so that every lane takes every
+//   decision on the same best. After each shell the walk ends when the
+//   rounded bound of everything beyond the shells (over the six sides: the
+//   side's gap past the cube, the other axes' gaps to the box) is strictly
+//   greater than the best distance. With one lane a query, a warp waits
+//   for its slowest query, and the dense cells of a cloud hold hundreds of
+//   points;
+// - the bounds are rounded as the distance is (box_bound), on coordinates
+//   of real points, so they never exceed a rounded distance; a bound equal
+//   to the best can hide a tied point of a smaller index, hence the strict
+//   tests, and the compare is lexicographic on (distance, index). The
+//   result is the first entry of a stable sort by distance, for points in
+//   any order (benchmarks/argmin_cull.py models the walk and counts it:
+//   about 45 distances a query on the app frame instead of 2,500).
+// What bounds it is not the distances: a walk is a chain of dependent
+// shared-memory loads, a warp waits for its slowest query, and each block
+// orders the support before its first query.
 //
 // Bound on this card. Brute force is O(M*N) distance evaluations against
 // O((M+N)*12) bytes of input, so all three are bound by operations: 9 lane
@@ -884,6 +931,402 @@ int launch_exact(const float* query, const float* support, int* idx, float* d2,
   return launch_cull_r<4>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
 }
 
+// --- argmin_cull_kernel: exact 1-NN over a grid of cells --------------------
+
+constexpr int NN_GRID_MAX = 32;           // cells along the longest side, at most
+constexpr int NN_SLAB = NN_GRID_MAX + 1;  // stride of a slab table's axis rows
+constexpr int NN_THREADS = 512;           // argmin_cull_kernel's block
+constexpr int NN_LANES = 4;               // lanes that walk one query together
+constexpr int NN_ORDER_THREADS = 1024;    // argmin_order_kernel
+constexpr int NN_STAGE_BYTES = 110 * 1024;  // points + tables ordered in shared memory up to
+constexpr float NN_MIN_EXTENT = 1e-30f;   // a longer side than this takes more than one cell
+// tables of one grid, in 32-bit words: meta (lo xyz, hi xyz, inv, pad),
+// dims (gx, gy, gz, pad), slab_lo, slab_hi, sfx_lo, pfx_hi ([3][NN_SLAB]
+// each), then the cell starts (cells + 1)
+constexpr int NN_META = 0, NN_DIMS = 8, NN_SLAB_LO = 12;
+constexpr int NN_SLAB_HI = NN_SLAB_LO + 3 * NN_SLAB;
+constexpr int NN_SFX_LO = NN_SLAB_HI + 3 * NN_SLAB;
+constexpr int NN_PFX_HI = NN_SFX_LO + 3 * NN_SLAB;
+constexpr int NN_START = NN_PFX_HI + 3 * NN_SLAB;
+
+// g: the least integer with g^3 >= 2n, at most NN_GRID_MAX
+__host__ __device__ inline int nn_cells_per_axis(int n) {
+  int g = 1;
+  while (g < NN_GRID_MAX && static_cast<long long>(g) * g * g < 2LL * n) ++g;
+  return g;
+}
+
+// 32-bit words of the tables of a grid of at most `cells` cells, rounded up
+// to 16 bytes
+__host__ __device__ inline int nn_table_words(int cells) {
+  return (NN_START + cells + 1 + 3) / 4 * 4;
+}
+
+// bytes a CUDA block orders in shared memory: the points (16 bytes each:
+// x, y, z, index) and the tables of the largest grid n points can take
+inline size_t nn_stage_bytes(int n) {
+  const int g = nn_cells_per_axis(n);
+  return 16 * static_cast<size_t>(n) + 4 * static_cast<size_t>(nn_table_words(g * g * g));
+}
+
+// Each CUDA block orders the support itself in shared memory; above
+// NN_STAGE_BYTES argmin_order_kernel orders it once into global memory.
+inline bool nn_staged(int n) { return nn_stage_bytes(n) <= NN_STAGE_BYTES; }
+
+// the bin of coordinate x along an axis of g cells (monotone in x)
+__device__ __forceinline__ int nn_bin(float x, float lo, float inv, int g) {
+  const float t = __fmul_rn(__fsub_rn(x, lo), inv);
+  return static_cast<int>(fmaxf(fminf(t, static_cast<float>(g - 1)), 0.f));
+}
+
+// floats as ints in the same order, for atomicMin / atomicMax (involution)
+__device__ __forceinline__ int nn_ordered(int bits) {
+  return bits >= 0 ? bits : bits ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float nn_gap(float q, float lo, float hi) {
+  return fmaxf(__fsub_rn(lo, q), 0.f) + fmaxf(__fsub_rn(q, hi), 0.f);
+}
+
+__device__ __forceinline__ float nn_bound(float gx, float gy, float gz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+}
+
+// Inclusive sum of v over the block; every thread calls it (blockDim.x a
+// multiple of 32).
+__device__ __forceinline__ int nn_block_scan(int v) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  __syncthreads();  // warp_sums free from an earlier call
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = blockDim.x >> 5;
+    int w = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += u;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  return v + (warp > 0 ? warp_sums[warp - 1] : 0);
+}
+
+// Orders the n points of sg (x, y, z triples) by cell, block-wide: pts[p]
+// = (x, y, z, index bits) in cell order (any order inside a cell), and the
+// grid's tables in tab (shared memory). Every thread calls it.
+__device__ void nn_build_grid(const float* __restrict__ sg, int n, float4* pts, float* tab) {
+  int* itab = reinterpret_cast<int*>(tab);
+  // the support's box
+  float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float v = sg[3 * i + a];
+      lo[a] = fminf(lo[a], v);
+      hi[a] = fmaxf(hi[a], v);
+    }
+  }
+  warp_box(lo, hi);
+  __shared__ float box_part[32][6];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < 6) box_part[warp][lane] = box_component(lo, hi, lane);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float ext_max = 0.f;
+    for (int a = 0; a < 3; ++a) {
+      float l = CUDART_INF_F, h = -CUDART_INF_F;
+      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+        l = fminf(l, box_part[w][a]);
+        h = fmaxf(h, box_part[w][3 + a]);
+      }
+      tab[NN_META + a] = l;
+      tab[NN_META + 3 + a] = h;
+      ext_max = fmaxf(ext_max, __fsub_rn(h, l));
+    }
+    const int g = nn_cells_per_axis(n);
+    const float inv = ext_max >= NN_MIN_EXTENT ? __fdiv_rn(static_cast<float>(g), ext_max) : 0.f;
+    tab[NN_META + 6] = inv;
+    for (int a = 0; a < 3; ++a) {
+      const float ext = __fsub_rn(tab[NN_META + 3 + a], tab[NN_META + a]);
+      itab[NN_DIMS + a] = min(static_cast<int>(__fmul_rn(ext, inv)) + 1, g);
+    }
+  }
+  __syncthreads();
+  const float inv = tab[NN_META + 6];
+  const int gx = itab[NN_DIMS], gy = itab[NN_DIMS + 1], gz = itab[NN_DIMS + 2];
+  const int cells = gx * gy * gz;
+  const float blo[3] = {tab[NN_META], tab[NN_META + 1], tab[NN_META + 2]};
+  const int gd[3] = {gx, gy, gz};
+  int* count = itab + NN_START;
+  for (int c = threadIdx.x; c <= cells; c += blockDim.x) count[c] = 0;
+  for (int t = threadIdx.x; t < 3 * NN_SLAB; t += blockDim.x) {
+    itab[NN_SLAB_LO + t] = nn_ordered(__float_as_int(CUDART_INF_F));
+    itab[NN_SLAB_HI + t] = nn_ordered(__float_as_int(-CUDART_INF_F));
+  }
+  __syncthreads();
+  // histogram of cells, slab extents. An extent is read before it is
+  // updated, so that most points update none.
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    int cell = 0;
+#pragma unroll
+    for (int a = 2; a >= 0; --a) {
+      const float v = sg[3 * i + a];
+      const int bin = nn_bin(v, blo[a], inv, gd[a]);
+      cell = cell * gd[a] + bin;
+      const int key = nn_ordered(__float_as_int(v));
+      int* lo_at = itab + NN_SLAB_LO + a * NN_SLAB + bin;
+      int* hi_at = itab + NN_SLAB_HI + a * NN_SLAB + bin;
+      if (key < *static_cast<volatile int*>(lo_at)) atomicMin(lo_at, key);
+      if (key > *static_cast<volatile int*>(hi_at)) atomicMax(hi_at, key);
+    }
+    atomicAdd(count + cell, 1);
+  }
+  __syncthreads();
+  // counts -> inclusive ends: each thread a contiguous run of cells
+  const int per = (cells + blockDim.x - 1) / blockDim.x;
+  const int c0 = min(static_cast<int>(threadIdx.x) * per, cells), c1 = min(c0 + per, cells);
+  int run = 0;
+  for (int c = c0; c < c1; ++c) run += count[c];
+  int end = nn_block_scan(run) - run;
+  for (int c = c0; c < c1; ++c) {
+    end += count[c];
+    count[c] = end;
+  }
+  if (threadIdx.x == 0) count[cells] = n;
+  // slabs back to floats; suffix minima and prefix maxima, one thread an axis
+  if (threadIdx.x < 3) {
+    const int a = threadIdx.x;
+    const int ga = a == 0 ? gx : (a == 1 ? gy : gz);
+    float* slo = tab + NN_SLAB_LO + a * NN_SLAB;
+    float* shi = tab + NN_SLAB_HI + a * NN_SLAB;
+    for (int j = 0; j < ga; ++j) {
+      slo[j] = __int_as_float(nn_ordered(__float_as_int(slo[j])));
+      shi[j] = __int_as_float(nn_ordered(__float_as_int(shi[j])));
+    }
+    float* sfx = tab + NN_SFX_LO + a * NN_SLAB;
+    float* pfx = tab + NN_PFX_HI + a * NN_SLAB;
+    float m = CUDART_INF_F;
+    sfx[ga] = m;
+    for (int j = ga - 1; j >= 0; --j) sfx[j] = m = fminf(m, slo[j]);
+    m = -CUDART_INF_F;
+    for (int j = 0; j < ga; ++j) pfx[j] = m = fmaxf(m, shi[j]);
+  }
+  __syncthreads();
+  // scatter: each point takes the last free place of its cell's run, so
+  // that the ends become the starts
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float x = sg[3 * i], y = sg[3 * i + 1], z = sg[3 * i + 2];
+    const int cell = (nn_bin(z, blo[2], inv, gz) * gy + nn_bin(y, blo[1], inv, gy)) * gx +
+                     nn_bin(x, blo[0], inv, gx);
+    pts[atomicSub(count + cell, 1) - 1] = make_float4(x, y, z, __int_as_float(i));
+  }
+  __syncthreads();
+}
+
+// The nearest point of the grid (tab, pts) to q: (distance, index) least
+// lexicographically, walked by the NN_LANES lanes of a group (lane l of the
+// group, gmask its lanes). The walk of the design note: shells of cells
+// around q's cell; a plane, row or cell skipped when its bound is strictly
+// greater than the best; a cell's points split among the lanes, whose bests
+// are merged after the cell, so that every decision sees the same best on
+// every lane; the walk ended by the strict bound of everything beyond the
+// shells.
+__device__ __forceinline__ void nn_walk(float qx, float qy, float qz, const float* tab,
+                                        const float4* pts, int l, unsigned gmask,
+                                        float& best_d, int& best_i) {
+  const int* itab = reinterpret_cast<const int*>(tab);
+  const float lo[3] = {tab[NN_META], tab[NN_META + 1], tab[NN_META + 2]};
+  const float hi[3] = {tab[NN_META + 3], tab[NN_META + 4], tab[NN_META + 5]};
+  const float inv = tab[NN_META + 6];
+  const int gd[3] = {itab[NN_DIMS], itab[NN_DIMS + 1], itab[NN_DIMS + 2]};
+  const float q[3] = {qx, qy, qz};
+  int c[3];
+  float box_gap[3];
+  int reach = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    c[a] = nn_bin(q[a], lo[a], inv, gd[a]);
+    box_gap[a] = nn_gap(q[a], lo[a], hi[a]);
+    reach = max(reach, max(c[a], gd[a] - 1 - c[a]));
+  }
+  const float* slo = tab + NN_SLAB_LO;
+  const float* shi = tab + NN_SLAB_HI;
+  const int* start = itab + NN_START;
+  best_d = CUDART_INF_F;
+  best_i = 0;  // a row of infinite distances: index 0, as the stable sort
+  for (int r = 0;; ++r) {
+    for (int dz = -r; dz <= r; ++dz) {
+      const int z = c[2] + dz;
+      if (z < 0 || z >= gd[2]) continue;
+      const float gz = nn_gap(qz, slo[2 * NN_SLAB + z], shi[2 * NN_SLAB + z]);
+      if (nn_bound(0.f, 0.f, gz) > best_d) continue;
+      for (int dy = -r; dy <= r; ++dy) {
+        const int y = c[1] + dy;
+        if (y < 0 || y >= gd[1]) continue;
+        const float gy = nn_gap(qy, slo[NN_SLAB + y], shi[NN_SLAB + y]);
+        if (nn_bound(0.f, gy, gz) > best_d) continue;
+        // inside the shell's faces only x = -r and x = r are on the shell
+        const int step = (dz == -r || dz == r || dy == -r || dy == r) ? 1 : 2 * r;
+        for (int dx = -r; dx <= r; dx += step) {
+          const int x = c[0] + dx;
+          if (x < 0 || x >= gd[0]) continue;
+          const int cell = (z * gd[1] + y) * gd[0] + x;
+          const int s0 = start[cell], s1 = start[cell + 1];
+          if (s0 == s1) continue;
+          if (nn_bound(nn_gap(qx, slo[x], shi[x]), gy, gz) > best_d) continue;
+          for (int j = s0 + l; j < s1; j += NN_LANES) {
+            const float4 p = pts[j];
+            const float d = sq_dist(qx, qy, qz, p.x, p.y, p.z);
+            const int i = __float_as_int(p.w);
+            if (lex_less(d, i, best_d, best_i)) {
+              best_d = d;
+              best_i = i;
+            }
+          }
+#pragma unroll
+          for (int o = 1; o < NN_LANES; o <<= 1) {
+            const float od = __shfl_xor_sync(gmask, best_d, o);
+            const int oi = __shfl_xor_sync(gmask, best_i, o);
+            if (lex_less(od, oi, best_d, best_i)) {
+              best_d = od;
+              best_i = oi;
+            }
+          }
+        }
+      }
+    }
+    if (r >= reach) return;
+    // everything beyond the cube of shells 0..r, over its six sides
+    float beyond = CUDART_INF_F;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int up = c[a] + r + 1, down = c[a] - r - 1;
+      const float g_up =
+          up < gd[a] ? fmaxf(__fsub_rn(tab[NN_SFX_LO + a * NN_SLAB + up], q[a]), 0.f)
+                     : CUDART_INF_F;
+      const float g_down =
+          down >= 0 ? fmaxf(__fsub_rn(q[a], tab[NN_PFX_HI + a * NN_SLAB + down]), 0.f)
+                    : CUDART_INF_F;
+      const float g = fminf(g_up, g_down);
+      beyond = fminf(beyond, nn_bound(a == 0 ? g : box_gap[0], a == 1 ? g : box_gap[1],
+                                      a == 2 ? g : box_gap[2]));
+    }
+    if (beyond > best_d) return;
+  }
+}
+
+// Orders each batch item's support into global memory: block b writes the
+// points and then the tables of its grid at scratch + b * stride (words).
+__global__ void __launch_bounds__(NN_ORDER_THREADS)
+argmin_order_kernel(const float* __restrict__ support, float* __restrict__ scratch, int N,
+                    size_t stride) {
+  extern __shared__ float nn_sm[];  // the tables
+  const int b = blockIdx.x;
+  float* out = scratch + b * stride;
+  nn_build_grid(support + static_cast<size_t>(b) * N * 3, N, reinterpret_cast<float4*>(out),
+                nn_sm);
+  const int* itab = reinterpret_cast<const int*>(nn_sm);
+  const int words = NN_START + itab[NN_DIMS] * itab[NN_DIMS + 1] * itab[NN_DIMS + 2] + 1;
+  for (int t = threadIdx.x; t < words; t += blockDim.x) out[4 * N + t] = nn_sm[t];
+}
+
+// Exact 1-NN, NN_LANES lanes a query (see the design note at the top).
+// Block blockIdx.x owns queries [qpb * blockIdx.x, +qpb) of batch item
+// blockIdx.y. Staged: the block orders the support in dynamic shared memory
+// (points | tables); else it reads batch item b's grid that
+// argmin_order_kernel wrote at scratch + b * stride.
+__global__ void __launch_bounds__(NN_THREADS)
+argmin_cull_kernel(const float* __restrict__ query, const float* __restrict__ support,
+                   const float* __restrict__ scratch, int* __restrict__ idx_out,
+                   float* __restrict__ d2_out, int M, int N, int qpb, size_t stride) {
+  extern __shared__ float4 nn_pts[];
+  const int b = blockIdx.y;
+  const float4* pts;
+  const float* tab;
+  if (scratch == nullptr) {
+    float* stab = reinterpret_cast<float*>(nn_pts + N);
+    nn_build_grid(support + static_cast<size_t>(b) * N * 3, N, nn_pts, stab);
+    pts = nn_pts;
+    tab = stab;
+  } else {
+    pts = reinterpret_cast<const float4*>(scratch + b * stride);
+    tab = scratch + b * stride + 4 * static_cast<size_t>(N);
+  }
+  const int l = threadIdx.x % NN_LANES, lane = threadIdx.x & 31;
+  const unsigned gmask = ((1u << NN_LANES) - 1) << (lane - l);
+  const int q_hi = min(blockIdx.x * qpb + qpb, M);
+  for (int m = blockIdx.x * qpb + threadIdx.x / NN_LANES; m < q_hi;
+       m += NN_THREADS / NN_LANES) {
+    const float* qp = query + (static_cast<size_t>(b) * M + m) * 3;
+    float d;
+    int i;
+    nn_walk(qp[0], qp[1], qp[2], tab, pts, l, gmask, d, i);
+    if (l == 0) {
+      idx_out[static_cast<size_t>(b) * M + m] = i;
+      d2_out[static_cast<size_t>(b) * M + m] = d;
+    }
+  }
+}
+
+// words between two batch items' grids in the order launch's scratch
+inline size_t nn_scratch_stride(int N) {
+  const int g = nn_cells_per_axis(N);
+  return 4 * static_cast<size_t>(N) + nn_table_words(g * g * g);
+}
+
+// The exact 1-NN route: argmin_cull_kernel, after argmin_order_kernel where
+// the support is not ordered in shared memory (scratch: B grids of
+// nn_scratch_stride(N) words).
+int launch_argmin(const float* query, const float* support, float* scratch, int* idx,
+                  float* d2, int B, int M, int N, cudaStream_t stream) {
+  int device = 0, sms = 0, err;
+  if ((err = cudaGetDevice(&device)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) {
+    return err;
+  }
+  const bool staged = nn_staged(N);
+  const size_t stride = staged ? 0 : nn_scratch_stride(N);
+  const size_t smem = staged ? nn_stage_bytes(N) : 0;
+  if (staged) {
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(argmin_cull_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem)))) {
+      return err;
+    }
+  } else {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int g = nn_cells_per_axis(N);
+    const size_t tab_bytes = 4 * static_cast<size_t>(nn_table_words(g * g * g));
+    if (tab_bytes > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(argmin_order_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(tab_bytes)))) {
+      return err;
+    }
+    argmin_order_kernel<<<B, NN_ORDER_THREADS, tab_bytes, stream>>>(support, scratch, N, stride);
+  }
+  // NN_THREADS / NN_LANES queries a pass; where each block orders the
+  // support, about two blocks an SM at most, each ordering it once for all
+  // of its passes
+  const int per_pass = NN_THREADS / NN_LANES;
+  const int passes = (M + per_pass - 1) / per_pass;
+  const int per_batch = staged ? max(1, min(passes, (2 * sms + B - 1) / B)) : passes;
+  const int qpb = (M + per_batch - 1) / per_batch;
+  argmin_cull_kernel<<<dim3(per_batch, B), NN_THREADS, smem, stream>>>(
+      query, support, staged ? nullptr : scratch, idx, d2, M, N, qpb, stride);
+  return 0;
+}
+
 }  // namespace
 
 // query (B, M, 3), support (B, N, 3) float32; idx (B, M, k) int32 and
@@ -899,16 +1342,23 @@ extern "C" int r3d_knn_topk(const float* query, const float* support,
   return static_cast<int>(cudaGetLastError());
 }
 
-// query (B, M, 3), support (B, N, 3) float32; idx (B, M) int32 and
-// d2 (B, M) float32 out. Returns cudaGetLastError().
-extern "C" int r3d_argmin(const float* query, const float* support, int* idx,
+// Bytes of scratch that r3d_argmin needs for B supports of N points: 0
+// where each CUDA block orders the support in shared memory.
+extern "C" long long r3d_argmin_scratch_bytes(int B, int N) {
+  return nn_staged(N) ? 0 : 4LL * B * static_cast<long long>(nn_scratch_stride(N));
+}
+
+// query (B, M, 3), support (B, N, 3) float32; scratch of
+// r3d_argmin_scratch_bytes(B, N) bytes, 16-byte aligned (null where that is
+// 0); idx (B, M) int32 and d2 (B, M) float32 out. Returns
+// cudaGetLastError().
+extern "C" int r3d_argmin(const float* query, const float* support, float* scratch, int* idx,
                           float* d2, int B, int M, int N, void* stream) {
   if (B == 0 || M == 0) return 0;
   if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + ARGMIN_THREADS - 1) / ARGMIN_THREADS, B);
-  argmin_kernel<<<grid, ARGMIN_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(query, support, nullptr,
-                                                       idx, d2, M, N, N, 1);
+  const int err = launch_argmin(query, support, scratch, idx, d2, B, M, N,
+                                static_cast<cudaStream_t>(stream));
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -123,8 +123,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (query, support, idx_out, d2_out, B, M, N, k, stream)
     "r3d_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (query, support, idx_out, d2_out, B, M, N, stream)
-    "r3d_argmin": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (query, support, scratch, idx_out, d2_out, B, M, N, stream)
+    "r3d_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (query, support, starts, idx_out, d2_out, B, M, N, w, qb, k, stream)
     "r3d_knn_window": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (gathered, d2, center, consts, pooled_out, rpe2_out, rows, K, h, stream)
@@ -145,6 +145,9 @@ def load(path: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    # (B, N) -> bytes of scratch r3d_argmin needs
+    lib.r3d_argmin_scratch_bytes.argtypes = [_I, _I]
+    lib.r3d_argmin_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 

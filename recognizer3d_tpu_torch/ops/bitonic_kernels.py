@@ -69,7 +69,8 @@ def roll_stages(x: torch.Tensor, stages: int) -> torch.Tensor:
         return roll_stages_plain(x, stages)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _build.check_cuda_tensor("x", x, torch.float32, tuple(x.shape), x.device)
+    # the kernel reads and writes rows 16 bytes at a time
+    _build.check_cuda_tensor("x", x, torch.float32, tuple(x.shape), x.device, align=16)
     out = torch.empty_like(x)
     ts = x.shape[-1]
     lib = _build.library()

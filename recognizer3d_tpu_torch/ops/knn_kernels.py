@@ -2,8 +2,10 @@
 
 * :func:`knn_topk` replaces ``recognizer3d_tpu/ops/knn_pallas.py::_knn_kernel``
   (exact k-NN, k <= 128): the encoder self-KNNs of the main path.
-* :func:`argmin_1nn` replaces ``::_argmin_kernel`` (exact streaming 1-NN):
-  the final upsample onto the full cloud.
+* :func:`argmin_1nn` replaces ``::_argmin_kernel`` (exact 1-NN with tile
+  culling) with a kernel that culls over a grid of cells it builds itself:
+  the final upsample onto the full cloud, and approx64k's decoder
+  upsamples.
 * :func:`knn_window_topk` replaces the ``lax.approx_min_k`` selection of
   ``recognizer3d_tpu/ops/knn.py::knn_window`` (the Morton-window search of
   ``knn="approximate"``): each block of ``query_block`` sorted queries
@@ -65,7 +67,7 @@ def argmin_1nn_plain(
     support: torch.Tensor, query: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the 1-NN kernel: full distances + argmin (first
-    index of the minimum)."""
+    index of the minimum), which is ``knn_topk_plain(support, query, 1)``."""
     idx_parts, d2_parts = [], []
     for lo, hi in _query_chunks(query.shape[1], support.shape[1]):
         d2 = _sq_dists(query[:, lo:hi], support)
@@ -140,10 +142,17 @@ def argmin_1nn(
     idx = torch.empty((B, m, 1), dtype=torch.int32, device=support.device)
     d2 = torch.empty((B, m, 1), dtype=torch.float32, device=support.device)
     lib = _build.library()
+    # supports too large to order in each CUDA block's shared memory are
+    # ordered once, by a launch of their own, into this scratch
+    scratch_bytes = lib.r3d_argmin_scratch_bytes(B, n)
+    scratch = None
+    if scratch_bytes:
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=support.device)
+        _build.LAUNCHES["argmin_1nn_order"] += 1
     _build.LAUNCHES["argmin_1nn"] += 1
     status = lib.r3d_argmin(
-        query.data_ptr(), support.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-        B, m, n, _build.stream_ptr(support.device),
+        query.data_ptr(), support.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        idx.data_ptr(), d2.data_ptr(), B, m, n, _build.stream_ptr(support.device),
     )
     _build.check_status("r3d_argmin", status)
     return idx, d2

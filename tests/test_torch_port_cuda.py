@@ -9,8 +9,10 @@ route's support layouts (staged in shared memory, read from global memory)
 and its streaming kernel for the largest supports, the round-1 kernel on
 ragged row tiles at every neighbour count it takes, the window kernel on
 Morton-sorted clouds at every window of the recall guard's ladder, the
-pool-2 kernels on ragged row tiles and other neighbour counts, the bitonic
-stage kernel at other shapes and stage counts, one small live depth frame
+pool-2 kernels on ragged row tiles and other neighbour counts, the 1-NN
+kernel on sorted, unsorted, tied, duplicated, flat and far inputs at
+supports of 1 to 65,536 points (ordered in shared memory or by its own
+launch), the bitonic stage kernel at other shapes and stage counts, one small live depth frame
 on the card against the CPU, and the wrappers' refusals. The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
 
@@ -123,15 +125,54 @@ def test_knn_topk_kernel_matches_plain(dev, b, n, m, k, grid, layout):
     assert torch.equal(idx, ref_i)
 
 
-@pytest.mark.parametrize("b,n,m,grid", [(1, 2500, 61440, None), (2, 1030, 5000, 10), (1, 1, 300, None)])
-def test_argmin_kernel_matches_plain(dev, b, n, m, grid):
+@pytest.mark.parametrize(
+    "b,n,m,grid,layout",
+    [
+        (1, 2500, 61440, None, "unsorted"),  # the app frame's shape
+        (2, 1030, 5000, 10, "unsorted"),      # a batch, tie grid
+        (1, 1, 300, None, "unsorted"),        # one support point
+        (1, 2, 17, None, "unsorted"),
+        (1, 37, 1001, 4, "unsorted"),         # odd M, heavy ties
+        (2, 2500, 16383, None, "unsorted"),   # the live shape, odd M, a batch
+        (1, 3000, 777, 3, "duplicates"),      # every support point twice
+        (1, 4096, 16384, None, "sorted"),     # approx64k's decoder, staged
+        (1, 4500, 999, 8, "sorted"),          # largest staged grids
+        (1, 4700, 999, 8, "sorted"),          # smallest ordered by a launch
+        (2, 16384, 65536, None, "sorted"),    # approx64k's last decoder level, a batch
+        (1, 16384, 5001, 16, "unsorted"),     # the ordering launch, ties, unsorted
+        (1, 65536, 3001, None, "sorted"),     # the route's largest support
+        (1, 65536, 2000, 20, "unsorted"),
+        (1, 2500, 1000, None, "far"),         # queries far outside the support's box
+        (1, 2500, 1000, None, "flat"),        # a flat support: one cell thick
+    ],
+)
+def test_argmin_kernel_matches_plain(dev, b, n, m, grid, layout):
+    """The first entry of the stable sort by distance, bit for bit, ties
+    included, for supports and queries in any order and at every size the
+    kernel takes in shared memory or behind its ordering launch."""
     s = _cloud(n, b, n, dev, grid)
     q = _cloud(m, b, m, dev, grid)
+    if layout == "sorted":
+        s, q = _sorted(s), _sorted(q)
+    elif layout == "duplicates":
+        s = torch.cat([s[:, : n // 2], s[:, : n - n // 2].flip(1)], 1).contiguous()
+    elif layout == "far":
+        q = q * 50 - 25
+    elif layout == "flat":
+        s[..., 2] = 0.5
+    # supports too large to order in each CUDA block's shared memory take
+    # the ordering launch, and scratch for it
+    ordered = _build.library().r3d_argmin_scratch_bytes(b, n) > 0
+    assert ordered == (n > 4500)
+    _build.reset_launches()
     idx, d2 = knn_kernels.argmin_1nn(s, q)
-    ref_i, ref_d = knn_kernels.argmin_1nn_plain(s, q)
+    assert _build.LAUNCHES == ({"argmin_1nn": 1, "argmin_1nn_order": 1} if ordered
+                               else {"argmin_1nn": 1})
+    ref_i, ref_d = knn_kernels.knn_topk_plain(s, q, 1)
     torch.cuda.synchronize()
     assert torch.equal(d2, ref_d)
     assert torch.equal(idx, ref_i)
+    assert torch.equal(knn_kernels.argmin_1nn_plain(s, q)[0], ref_i)
 
 
 @pytest.mark.parametrize(
@@ -353,6 +394,17 @@ def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
         ((2, 3, 1024), 13, None),   # the widest row
         ((4, 512), 0, None),        # no stage: the epilogue alone
         ((33, 128), 6, 2),          # 2-D input, heavy ties
+        ((5, 64), 0, None),         # every stage count of a cycle and its rest,
+        ((5, 64), 1, 3),            # at the narrowest and the widest row
+        ((5, 64), 6, None),
+        ((5, 64), 7, 3),
+        ((5, 64), 45, None),
+        ((3, 1024), 0, None),
+        ((3, 1024), 1, None),
+        ((3, 1024), 6, 5),
+        ((3, 1024), 7, None),
+        ((3, 1024), 45, 4),
+        ((7, 3, 1024), 45, None),   # rows whose threads span CUDA blocks unevenly
     ],
 )
 def test_roll_stages_kernel_matches_plain(dev, shape, stages, grid):
@@ -370,6 +422,8 @@ def test_roll_stages_kernel_matches_plain(dev, shape, stages, grid):
     assert torch.equal(out, ref)
     with pytest.raises(ValueError, match="contiguous"):
         bitonic_kernels.roll_stages(x.transpose(0, -1).contiguous().transpose(0, -1), 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # 16-byte loads and stores
+        bitonic_kernels.roll_stages(_misaligned(x), 1)
 
 
 def test_live_frame_on_the_card_matches_the_cpu(dev):
