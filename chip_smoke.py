@@ -38,10 +38,32 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. a reference-layout torch archive of the bundled weights, written under
    ``build/``, loaded on the card: the same state and the same predictions
    as the msgpack archive;
-8. run one frame of each path while recording the inputs it hands to each
-   kernel wrapper, then hold every kernel against its plain PyTorch version
-   on those inputs (B5, which no path runs, on the inputs of B3's
-   level-0 call; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
+7b. the train path: an annotated mock dataset (12 clouds of 20,000 points,
+   ``bin/make_mock_data``'s ``make_frame``) written under ``build/``, and
+   the port's ``run_training`` at the app config on the card for 2 epochs
+   (the app's augmentation, batches assembled on the card), with the
+   launch counts set to 0 before it: B1 4 a train step, B1 4, B2 2 and B3 2
+   a validation forward, summed over its steps and forwards. Every loss
+   finite; every parameter and running statistic moved from the seed-0
+   init; the saved archive reloaded on the card answers one frame. Then,
+   on the trained weights: the launches of one step and of one validation
+   forward (the validation sweep's own batch of 3 clouds), the train
+   step's wall p50 over 20 steps (synchronised), and one step on the card
+   against the CPU from the same weights, batch, permutation and dropout
+   mask. In float64 (the module in double; the geometry and the neighbour
+   search stay float32, B1 included): the loss within 1e-5 relative, every
+   gradient within 1e-4 × its tensor's largest |g| (a Dense bias before a
+   BatchNorm, whose exact gradient is 0, at its weight's scale:
+   ``benchmarks/train_precision.grad_distance``), the running statistics
+   within 1e-5 of their tensor's largest value. In float32, the loss within
+   1e-5, and, on 3 batches, the smallest median over the gradient tensors
+   of the card's distance from the float64 step within
+   ``FP32_GRAD_MEDIAN_LIMIT`` (5e-4), which the same steps with TF32
+   matmuls allowed, the control, must exceed;
+8. run one frame of each path, one train step and one validation forward
+   (batch 3) while recording the inputs it hands to each kernel wrapper,
+   then hold every kernel against its plain PyTorch version on those
+   inputs (B5, which no path runs, on the inputs of B3's level-0 calls; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
    the kernels line reporting S = 45)
    and time the kernel, the plain version and (where one exists) a PyTorch
    library call computing the same function (device time from
@@ -63,10 +85,13 @@ It imports nothing of JAX or of the JAX package.
 import importlib.machinery
 import importlib.util
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from datetime import datetime, timedelta
 from pathlib import Path
 
 import numpy as np
@@ -110,6 +135,32 @@ ROLL_STAGES = (1, 5, 15, 45)
 ROLL_TABLE_LAUNCHES = 5 * 2 * 5
 
 TORCH_ARCHIVE = ROOT / "build" / "torch_archive" / "mock_fingertip_reference"
+
+# the train path: the app's recipe (recognizer3d_tpu_torch.train.run_training)
+# on an annotated mock dataset, 2 epochs; 12 clouds split 9 / 3, so 3 steps
+# of batch 4 and 10 validation forwards (10 seeds, one batch) an epoch
+TRAIN_DIR = ROOT / "build" / "train_mock"
+TRAIN_OUT = ROOT / "build" / "train_run"
+TRAIN_CLOUDS = 12
+TRAIN_POINTS = 20_000
+TRAIN_EPOCHS = 2
+STEP_REPS = 20
+# launches per train step (B1 at each encoder level) and per validation
+# forward (eval mode under inference_mode, as predict)
+PER_STEP = {"knn_topk": 4}
+PER_VAL_FORWARD = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2}
+# a float32 step's distance from the float64 step: per batch the median
+# over the gradient tensors of ``benchmarks/train_precision.grad_distances``,
+# then the smallest over PRECISION_BATCHES batches. On an H100 (80GB HBM3,
+# 700 W), one batch's median read 3.9e-6 to 4.5e-4 on the card over 12
+# app-config steps, and 3.0e-3 to 6.8e-3 with TF32 matmuls; it is
+# heavy-tailed (BatchNorm over nearly constant channels amplifies a
+# rounding now and then), as the largest tensor's distance is more so (up
+# to 1.7e-2 in float32, from 5.6e-2 with TF32), which takes no limit. The
+# smallest of 3 consecutive batches of that script's 10 read at most
+# 2.2e-5 in float32 and at least 3.0e-3 with TF32.
+PRECISION_BATCHES = 3
+FP32_GRAD_MEDIAN_LIMIT = 5e-4
 
 # kernels whose registers, shared memory and spills the build report prints
 PTXAS_KERNELS = ("knn_cull_kernel", "knn_window_kernel", "argmin_cull_kernel",
@@ -499,7 +550,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
     # B2: fused LFA round 1 at encoder levels 0 and 1
     for args, _ in calls.get("lfa_round1", []):
         gathered, d2, center = args[:3]
-        _, rows, k, c2 = gathered.shape
+        b, rows, k, c2 = gathered.shape
         h = c2 // 2
         pooled, rpe2 = lfa_kernels.lfa_round1(*args)
         consts = lfa_kernels.round1_constants(*args[3:])
@@ -517,9 +568,9 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             ),
             2 * plain_reps,
         )
-        bound = _bound(*_round1_work(rows, k, h))
+        bound = _bound(*_round1_work(b * rows, k, h))
         results.add("lfa_round1", err, ms, plain, bound, None)
-        print(f"{label} lfa_round1 N={rows} K={k} h={h}: max abs err {err:.3g}; kernel "
+        print(f"{label} lfa_round1 B={b} N={rows} K={k} h={h}: max abs err {err:.3g}; kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
               f"({bound[1]})", flush=True)
 
@@ -528,7 +579,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
     for args, kwargs in calls.get("lfa_pool2_res", []):
         rpe2, g2 = args[:2]
         f_in = args[7]
-        _, rows, k, h = g2.shape
+        b, rows, k, h = g2.shape
         f = f_in.shape[-1]
         out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
         consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:])
@@ -549,9 +600,9 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             ),
             2 * plain_reps,
         )
-        bound = _bound(*_pool2_work(rows, k, h, f))
+        bound = _bound(*_pool2_work(b * rows, k, h, f))
         results.add("lfa_pool2_res", err, ms, plain, bound, None)
-        print(f"{label} lfa_pool2_res N={rows} K={k} h={h} F={f}: max abs err {err:.3g}; "
+        print(f"{label} lfa_pool2_res B={b} N={rows} K={k} h={h} F={f}: max abs err {err:.3g}; "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
               f"({bound[1]})", flush=True)
         if h != 8:
@@ -574,9 +625,9 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             ),
             2 * plain_reps,
         )
-        bound = _bound(*_pool2_work(rows, k, h, 0, residual=False))
+        bound = _bound(*_pool2_work(b * rows, k, h, 0, residual=False))
         results.add("lfa_pool2", err, ms, plain, bound, None)
-        print(f"{label} lfa_pool2 (B5, on B3's level-0 inputs) N={rows} K={k} h={h}: "
+        print(f"{label} lfa_pool2 (B5, on B3's level-0 inputs) B={b} N={rows} K={k} h={h}: "
               f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
               f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
 
@@ -799,6 +850,227 @@ def _torch_archive(torch, Model, model, frame):
           flush=True)
 
 
+def _write_train_dataset(make_frame) -> None:
+    """The annotated mock dataset of the train phase, under ``build/``."""
+    from recognizer3d_tpu_torch.data.dataset import Dataset
+
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    ds = Dataset(TRAIN_DIR)
+    t0 = datetime(2026, 1, 1, 12, 0, 0)
+    for i in range(TRAIN_CLOUDS):
+        cloud, annotation = make_frame(np.random.RandomState(700 + i), 0.45 * i, TRAIN_POINTS)
+        ds[t0 + timedelta(seconds=i)] = cloud
+        ds.set_annotation(t0 + timedelta(seconds=i), annotation)
+
+
+def _train_path(torch, build, Model, make_frame):
+    """The port's run_training at the app config for TRAIN_EPOCHS on the
+    card; returns the trained Model, the launches of the run and one
+    validation batch (inputs, permutation)."""
+    from recognizer3d_tpu_torch.train import app_model_config, app_training_config, run_training
+    from recognizer3d_tpu_torch.training.trainer import Trainer
+
+    _write_train_dataset(make_frame)
+    training = app_training_config()
+    training.epochs = TRAIN_EPOCHS
+    # run_training's fresh model: Model's default seed 0
+    init = {k: v.clone() for k, v in Model(app_model_config()).module.state_dict().items()}
+    if TRAIN_OUT.exists():
+        shutil.rmtree(TRAIN_OUT)
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    path, model, trainer = run_training([TRAIN_DIR], training=training,
+                                        models_dir=TRAIN_OUT / "models",
+                                        log_root=TRAIN_OUT / "log")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    n_val = TRAIN_CLOUDS - int(0.8 * TRAIN_CLOUDS)
+    val_forwards = 10 * math.ceil(n_val / training.batch_size)
+    steps = sum(h["steps"] for h in trainer.history)
+    expected = {
+        name: steps * PER_STEP.get(name, 0) + TRAIN_EPOCHS * val_forwards * count
+        for name, count in PER_VAL_FORWARD.items()
+    }
+    if len(trainer.history) != TRAIN_EPOCHS or launches != expected:
+        raise RuntimeError(f"train: {len(trainer.history)} epochs, launches {launches}, "
+                           f"expected {expected} ({steps} steps, {val_forwards} validation "
+                           f"forwards an epoch)")
+    for h in trainer.history:
+        bad = [k for k, v in h["metrics"].items() if not math.isfinite(float(v))]
+        if bad:
+            raise RuntimeError(f"train: epoch {h['epoch']}: not finite: {bad}")
+        m = h["metrics"]
+        print(f"train: epoch {h['epoch']}: {h['steps']} steps in {h['train_s'] * 1e3:.1f} ms, "
+              f"validation ({val_forwards} forwards) {h['validate_s'] * 1e3:.1f} ms; loss "
+              f"{m['loss']:.4f}, val_loss {m['val_loss']:.4f}, mIoU {m['mIoU']:.4f}, "
+              f"val_mIoU {m['val_mIoU']:.4f}", flush=True)
+    state = model.module.state_dict()
+    still = [k for k, v in state.items() if torch.equal(v, init[k])]
+    if still:
+        raise RuntimeError(f"train: tensors that did not move from the init: {still}")
+    print(f"train: run_training at the app config, {TRAIN_EPOCHS} epochs on {TRAIN_CLOUDS} "
+          f"clouds of {TRAIN_POINTS} points, {wall:.3f} s end to end (dataset load, "
+          f"broadened annotations and device cache included); launches {launches}; all "
+          f"{len(state)} parameters and running statistics moved", flush=True)
+    loaded = Model.load(path, device="cuda", transfer_dtype="float32")
+    other = loaded.module.state_dict()
+    if not all(torch.equal(state[k], other[k]) for k in state):
+        raise RuntimeError("train: the saved archive's state differs from the trained model's")
+    frame = make_frame(np.random.RandomState(800), 0.2, FRAME_POINTS)[0]
+    conf = loaded.predict(frame)
+    if conf.shape != (2, FRAME_POINTS) or not np.isfinite(conf).all():
+        raise RuntimeError(f"train: reloaded model answered {conf.shape}, or not finite")
+    print(f"train: {path.relative_to(ROOT)} reloaded on the card: same state; one "
+          f"{FRAME_POINTS}-point frame answered ({int((conf[1] > 0.5).sum())} positives)",
+          flush=True)
+    # the validation sweep's batch and its seed-0 permutation, as the
+    # trainer kept them on the card
+    inputs, _, perms = Trainer._device_eval_batches(trainer._validation_dataloader, 10,
+                                                  model.device)[0]
+    return model, launches, (inputs, perms[0])
+
+
+def _train_batches(torch, n: int, seed: int = 0):
+    """``n`` app-config train batches assembled on the card from the train
+    phase's dataset: (inputs, labels, permutation, dropout mask)."""
+    from recognizer3d_tpu_torch.data.dataset import Dataset
+    from recognizer3d_tpu_torch.data.pipeline import DeviceDatasetCache
+    from recognizer3d_tpu_torch.train import app_augmentation
+    from recognizer3d_tpu_torch.training.trainer import dropout_mask
+
+    ds = Dataset(TRAIN_DIR, broaden_annotations=True)
+    cache = DeviceDatasetCache([ds[i] for i in range(len(ds))], 2500,
+                               augmentation_settings=app_augmentation(), device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.randperm(cache.n_samples, generator=gen, device="cuda")[:4]
+        inputs, labels = cache.sample_batch(ids, gen)
+        perm = torch.randperm(inputs.shape[1], generator=gen, device="cuda")
+        out.append((inputs, labels, perm, dropout_mask(gen, inputs)))
+    return out
+
+
+def _train_step_checks(torch, build, Model, model, val_batch):
+    """On the trained weights: launches of a step and of a validation
+    forward, the step's wall p50, and one step on the card against the
+    CPU. Returns a step's module, optimizer, criterion and batch for the
+    kernel checks."""
+    from recognizer3d_tpu_torch.benchmarks.train_precision import grad_distance, step_gradients
+    from recognizer3d_tpu_torch.train import app_model_config
+    from recognizer3d_tpu_torch.training import losses
+    from recognizer3d_tpu_torch.training.trainer import make_optimizer, train_step
+
+    criterion = losses.get_loss("dice")
+    batches = _train_batches(torch, STEP_REPS + 1)
+    weights = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+    settings = app_model_config()
+    steps = {}
+    for dtype in (torch.float64, torch.float32):
+        for device in ("cuda", "cpu"):
+            m = Model(settings, weights=weights, device=device)
+            module = m.module.to(dtype)
+            module.train()
+            opt = make_optimizer(module, 1e-2)
+            inputs, labels, perm, keep = (t.to(device) for t in batches[0])
+            build.reset_launches()
+            loss, _ = train_step(module, opt, criterion, inputs.to(dtype), labels, perm, keep)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                if dict(build.LAUNCHES) != PER_STEP:
+                    raise RuntimeError(f"train step: launches {dict(build.LAUNCHES)}, expected "
+                                       f"{PER_STEP}")
+            steps[device, dtype] = (
+                float(loss),
+                {n: p.grad.detach().cpu().double() for n, p in module.named_parameters()},
+                {n: b.detach().cpu().double() for n, b in module.named_buffers()},
+            )
+
+    def gaps(a, b):
+        """(loss, gradients, running statistics) of a against b, each
+        relative: the gradients as ``grad_distance``, the statistics to the
+        largest value of b's tensor."""
+        stats = max(float((a[2][n] - b[2][n]).abs().max()) / float(b[2][n].abs().max())
+                    for n in b[2])
+        return abs(a[0] - b[0]) / abs(b[0]), grad_distance(a[1], b[1]), stats
+
+    exact = steps["cpu", torch.float64]
+    loss_err, (grad_err, _, at), bs_err = gaps(steps["cuda", torch.float64], exact)
+    if not math.isfinite(exact[0]) or loss_err > 1e-5 or grad_err > 1e-4 or bs_err > 1e-5:
+        raise RuntimeError(f"train step card vs CPU in float64: loss rel {loss_err:.3g}, "
+                           f"gradients {grad_err:.3g} of max |g| at {at}, running statistics "
+                           f"{bs_err:.3g}")
+    print(f"train step: card vs CPU in float64 (geometry and neighbour search in float32) on "
+          f"one batch of 4 x 2500 points: loss {exact[0]:.9f} (rel {loss_err:.3g}), gradients "
+          f"within {grad_err:.3g} of each tensor's max |g| ({at}), running statistics within "
+          f"{bs_err:.3g}", flush=True)
+    f32 = {d: steps[d, torch.float32] for d in ("cuda", "cpu")}
+    loss_err, (grad_err, _, at), bs_err = gaps(f32["cuda"], f32["cpu"])
+    if not math.isfinite(f32["cuda"][0]) or loss_err > 1e-5:
+        raise RuntimeError(f"train step card vs CPU in float32: loss {f32['cuda'][0]} vs "
+                           f"{f32['cpu'][0]} (rel {loss_err:.3g})")
+    floor = {d: gaps(f32[d], exact) for d in f32}
+    tf32 = grad_distance(step_gradients(settings, weights, batches[0], "cuda", tf32=True),
+                         exact[1])
+    print(f"train step: card vs CPU in float32: loss rel {loss_err:.3g}, gradients "
+          f"{grad_err:.3g} of max |g| ({at}), running statistics {bs_err:.3g}; against the "
+          f"float64 step, gradients (max at / median over the tensors) and statistics: card "
+          f"{floor['cuda'][1][0]:.3g} ({floor['cuda'][1][2]}) / {floor['cuda'][1][1]:.3g} and "
+          f"{floor['cuda'][2]:.3g}, CPU {floor['cpu'][1][0]:.3g} ({floor['cpu'][1][2]}) / "
+          f"{floor['cpu'][1][1]:.3g} and {floor['cpu'][2]:.3g}; the card with TF32 matmuls "
+          f"{tf32[0]:.3g} ({tf32[2]}) / {tf32[1]:.3g}", flush=True)
+    medians = {"card": [floor["cuda"][1][1]], "TF32": [tf32[1]]}
+    for batch in batches[1:PRECISION_BATCHES]:
+        ref = step_gradients(settings, weights, batch, "cpu", torch.float64)
+        medians["card"].append(grad_distance(step_gradients(settings, weights, batch, "cuda"),
+                                             ref)[1])
+        medians["TF32"].append(grad_distance(
+            step_gradients(settings, weights, batch, "cuda", tf32=True), ref)[1])
+    card_m, tf32_m = min(medians["card"]), min(medians["TF32"])
+    print(f"train step in float32 on the card, the median over the tensors of the gradients' "
+          f"distance from the float64 step on {PRECISION_BATCHES} batches: "
+          f"{[float(f'{m:.3g}') for m in medians['card']]}, with TF32 matmuls "
+          f"{[float(f'{m:.3g}') for m in medians['TF32']]}; the smallest {card_m:.3g} and "
+          f"{tf32_m:.3g} against the limit {FP32_GRAD_MEDIAN_LIMIT}", flush=True)
+    if not card_m <= FP32_GRAD_MEDIAN_LIMIT < tf32_m:
+        raise RuntimeError(f"train step in float32: the card's smallest median gradient distance "
+                           f"from the float64 step {card_m:.3g} and the TF32 control's "
+                           f"{tf32_m:.3g} do not stand either side of {FP32_GRAD_MEDIAN_LIMIT}")
+
+    # the step's wall and a validation forward's launches on the card
+    m = Model(settings, weights=weights, device="cuda")
+    module = m.module
+    module.train()
+    opt = make_optimizer(module, 1e-2)
+    walls = []
+    for inputs, labels, perm, keep in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train_step(module, opt, criterion, inputs, labels, perm, keep)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    walls = walls[1:]
+    module.eval()
+    with torch.inference_mode():
+        build.reset_launches()
+        module(*val_batch)
+        torch.cuda.synchronize()
+    if dict(build.LAUNCHES) != PER_VAL_FORWARD:
+        raise RuntimeError(f"validation forward: launches {dict(build.LAUNCHES)}, expected "
+                           f"{PER_VAL_FORWARD}")
+    print(f"train step (batch 4 x 2500 points, app config, synchronised): wall ms over "
+          f"{len(walls)} steps p50 {statistics.median(walls):.3f}, min {min(walls):.3f}, "
+          f"max {max(walls):.3f}; launches a step {PER_STEP}, a validation forward "
+          f"(batch {val_batch[0].shape[0]}) {PER_VAL_FORWARD}", flush=True)
+    module.train()
+    return module, opt, criterion, batches[0]
+
+
 def main() -> None:
     import torch
 
@@ -896,6 +1168,15 @@ def main() -> None:
     # --- 7. a reference torch archive -----------------------------------------
     _torch_archive(torch, Model, model, frames[1])
 
+    # --- 7b. the train path ----------------------------------------------------
+    trained, launches_train, val_batch = _train_path(torch, _build, Model, make_frame)
+    for name, count in launches_train.items():
+        launches[name] = launches.get(name, 0) + count
+    step_module, step_opt, step_criterion, step_batch = _train_step_checks(
+        torch, _build, Model, trained, val_batch
+    )
+    del trained
+
     # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
     targets = [
@@ -909,6 +1190,19 @@ def main() -> None:
     calls64 = _record_frame(lambda: model64.predict(frames64[0]), targets, PER_FRAME_64K,
                             "approx64k")
     calls_live = _record_frame(live_frame, targets, PER_FRAME_LIVE, "live")
+    from recognizer3d_tpu_torch.training.trainer import train_step
+
+    with _Recorder(targets) as rec:  # a train step needs autograd: no inference_mode
+        train_step(step_module, step_opt, step_criterion, *step_batch)
+    torch.cuda.synchronize()
+    calls_train = rec.calls
+    if {k: len(v) for k, v in calls_train.items() if v} != PER_STEP:
+        raise RuntimeError(f"train step: recorded {[(k, len(v)) for k, v in calls_train.items()]}"
+                           f", expected {PER_STEP}")
+    step_module.eval()
+    calls_val = _record_frame(lambda: step_module(*val_batch), targets, PER_VAL_FORWARD,
+                              "train validation")
+    del step_module, step_opt
 
     # the gaussian probe bench.py reports, at the tuned default window
     port_knn.reset_window_guard()
@@ -927,13 +1221,15 @@ def main() -> None:
         _check_kernels(torch, calls, results, "app path", plain_reps=10)
         _check_kernels(torch, calls64, results, "approx64k", plain_reps=3)
         _check_kernels(torch, calls_live, results, "live", plain_reps=10)
+        _check_kernels(torch, calls_train, results, "train step", plain_reps=10)
+        _check_kernels(torch, calls_val, results, "train validation", plain_reps=10)
         _check_roll_stages(torch, results)
         _time_selection(torch, pipeline, pipeline.cloud_to_depth(
             make_frame(np.random.RandomState(500), 0.0, FRAME_POINTS)[0],
             pipeline.DepthIntrinsics(),
         ))
         _exact_64k(torch, morton, knn_kernels, sample)
-    del calls, calls64, calls_live
+    del calls, calls64, calls_live, calls_train, calls_val
 
     # --- 9. result lines ------------------------------------------------------
     kernels = []

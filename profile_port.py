@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [app|approx64k|live ...]
+    python3 profile_port.py [app|approx64k|live|train ...]
 
-For each path named (all three by default): the app path is
+For each path named (all four by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
 approx64k is the reference-default ``knn="approximate"`` at 65,536 points
 (the bundled weights with ``bench.py``'s ``settings64a``, saved under
 ``build/`` as ``chip_smoke.py`` does) on mock frames of 150,000 points;
 live is the depth-camera tick, ``LivePredictor`` of the bundled archive at
 the L515's 1024×768 intrinsics and 16,384 display points, on z16 frames
-made from mock frames of 60,000 points.
+made from mock frames of 60,000 points; train is one app-config train
+step (``training/trainer.train_step``: train-mode forward, dice loss,
+backward, Adam) of batch 4 × 2,500 points, batches assembled on the card
+from the annotated mock dataset ``chip_smoke.py``'s train phase writes
+under ``build/``, each step ending in a read of its loss.
 Each path's predictor is warmed up on 5 frames, then its frames (20 of the
 app and live paths, 10 of approx64k) are timed untraced, every path before
 any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
@@ -38,6 +42,8 @@ from chip_smoke import (
     LIVE_DISPLAY,
     _gpu_line,
     _make_frame,
+    _train_batches,
+    _write_train_dataset,
 )
 
 FRAMES = 20
@@ -54,8 +60,9 @@ def _time(torch, predict, frames, label: str) -> None:
         predict(frame)
         walls.append((time.perf_counter() - t) * 1e3)
     q1, q2, q3 = statistics.quantiles(walls, n=4)
+    shape = tuple(frames[0][0].shape) if isinstance(frames[0], tuple) else frames[0].shape
     print(f"{label}: untraced wall per frame over {len(frames)} frames of shape "
-          f"{frames[0].shape}: p25 {q1:.3f} ms, p50 {q2:.3f} ms, "
+          f"{shape}: p25 {q1:.3f} ms, p50 {q2:.3f} ms, "
           f"p75 {q3:.3f} ms, min {min(walls):.3f} ms", flush=True)
 
 
@@ -69,17 +76,20 @@ def _profile(torch, predict, frames, label: str) -> None:
         torch.cuda.synchronize()
         traced_wall = (time.perf_counter() - t) * 1e3 / len(frames)
     events = prof.key_averages()
-    device_us = sum(
-        e.self_device_time_total for e in events
+    # kernels and copies; a user annotation's device range (the optimizer
+    # step's ``Optimizer.step#Adam.step``) spans its kernels and the gaps
+    # between them, and is no device work of its own
+    device = [
+        e for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+        and not getattr(e, "is_user_annotation", False)
+    ]
+    device_us = sum(e.self_device_time_total for e in device)
     if device_us == 0:
         print(f"{label}: device time: not measured (the profiler recorded no CUDA activity)")
         return
     device_ms = device_us / 1e3 / len(frames)
-    device_ops = sum(
-        e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    device_ops = sum(e.count for e in device)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(f"{label}: traced wall per frame {traced_wall:.3f} ms; device time per frame "
           f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}; "
@@ -91,6 +101,26 @@ def _profile(torch, predict, frames, label: str) -> None:
                        max_name_column_width=60), flush=True)
 
 
+def _train_data(torch, make_frame):
+    _write_train_dataset(make_frame)
+    return _train_batches(torch, FRAMES)
+
+
+def _train_step_fn(torch):
+    """One app-config train step on a fresh seed-0 model, ending in a read
+    of its loss (as a frame ends in its mask)."""
+    from recognizer3d_tpu_torch import Model
+    from recognizer3d_tpu_torch.train import app_model_config
+    from recognizer3d_tpu_torch.training import losses
+    from recognizer3d_tpu_torch.training.trainer import make_optimizer, train_step
+
+    module = Model(app_model_config()).module
+    module.train()
+    opt = make_optimizer(module, 1e-2)
+    criterion = losses.get_loss("dice")
+    return lambda batch: float(train_step(module, opt, criterion, *batch)[0])
+
+
 def main() -> None:
     import torch
 
@@ -100,11 +130,14 @@ def main() -> None:
     from recognizer3d_tpu_torch.data import pipeline
     from recognizer3d_tpu_torch.models.live import LivePredictor
 
-    paths = sys.argv[1:] or ["app", "approx64k", "live"]
+    paths = sys.argv[1:] or ["app", "approx64k", "live", "train"]
     print(f"gpu: {_gpu_line()}", flush=True)
     make_frame = _make_frame()
     runs = []
     for path in paths:
+        if path == "train":
+            runs.append((_train_step_fn(torch), _train_data(torch, make_frame), path))
+            continue
         if path in ("app", "live"):
             archive, points, frames = ARCHIVE, FRAME_POINTS, FRAMES
         elif path == "approx64k":

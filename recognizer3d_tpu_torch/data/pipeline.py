@@ -1,5 +1,6 @@
-"""Depth-frame preprocessing on the device (counterpart of
-``recognizer3d_tpu/data/pipeline.py:31-123``).
+"""Preprocessing on the device (counterpart of
+``recognizer3d_tpu/data/pipeline.py``): depth frames for the live path,
+and the training set for the device-resident training pipeline.
 
 - :func:`depth_to_cloud`: raw z16 depth image -> (H·W, 3) float32 cloud by
   the pinhole dewarp;
@@ -26,16 +27,27 @@ Numerics, held against the JAX package in the tests:
   same numbers (``jax.random.uniform`` as numpy in the tests, a seeded
   ``torch.Generator`` in ``LivePredictor``).
 
-``normalize_cloud_device`` and ``DeviceDatasetCache`` come with training
-(ROADMAP A6).
+:class:`DeviceDatasetCache` keeps a training set on the device and
+assembles each batch there (selection, duplicates for short clouds,
+augmentation); its draws come from a ``torch.Generator`` or, through
+:meth:`DeviceDatasetCache.assemble`, from the caller. The JAX package's
+``normalize_cloud_device`` is not ported: nothing calls it (the trainer
+takes the host loader when the clouds are normalized).
 """
 
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from recognizer3d_tpu_torch.data.augmentation import (
+    AugmentationDraws,
+    AugmentationSettings,
+    draw_augmentation,
+    perturbate_point_cloud_device,
+)
 
 Z_MIN, Z_MAX = 0.05, 0.6  # the camera's z band in metres
 
@@ -141,3 +153,108 @@ def z_filter_subsample(
     if not batched:
         return points[0], valid_out[0]
     return points, valid_out
+
+
+@dataclass
+class SampleDraws:
+    """The random numbers one batch of :class:`DeviceDatasetCache` consumes,
+    per cloud: the JAX sampler's ``uniform(k_sel, (n_max,))`` priorities,
+    ``randint(k_dup, (n_points,), 0, n_real)`` duplicate positions and the
+    augmentation's draws."""
+
+    uniform: torch.Tensor  # (B, n_max) float32 in [0, 1)
+    dup_pos: torch.Tensor  # (B, n_points) int64 in [0, n_real)
+    augmentation: Optional[AugmentationDraws] = None
+
+
+class DeviceDatasetCache:
+    """A training set on the device, with each batch assembled there.
+
+    The clouds are loaded and zero-padded once into (n_samples, n_max)
+    tables; afterwards a batch costs no host work. Per cloud, the
+    ``n_points`` valid rows of lowest uniform priority are taken (ties to
+    the lower index: a stable sort, as ``lax.top_k(-priority, n)``); a cloud
+    shorter than ``n_points`` fills the rest with random duplicates of its
+    selected points; then the optional augmentation runs.
+    """
+
+    def __init__(
+        self,
+        dataset: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        n_points: int,
+        augmentation_settings: Optional[AugmentationSettings] = None,
+        device="cuda",
+    ):
+        clouds, labels = [], []
+        for i in range(len(dataset)):
+            xyz, _feats, lab = dataset[i]
+            if xyz.shape[0] == 0:
+                # a zero-point cloud would become n_points copies of a padded row
+                raise ValueError(
+                    f"dataset sample {i} has zero points; remove or re-capture "
+                    "it before training"
+                )
+            clouds.append(np.asarray(xyz, dtype=np.float32))
+            labels.append(np.asarray(lab, dtype=np.int64))
+        self.n_samples = len(clouds)
+        self.n_points = n_points
+        self.device = torch.device(device)
+        self._augmentation = augmentation_settings
+        # at least n_points wide, so the selection is defined when every
+        # cloud is shorter
+        n_max = max([len(c) for c in clouds] + [n_points])
+        xyz_pad = np.zeros((self.n_samples, n_max, 3), np.float32)
+        lab_pad = np.zeros((self.n_samples, n_max), np.int64)
+        for i, (c, l) in enumerate(zip(clouds, labels)):
+            xyz_pad[i, : len(c)] = c
+            lab_pad[i, : len(l)] = l
+        n_valid = np.array([len(c) for c in clouds], np.int64)
+        self.n_max = n_max
+        self._xyz = torch.from_numpy(xyz_pad).to(self.device)
+        self._labels = torch.from_numpy(lab_pad).to(self.device)
+        self._n_valid = torch.from_numpy(n_valid).to(self.device)
+        self._arange = torch.arange(n_max, device=self.device)
+
+    def draw(self, sample_ids: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> SampleDraws:
+        """One batch's draws from ``generator`` (on the cache's device)."""
+        b = sample_ids.shape[0]
+        n_real = torch.clamp(torch.clamp(self._n_valid[sample_ids], max=self.n_points), min=1)
+        u = torch.rand((b, self.n_points), generator=generator, device=self.device)
+        dup_pos = torch.minimum((u * n_real[:, None]).long(), n_real[:, None] - 1)
+        return SampleDraws(
+            uniform=torch.rand((b, self.n_max), generator=generator, device=self.device),
+            dup_pos=dup_pos,
+            augmentation=None if self._augmentation is None else draw_augmentation(
+                self._augmentation, b, self.n_points, self.device, generator
+            ),
+        )
+
+    def assemble(self, sample_ids: torch.Tensor,
+                 draws: SampleDraws) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(inputs (B, n_points, 3) float32, labels (B, n_points) int64) of
+        the clouds ``sample_ids`` under ``draws``."""
+        n_valid = self._n_valid[sample_ids]
+        valid = self._arange[None, :] < n_valid[:, None]
+        priority = torch.where(valid, draws.uniform, torch.full_like(draws.uniform, float("inf")))
+        order = torch.sort(priority, dim=-1, stable=True).indices[:, : self.n_points]
+        pos = self._arange[None, : self.n_points]
+        order = torch.where(pos < n_valid[:, None], order, torch.gather(order, 1, draws.dup_pos))
+        pts = torch.gather(self._xyz[sample_ids], 1, order[..., None].expand(-1, -1, 3))
+        labs = torch.gather(self._labels[sample_ids], 1, order)
+        if self._augmentation is not None:
+            pts = perturbate_point_cloud_device(pts, self._augmentation, draws.augmentation)
+        return pts, labs
+
+    def sample_batch(self, sample_ids: torch.Tensor,
+                     generator: Optional[torch.Generator] = None):
+        """:meth:`assemble` under fresh draws from ``generator``."""
+        return self.assemble(sample_ids, self.draw(sample_ids, generator))
+
+    def epoch_batches(self, batch_size: int, generator: Optional[torch.Generator] = None
+                      ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """Shuffled batches covering the dataset once, the remainder batch
+        included; the shuffle is drawn on the device."""
+        order = torch.randperm(self.n_samples, generator=generator, device=self.device)
+        for start in range(0, self.n_samples, batch_size):
+            yield self.sample_batch(order[start : start + batch_size], generator)

@@ -3,7 +3,12 @@
 The "consistent sampling" contract: a consistent draw reseeds the global
 numpy RNG to 0 and restores its state afterwards, so the indices depend
 only on ``(n_points, n_sample_points)`` and equal the JAX package's
-exactly. Callers may cache them.
+exactly. Callers may cache them. The other draws come from the global
+numpy RNG too, as in the JAX package, so under one seed both packages draw
+the same samples.
+
+The balanced, per-class and fractional samplers are not ported: nothing in
+either package calls them.
 """
 
 from functools import lru_cache
@@ -57,3 +62,22 @@ def consistent_sample_indices(n_points: int, n_sample_points: int) -> np.ndarray
     out = sample_points(n_points, n_sample_points, consistent=True)
     out.setflags(write=False)
     return out
+
+
+def normalize_cloud(xyz: np.ndarray, normalization: Optional[str]) -> np.ndarray:
+    """Center and radius normalization. ``normalization`` in {None, "mean",
+    "max", "stdev"}; any other string centers without scaling."""
+    if normalization is None:
+        return xyz
+    center = np.mean(xyz, axis=0, keepdims=True)
+    xyz = xyz - center
+    norms = np.linalg.norm(xyz, axis=1)
+    if normalization == "mean":
+        radius = np.mean(norms)
+    elif normalization == "max":
+        radius = np.max(norms)
+    elif normalization == "stdev":
+        radius = np.std(norms)
+    else:
+        radius = 1.0
+    return xyz / radius

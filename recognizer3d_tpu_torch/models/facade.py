@@ -21,8 +21,12 @@ on that cloud, as the JAX facade does.
 ``Model.load`` also reads the reference implementation's archives, whose
 ``model`` blob is a torch ``state_dict`` (``models/torch_compat.py``).
 
-Not ported yet: training and evaluation (ROADMAP A6), the million-point
-forward (A8).
+``Model.train`` and ``Model.evaluate`` run the training engine
+(``training/trainer.py``) with the JAX facade's loaders: a shuffled,
+augmented, randomly sampled training loader and a consistent, unshuffled
+validation loader.
+
+Not ported yet: the million-point forward (ROADMAP A8).
 """
 
 import json
@@ -32,11 +36,13 @@ import shutil
 import tempfile
 from dataclasses import asdict
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from recognizer3d_tpu_torch.data.augmentation import AugmentationSettings
+from recognizer3d_tpu_torch.data.loader import get_data_loader
 from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
 from recognizer3d_tpu_torch.models.randlanet import RandLANet
 from recognizer3d_tpu_torch.models.settings import RandLANetSettings
@@ -67,7 +73,12 @@ def _bucket(n: int) -> int:
 
 
 class Model:
-    """RandLA-Net model wrapper with weight loading, saving and prediction."""
+    """RandLA-Net model wrapper with weight loading, saving, prediction,
+    training and evaluation."""
+
+    #: sampled recall@K of ``knn="approximate"`` below which ``evaluate``
+    #: warns (outside the window regime, where there is no guard to act)
+    KNN_RECALL_WARN_THRESHOLD = 0.9
 
     def __init__(
         self,
@@ -381,3 +392,99 @@ class Model:
                 predictions = torch.softmax(logits, dim=-2)
             predictions = predictions.cpu().numpy()
         return predictions if batched else predictions[0]
+
+    # ------------------------------------------------------------------
+    # training / evaluation
+    # ------------------------------------------------------------------
+
+    def _check_knn_recall(self, dataset) -> None:
+        """Sampled recall check on the first evaluation cloud when
+        ``knn="approximate"``: in the Morton-window regime the acting guard
+        (:meth:`_maybe_run_recall_guard`), below it a warning when the
+        sampled recall@K falls under ``KNN_RECALL_WARN_THRESHOLD``. Opt out
+        with RECOGNIZER3D_KNN_RECALL=0."""
+        if self.settings.knn != "approximate":
+            return
+        if os.environ.get("RECOGNIZER3D_KNN_RECALL", "") == "0":
+            return
+        if len(dataset) == 0:
+            return
+        xyz = np.asarray(dataset[0][0], np.float32)[:, :3]  # the search is on xyz
+        if len(xyz) == 0:
+            return
+        n = self.settings.n_points
+        if knn_ops.window_regime_active(n):
+            self._maybe_run_recall_guard(xyz)
+            return
+        idx = consistent_sample_indices(len(xyz), n)
+        with torch.inference_mode():
+            cloud = torch.from_numpy(np.ascontiguousarray(xyz[idx][None])).to(self.device)
+            recall = knn_ops.measure_recall(cloud, cloud, self.settings.n_neighbors,
+                                            "approximate")
+        if recall < self.KNN_RECALL_WARN_THRESHOLD:
+            logging.warning(
+                "approximate-KNN sampled recall@%d on the evaluation data is %.3f "
+                '(< %.2f); consider knn="naive" for this evaluation.',
+                self.settings.n_neighbors, recall, self.KNN_RECALL_WARN_THRESHOLD,
+            )
+
+    def train(
+        self,
+        dataset_train: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        dataset_validation: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        training_settings=None,
+        augmentation_settings: AugmentationSettings = AugmentationSettings(),
+        log_dir: Optional[Path] = None,
+        class_names: Optional[List[str]] = None,
+        callbacks: List[Callable[[int, Dict[str, float]], None]] = [],
+    ):
+        """Train this model in place; it ends with the best (``val_mIoU``)
+        weights, in eval mode. Returns the Trainer (its ``history``: steps, times and metrics of
+        each epoch)."""
+        from recognizer3d_tpu_torch.training.settings import TrainingSettings
+        from recognizer3d_tpu_torch.training.trainer import Trainer
+
+        if training_settings is None:
+            training_settings = TrainingSettings()
+        assert class_names is not None and len(class_names) == self.settings.n_classes, (
+            "The length of given class names should correspond to the "
+            "n_classes setting of the model"
+        )
+        try:
+            # the guard may widen the session's window before training
+            self._maybe_run_recall_guard(np.asarray(dataset_train[0][0], np.float32))
+        except Exception:  # noqa: BLE001 — training goes on without the probe
+            logging.warning("the recall guard's probe before training failed", exc_info=True)
+        train_dataloader = get_data_loader(
+            dataset_train, self.settings.n_points, training_settings.batch_size,
+            shuffle=True, consistent_sampling=False,
+            augmentation_settings=augmentation_settings,
+        )
+        validation_dataloader = get_data_loader(
+            dataset_validation, self.settings.n_points, training_settings.batch_size,
+            shuffle=False, consistent_sampling=True,
+        )
+        trainer = Trainer(train_dataloader, validation_dataloader, log_dir, class_names)
+        trainer.train(self, training_settings, callbacks=callbacks)
+        return trainer
+
+    def evaluate(
+        self,
+        dataset: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        class_names: Optional[List[str]] = None,
+        batch_size: int = 16,
+        loss_function: str = "dice",
+        postprocess: bool = False,
+        include_stdev: bool = False,
+    ) -> Dict:
+        """The 10-seed evaluation protocol on ``dataset``; with
+        ``include_stdev`` each value is (mean, standard deviation)."""
+        from recognizer3d_tpu_torch.training.trainer import Trainer
+
+        self._check_knn_recall(dataset)
+        dataloader = get_data_loader(
+            dataset, self.settings.n_points, batch_size, shuffle=False,
+            consistent_sampling=True,
+        )
+        bag = Trainer.evaluate(self, dataloader, class_names, loss_function, postprocess)
+        return bag.as_dict(include_stdev=include_stdev)

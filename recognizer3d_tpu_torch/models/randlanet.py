@@ -1,4 +1,4 @@
-"""RandLA-Net encoder–decoder, eval forward (counterpart of
+"""RandLA-Net encoder–decoder, eval and train forward (counterpart of
 ``recognizer3d_tpu/models/randlanet.py``).
 
 Layout and flow follow the JAX package:
@@ -10,18 +10,26 @@ Layout and flow follow the JAX package:
 - every level runs in its own Morton order, computed once per level and
   shared by the encoder self-KNNs and the decoder 1-NN upsamplings; the
   level transitions are single composed gathers (the sorted-domain flow);
-- BatchNorm uses eps 1e-6 and, in eval mode, its running statistics.
+- BatchNorm uses eps 1e-6: in eval mode its running statistics, in train
+  mode flax's batch statistics and running-average update (``BatchNorm``);
+- dropout (0.5, before ``fc_end_2``) takes its keep mask as an argument in
+  train mode, so a caller can hand both packages the same mask (torch
+  cannot draw JAX's threefry bits).
 
 Submodules are named after the flax paths (``encoder_0.mlp1.conv``,
 ``encoder_0.pool1.score_fn``, …) so ``models/weights.py`` maps archives by
 a rename plus a transpose. Levels whose half width is 8 or 32 run the
-fused LFA kernels (``ops/lfa_kernels.py``) in eval mode.
+fused LFA kernels (``ops/lfa_kernels.py``) in eval mode; the train forward
+takes the unfused branch, as the JAX package's does, and autograd
+differentiates it (the JAX package has no backward kernel). The bfloat16
+compute mode is ROADMAP A11.
 
-Only the eval forward is ported; training is ROADMAP A6 and the bfloat16
-compute mode ROADMAP A11.
+Initialisation follows the JAX package's torch-style U(±1/√fan) draws,
+including the decoders' fan of ``n_out_ch`` (the reference's
+ConvTranspose2d quirk).
 """
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -50,8 +58,17 @@ def _activation(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm with flax's eval arithmetic:
-    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``."""
+    """Channels-last BatchNorm with flax's arithmetic
+    (``nn.BatchNorm(momentum=0.01, epsilon=1e-6)``):
+    ``(x − mean) · (rsqrt(var + eps) · scale) + bias``.
+
+    Eval mode reads the running statistics. Train mode reduces over every
+    axis but the last, takes the variance as ``max(0, E[x²] − E[x]²)``
+    (flax's ``use_fast_variance``), and updates the running statistics in
+    place as ``ra = 0.01·ra + 0.99·batch`` with the biased batch variance
+    (torch's own BatchNorm keeps 0.9 and stores the unbiased one)."""
+
+    momentum = 0.01
 
     def __init__(self, n: int, eps: float = _BN_EPS):
         super().__init__()
@@ -62,10 +79,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training is not ported yet (ROADMAP A6)")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
     def eval_affine(self):
         """Exact per-channel ``(s, o)`` with ``BN(x) = s·x + o``, read from
@@ -75,13 +100,22 @@ class BatchNorm(nn.Module):
 
 
 class SharedMLP(nn.Module):
-    """Dense + BatchNorm + activation over the trailing channel dim."""
+    """Dense + BatchNorm + activation over the trailing channel dim.
+
+    The Dense draws weight and bias from U(±1/√fan), fan = ``n_in`` (torch's
+    ``nn.Linear`` default) unless ``init_fan`` overrides it, as the JAX
+    package does for the decoders."""
 
     def __init__(self, n_in: int, n_out: int, bn: bool = True,
-                 activation: Optional[str] = None):
+                 activation: Optional[str] = None, init_fan: Optional[int] = None):
         super().__init__()
         self.activation = activation
         self.conv = nn.Linear(n_in, n_out)
+        if init_fan is not None:
+            bound = 1.0 / init_fan**0.5
+            with torch.no_grad():
+                self.conv.weight.uniform_(-bound, bound)
+                self.conv.bias.uniform_(-bound, bound)
         self.batch_norm = BatchNorm(n_out) if bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -118,11 +152,11 @@ class FusedRPEMLP(nn.Module):
 
     def support_projection(self, xyz: torch.Tensor) -> torch.Tensor:
         k = self.conv.kernel
-        return xyz @ (k[3:6] - k[6:9])
+        return xyz.to(k.dtype) @ (k[3:6] - k[6:9])
 
     def center_projection(self, xyz: torch.Tensor) -> torch.Tensor:
         k = self.conv.kernel
-        return xyz @ (k[0:3] + k[6:9])
+        return xyz.to(k.dtype) @ (k[0:3] + k[6:9])
 
     def forward(self, xyz, q_gathered, distances) -> torch.Tensor:
         """(B, N, 3), (B, N, K, half), (B, N, K) -> (B, N, K, half)."""
@@ -229,9 +263,34 @@ def upsample_nni(features, xyz, xyz_upsampled, knn_approach: str) -> torch.Tenso
     return gather_neighbors(features, neighbors)[:, :, 0, :]
 
 
+def bn_absorbed_biases(names) -> Dict[str, str]:
+    """``{bias: weight}`` for each Dense among the parameter (or state-dict)
+    ``names`` whose output feeds a train-mode BatchNorm. The batch mean
+    absorbs such a bias, so its gradient is 0 in exact arithmetic and
+    rounding noise in float32: a check of gradients scales its tolerance by
+    the weight's."""
+    names = set(names)
+    out = {"fc_start.bias": "fc_start.weight"} if "bn_start.weight" in names else {}
+    for name in names:
+        if name.endswith("conv.bias"):
+            parent = name[: -len("conv.bias")]
+            if parent + "batch_norm.weight" in names:
+                weight = parent + "conv.weight"
+                out[name] = weight if weight in names else parent + "conv.kernel"
+    return out
+
+
 class RandLANet(nn.Module):
-    """Full encoder–decoder: ``forward(inputs (B, N, 3+F), permutation (N,))``
-    returns logits (B, C, N) in the original point order."""
+    """Full encoder–decoder: ``forward(inputs (B, N, 3+F), permutation (N,),
+    dropout_mask=None)`` returns logits (B, C, N) in the original point
+    order. ``dropout_mask`` is the train-mode keep mask (B, N, 32) bool
+    (flax's ``Dropout(0.5)``: kept features doubled, the rest zeroed);
+    without one, train mode draws it from torch's global generator. Eval
+    mode ignores it. A module in double (``.double()``) computes in
+    float64 but for the geometry and the neighbour search, which stay
+    float32: the reference a float32 step is held against."""
+
+    dropout_rate = 0.5
 
     def __init__(self, settings: RandLANetSettings):
         super().__init__()
@@ -262,15 +321,16 @@ class RandLANet(nn.Module):
         skips = [2 * n for n in s.layer_sizes[::-1]]
         for i, (n_out_ch, skip) in enumerate(zip(decoder_channels, skips)):
             self.add_module(
-                f"decoder_{i}", SharedMLP(n_in + skip, n_out_ch, activation="relu")
+                f"decoder_{i}",
+                SharedMLP(n_in + skip, n_out_ch, activation="relu", init_fan=n_out_ch),
             )
             n_in = n_out_ch
         self.fc_end_0 = SharedMLP(8, 64, activation="relu")
         self.fc_end_1 = SharedMLP(64, 32, activation="relu")
-        self.dropout = nn.Dropout(0.5)
         self.fc_end_2 = SharedMLP(32, s.n_classes, bn=False)
 
-    def forward(self, inputs: torch.Tensor, permutation: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, permutation: torch.Tensor,
+                dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         s = self.settings
         B, N, dim = inputs.shape
         assert dim == 3 + s.n_features, "Input should have shape (B, N, 3 + F)!"
@@ -321,6 +381,11 @@ class RandLANet(nn.Module):
 
         feats = self.fc_end_0(feats)
         feats = self.fc_end_1(feats)
-        feats = self.dropout(feats)
+        if self.training:
+            if dropout_mask is None:
+                dropout_mask = torch.rand(feats.shape, device=feats.device) < 1.0 - self.dropout_rate
+            feats = torch.where(dropout_mask, feats / (1.0 - self.dropout_rate),
+                                torch.zeros_like(feats))
         feats = self.fc_end_2(feats)
-        return feats.transpose(-1, -2).float()  # (B, C, N)
+        # (B, C, N), float32 at least (a float64 module keeps float64)
+        return feats.transpose(-1, -2).to(torch.promote_types(feats.dtype, torch.float32))

@@ -11,9 +11,14 @@ flax ``params/<path>/bias``                    ``<path>.bias``
 flax ``params/<bn>/scale``                     ``<bn>.weight``
 flax ``batch_stats/<bn>/mean`` / ``var``       ``<bn>.running_mean`` / ``running_var``
 =============================================  ===================================
+
+The Adam state maps the same way: optax's ``ScaleByAdamState`` holds
+``count`` and a ``mu`` and ``nu`` tree shaped like ``params``; torch's Adam
+keeps per parameter ``step``, ``exp_avg`` and ``exp_avg_sq``
+(:func:`adam_state_from_optax`, :func:`adam_state_to_optax`).
 """
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -87,3 +92,41 @@ def to_flax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
         else:
             raise KeyError(f"unexpected state_dict entry {name}")
     return tree
+
+
+def adam_state_to_optax(optimizer: torch.optim.Adam, module: torch.nn.Module) -> Dict:
+    """A torch Adam's state over ``module``'s parameters as optax's
+    ``ScaleByAdamState`` fields: ``{"count": int32 array, "mu": params
+    tree, "nu": params tree}`` (numpy). Parameters without state yet map to
+    zeros, as optax initialises them."""
+    mu, nu, count = {}, {}, 0
+    for name, param in module.named_parameters():
+        state = optimizer.state.get(param, {})
+        zeros = torch.zeros_like(param)
+        mu[name] = state.get("exp_avg", zeros)
+        nu[name] = state.get("exp_avg_sq", zeros)
+        if "step" in state:
+            count = int(state["step"])
+    # the buffers tell BatchNorm scales from Dense kernels
+    buffers = dict(module.named_buffers())
+    return {
+        "count": np.asarray(count, np.int32),
+        "mu": to_flax_variables({**mu, **buffers})["params"],
+        "nu": to_flax_variables({**nu, **buffers})["params"],
+    }
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, module: torch.nn.Module,
+                          opt_state: Mapping) -> None:
+    """Load optax's ``ScaleByAdamState`` fields (``count``, ``mu``, ``nu``:
+    numpy trees shaped like ``params``) into a torch Adam over ``module``'s
+    parameters, in place."""
+    mu = from_flax_variables({"params": opt_state["mu"]})
+    nu = from_flax_variables({"params": opt_state["nu"]})
+    step = float(np.asarray(opt_state["count"]))
+    for name, param in module.named_parameters():
+        optimizer.state[param] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(param.device).clone(),
+            "exp_avg_sq": nu[name].to(param.device).clone(),
+        }

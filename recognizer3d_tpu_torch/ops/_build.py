@@ -169,7 +169,13 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (a ``None`` in ``shape`` matches any size) whose data starts
     at a multiple of ``align`` bytes (kernels that copy rows 16 bytes at a
-    time ask for 16)."""
+    time ask for 16), and, while grad mode is on, does not require grad:
+    the kernels have no backward, so they would cut the autograd graph."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: requires grad; the kernels have no backward (run them "
+            "under torch.no_grad() or torch.inference_mode())"
+        )
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

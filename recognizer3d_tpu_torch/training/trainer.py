@@ -1,0 +1,399 @@
+"""Training engine (counterpart of ``recognizer3d_tpu/training/trainer.py``).
+
+The JAX trainer's protocol, in PyTorch idiom:
+
+- Adam (b1 0.9, b2 0.999, eps 1e-8; ``torch.optim.Adam``) with the StepLR
+  schedule lr = lr0 · decay^((epoch − 1) // 10), set by hand each epoch;
+- each epoch: every batch through :func:`train_step` (train-mode forward,
+  loss, backward, Adam update), then the 10-seed validation
+  (:meth:`Trainer.evaluate`), the early-stopping check on ``val_mIoU``,
+  console and TensorBoard logging, the callbacks; the best weights are
+  restored at the end;
+- the batch metrics stay on the device and are read once per epoch;
+- validation runs ``module.eval()`` under ``torch.inference_mode()``, so it
+  takes the fused LFA kernels as predict does; TF32 stays off (the model
+  sets it so), so the step's matmuls are full float32.
+
+Random draws. The global numpy RNG is drawn in the JAX trainer's order:
+the seed of the trainer's own generator, then per epoch the loader's
+shuffle and per batch its samples, augmentation and forward permutation.
+So under one numpy seed the host-loader path hands both packages the same
+batches and permutations. What the JAX trainer draws from threefry keys
+(dropout masks; on the device pipeline, the whole batch and permutation)
+comes here from a ``torch.Generator`` on the model's device, seeded from
+that first draw.
+
+With ``TrainingSettings.device_pipeline`` the training set lives on the
+device (``data/pipeline.DeviceDatasetCache``) and each step assembles its
+batch there, with no host preprocessing. The JAX package runs that epoch
+as one ``lax.scan``; here it is a loop of steps.
+
+Not ported: data-parallel training (ROADMAP A9), checkpoints and resume
+(queued behind this slice), the bfloat16 compute mode (A11).
+"""
+
+import logging
+import time
+from collections import OrderedDict
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from recognizer3d_tpu_torch.training.early_stopper import EarlyStopper
+from recognizer3d_tpu_torch.training.losses import get_loss
+from recognizer3d_tpu_torch.training.metrics import (
+    MetricCollector,
+    MetricCollectorBag,
+    accuracy_array,
+    iou_array,
+)
+from recognizer3d_tpu_torch.training.settings import TrainingSettings
+from recognizer3d_tpu_torch.utils.tb import make_summary_writer
+
+logger = logging.getLogger("trainer")
+
+#: Adam's constants, as optax.scale_by_adam's defaults
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+def step_lr(settings: TrainingSettings, epoch: int) -> float:
+    """StepLR: lr0 · decay^((epoch − 1) // 10)."""
+    return settings.learning_rate * settings.learning_rate_decay ** ((epoch - 1) // 10)
+
+
+def make_optimizer(module: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(module.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+
+
+def dropout_mask(generator: torch.Generator, inputs: torch.Tensor) -> torch.Tensor:
+    """A train-mode keep mask (B, N, 32) for ``inputs`` (B, N, 3+F)."""
+    b, n = inputs.shape[:2]
+    return torch.rand((b, n, 32), generator=generator, device=inputs.device) < 0.5
+
+
+def train_step(module, optimizer, criterion, inputs, labels, permutation, keep_mask):
+    """One optimisation step: train-mode forward, loss, backward, Adam.
+    The gradients stay in ``.grad`` until the next step. Returns the
+    detached (loss, logits)."""
+    optimizer.zero_grad(set_to_none=True)
+    logits = module(inputs, permutation, keep_mask)
+    loss = criterion(logits, labels)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), logits.detach()
+
+
+def _metrics_arrays(logits, labels):
+    oa, pca = accuracy_array(logits, labels)
+    miou, pciou = iou_array(logits, labels)
+    return oa, pca, miou, pciou
+
+
+def _drain(pending) -> List[tuple]:
+    """Per-batch tuples of device tensors -> per-batch tuples of numpy
+    values, in one read per field."""
+    if not pending:
+        return []
+    columns = [torch.stack(col).cpu().numpy() for col in zip(*pending)]
+    return list(zip(*columns))
+
+
+def _check_supported(settings: TrainingSettings, model) -> None:
+    if settings.data_parallel_devices > 1:
+        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9)")
+    if settings.checkpoint_every > 0 or settings.resume:
+        raise NotImplementedError(
+            "training checkpoints and resume are not ported yet (ROADMAP A6c)"
+        )
+    if model.settings.compute_dtype != "float32":
+        raise NotImplementedError(
+            f'compute_dtype="{model.settings.compute_dtype}" is not ported yet (ROADMAP A11)'
+        )
+
+
+class Trainer:
+    def __init__(
+        self,
+        train_dataloader,
+        validation_dataloader,
+        log_dir: Optional[Path] = None,
+        class_names: Optional[List[str]] = None,
+    ):
+        """
+        :param train_dataloader: ``data/loader.DataLoader`` of training data.
+        :param validation_dataloader: DataLoader of validation data.
+        :param log_dir: Optional directory for the TensorBoard scalars.
+        :param class_names: Optional class names (logging).
+        """
+        self._train_dataloader = train_dataloader
+        self._validation_dataloader = validation_dataloader
+        self._log_dir = log_dir
+        self._class_names = class_names
+        #: per epoch: {"epoch", "steps", "train_s", "validate_s", "metrics"}
+        #: (host clock; each phase ends in a read of its results; the
+        #: metrics the callbacks get)
+        self.history: List[Dict] = []
+
+    # ------------------------------------------------------------------
+
+    def _device_cache(self, device):
+        """The training set on the device, or None where the device pipeline
+        does not apply (normalized clouds, extra point features)."""
+        from recognizer3d_tpu_torch.data.pipeline import DeviceDatasetCache
+
+        preproc = self._train_dataloader.dataset
+        if preproc._normalization is not None:
+            logger.warning(
+                "device_pipeline requested but the loader uses normalization="
+                f"{preproc._normalization!r}; using the host loader."
+            )
+            return None
+        if preproc._dataset[0][1].shape[1] != 0:
+            logger.warning(
+                "device_pipeline requested but the dataset has extra point "
+                "features; using the host loader."
+            )
+            return None
+        t0 = time.monotonic()
+        cache = DeviceDatasetCache(
+            preproc._dataset, preproc._n_sample_points,
+            augmentation_settings=preproc._augmentation_settings, device=device,
+        )
+        logger.info(f"device pipeline: dataset on {device} in {time.monotonic() - t0:.1f}s")
+        return cache
+
+    def _batches(self, device_cache, settings, generator, device):
+        """(inputs, labels, permutation) per step of one epoch."""
+        if device_cache is not None:
+            for inputs, labels in device_cache.epoch_batches(settings.batch_size, generator):
+                perm = torch.randperm(inputs.shape[1], generator=generator, device=device)
+                yield inputs, labels, perm
+            return
+        for inputs, labels, _ in self._train_dataloader:
+            permutation = np.random.permutation(inputs.shape[1])
+            yield (
+                torch.from_numpy(inputs).to(device),
+                torch.from_numpy(labels).to(device),
+                torch.from_numpy(permutation).to(device),
+            )
+
+    def train(
+        self,
+        model,
+        settings: TrainingSettings,
+        callbacks: List[Callable[[int, Dict[str, float]], None]] = [],
+    ):
+        """Train the given facade Model in place; returns it with the best
+        (``val_mIoU``) weights loaded."""
+        _check_supported(settings, model)
+        module = model.module
+        device = model.device
+        criterion = get_loss(settings.loss_function)
+        optimizer = make_optimizer(module, settings.learning_rate)
+        patience = settings.early_stopping_patience if settings.early_stopping else settings.epochs
+        early_stopper = EarlyStopper(patience=patience, metric="val_mIoU")
+
+        n_train = len(self._train_dataloader.dataset)
+        n_val = len(self._validation_dataloader.dataset)
+        logger.info(f"Training on {n_train} training samples and {n_val} validation samples.")
+        writer = make_summary_writer(str(self._log_dir)) if self._log_dir is not None else None
+
+        # the JAX trainer's first draw from the global numpy RNG seeds its
+        # host generator; here it seeds the device generator
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        device_cache = self._device_cache(device) if settings.device_pipeline else None
+
+        try:
+            for epoch in range(1, settings.epochs + 1):
+                t_epoch = time.monotonic()
+                lr = step_lr(settings, epoch)
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                module.train()
+                pending = []
+                for inputs, labels, permutation in self._batches(
+                    device_cache, settings, generator, device
+                ):
+                    loss, logits = train_step(
+                        module, optimizer, criterion, inputs, labels, permutation,
+                        dropout_mask(generator, inputs),
+                    )
+                    pending.append((loss,) + _metrics_arrays(logits, labels))
+                train_metrics = MetricCollector(self._class_names)
+                for row in _drain(pending):  # one read per epoch
+                    train_metrics.push(*row)
+                t_train = time.monotonic()
+
+                validation_metrics = Trainer.evaluate(
+                    model, self._validation_dataloader, class_names=self._class_names,
+                    loss_function=settings.loss_function,
+                )
+                t_done = time.monotonic()
+                logger.info(f"epoch {epoch} timing: train {t_train - t_epoch:.1f}s, "
+                            f"validate {t_done - t_train:.1f}s")
+                metrics = train_metrics.as_dict()
+                metrics.update(validation_metrics.as_dict("val"))
+                self.history.append(dict(epoch=epoch, steps=len(pending),
+                                         train_s=t_train - t_epoch,
+                                         validate_s=t_done - t_train, metrics=metrics))
+                continue_training = early_stopper.check(metrics, module.state_dict())
+                self._log(epoch, settings.epochs, lr, train_metrics.as_dict(),
+                          validation_metrics.as_dict(include_stdev=True), writer)
+                for callback in callbacks:
+                    callback(epoch, metrics)
+                if not continue_training:
+                    break
+        finally:
+            module.eval()
+            if writer is not None:
+                writer.close()
+        best = early_stopper.best_state
+        if best is None:
+            logger.warning("Model did not improve during training!")
+        else:
+            module.load_state_dict(best)
+        return model
+
+    # ------------------------------------------------------------------
+
+    def _log(self, epoch: int, total_epochs: int, lr: float, train_metrics: OrderedDict,
+             validation_metrics: OrderedDict, writer) -> None:
+        """Console and TensorBoard logging."""
+        log_line = f"Epoch {epoch:3d}/{total_epochs:3d} - "
+        log_line += "%s: %.4f - val_%s: %.4f (s: %.4f) - " % (
+            "loss", train_metrics["loss"], "loss", validation_metrics["loss"][0],
+            validation_metrics["loss"][1],
+        )
+        for key in ["mAcc", "mIoU"]:
+            log_line += "%s: %.2f%% - val_%s: %.2f%% (s: %.2f%%) - " % (
+                key, train_metrics[key] * 100, key, validation_metrics[key][0] * 100,
+                validation_metrics[key][1] * 100,
+            )
+        logger.info(log_line[:-2])
+        for mode, metrics in {"Training": train_metrics, "Validation": validation_metrics}.items():
+            log_line = f"{'':15s} {mode + ' IoU:':16s}"
+            keys = [k for k in metrics.keys() if k.endswith(" IoU")]
+            for key in keys:
+                log_line += key.split(" IoU")[0]
+                metric = metrics[key]
+                if isinstance(metric, tuple):
+                    log_line += ": %5.2f%% (s: %5.2f%%)" % (metric[0] * 100, metric[1] * 100)
+                else:
+                    log_line += ": %5.2f%% %11s" % (metric * 100, "")
+                if key != keys[-1]:
+                    log_line += " - "
+            logger.info(log_line)
+        if writer is not None:
+            writer.add_scalar("Learning rate", lr, epoch)
+            for mode, metric_set in {"Train": train_metrics, "Validation": validation_metrics}.items():
+                for key, metric in metric_set.items():
+                    writer.add_scalar(f"{key}/{mode}",
+                                      metric[0] if isinstance(metric, tuple) else metric, epoch)
+
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _device_eval_batches(data_loader, n_evaluations: int, device):
+        """The seed-independent validation sweep's batches and per-(seed,
+        batch) permutations, on the device, cached on the loader: one host
+        pass, drawn in the per-batch loop's order."""
+        cache = getattr(data_loader, "_device_eval_cache", None)
+        key = (n_evaluations, str(device))
+        if cache is not None and key in cache:
+            return cache[key]
+        batches = [(inputs, labels) for inputs, labels, _ in data_loader]
+        rnd_state = np.random.get_state()
+        perms = [[None] * len(batches) for _ in range(n_evaluations)]
+        for si in range(n_evaluations):
+            np.random.seed(100 * si)
+            for bi, (inputs, _) in enumerate(batches):
+                perms[si][bi] = np.random.permutation(inputs.shape[1])
+        np.random.set_state(rnd_state)
+        out = [
+            (torch.from_numpy(inputs).to(device), torch.from_numpy(labels).to(device),
+             [torch.from_numpy(perms[si][bi]).to(device) for si in range(n_evaluations)])
+            for bi, (inputs, labels) in enumerate(batches)
+        ]
+        if cache is None:
+            cache = data_loader._device_eval_cache = {}
+        cache[key] = out
+        return out
+
+    @staticmethod
+    def evaluate(
+        model,
+        data_loader,
+        class_names: Optional[List[str]] = None,
+        loss_function: str = "dice",
+        postprocess: bool = False,
+        n_evaluations: int = 10,
+    ) -> MetricCollectorBag:
+        """The seeded repeated evaluation: ``n_evaluations`` passes over the
+        loader, pass i under numpy seed 100·i (the seed drives each
+        forward's permutation), the global numpy RNG restored afterwards.
+
+        When the loader's data does not depend on the seed (consistent
+        sampling, no augmentation, no shuffle: the validation loader) its
+        batches and permutations are made once and kept on the device, as
+        the JAX package's fused sweep keeps them. With ``postprocess`` the
+        predictions are upsampled onto the raw cloud and scored against
+        its labels (batch size 1)."""
+        criterion = get_loss(loss_function)
+        module, device = model.module, model.device
+        was_training = module.training
+        module.eval()
+        pending: List[List[tuple]] = [[] for _ in range(n_evaluations)]
+        fast = (not postprocess and getattr(data_loader.dataset, "_cacheable", False)
+                and not getattr(data_loader, "_shuffle", True))
+        if postprocess:
+            assert data_loader.batch_size == 1, (
+                "Batch size 1 required when evaluating with postprocessing!"
+            )
+        try:
+            with torch.inference_mode():
+                if fast:
+                    for inputs, labels, perms in Trainer._device_eval_batches(
+                        data_loader, n_evaluations, device
+                    ):
+                        for si in range(n_evaluations):
+                            logits = module(inputs, perms[si])
+                            pending[si].append(
+                                (criterion(logits, labels),) + _metrics_arrays(logits, labels)
+                            )
+                else:
+                    rnd_state = np.random.get_state()
+                    for si in range(n_evaluations):
+                        np.random.seed(100 * si)
+                        for inputs, labels, indices in data_loader:
+                            permutation = np.random.permutation(inputs.shape[1])
+                            inputs_d = torch.from_numpy(inputs).to(device)
+                            labels_d = torch.from_numpy(labels).to(device)
+                            logits = module(inputs_d, torch.from_numpy(permutation).to(device))
+                            loss = criterion(logits, labels_d)
+                            metrics = _metrics_arrays(logits, labels_d)
+                            if postprocess:
+                                raw_inputs, raw_labels, _ = data_loader.dataset.__getitem__(
+                                    int(indices[0]), preprocess=False
+                                )
+                                confidences = model.upsample(
+                                    logits, inputs[:, :, :3], raw_inputs[None, :, :3]
+                                )
+                                metrics = _metrics_arrays(
+                                    torch.from_numpy(confidences[0]).to(device),
+                                    torch.from_numpy(raw_labels.astype(np.int64)).to(device),
+                                )
+                            pending[si].append((loss,) + metrics)
+                    np.random.set_state(rnd_state)
+        finally:
+            module.train(was_training)
+        collectors = []
+        for seed_pending in pending:
+            collector = MetricCollector()
+            for row in _drain(seed_pending):
+                collector.push(*row)
+            collectors.append(collector)
+        return MetricCollectorBag(collectors, class_names)

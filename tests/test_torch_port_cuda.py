@@ -13,7 +13,8 @@ pool-2 kernels on ragged row tiles and other neighbour counts, the 1-NN
 kernel on sorted, unsorted, tied, duplicated, flat and far inputs at
 supports of 1 to 65,536 points (ordered in shared memory or by its own
 launch), the bitonic stage kernel at other shapes and stage counts, one small live depth frame
-on the card against the CPU, and the wrappers' refusals. The file imports neither JAX nor the JAX package, so it also
+on the card against the CPU, one small train step on the card against the CPU, and the
+wrappers' refusals (inputs that require grad among them). The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -384,6 +385,66 @@ def test_wrappers_count_launches_and_refuse_bad_tensors(dev):
     with pytest.raises(ValueError):
         knn_kernels.knn_window_topk(s, s, 16, starts, 201, 64)
     assert _build.LAUNCHES == counts
+
+
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    """A kernel has no backward: with grad mode on, a CUDA input that
+    requires grad raises instead of cutting the autograd graph; under
+    no_grad or inference_mode the same tensors launch."""
+    s = _cloud(0, 1, 300, dev).requires_grad_()
+    _build.reset_launches()
+    for fn in (lambda: knn_kernels.knn_topk(s, s, 16), lambda: knn_kernels.argmin_1nn(s, s)):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            fn()
+        with torch.no_grad():
+            fn()
+        with torch.inference_mode():
+            fn()
+    assert _build.LAUNCHES == {"knn_topk": 2, "argmin_1nn": 2}
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One small train step (2 × 512 points, layers [16, 64], K = 16) on the
+    card and on the CPU from the same weights, batch, permutation and
+    dropout mask: 2 B1 launches (one per encoder level), the loss within
+    1e-5 relative, every gradient within 1e-4 of its tensor's largest
+    |g| (a Dense bias before a BatchNorm, whose exact gradient is 0, within
+    1e-4 of its kernel's), the running statistics within 1e-5 of their
+    tensor's largest value."""
+    from recognizer3d_tpu_torch import RandLANetSettings
+    from recognizer3d_tpu_torch.models.randlanet import bn_absorbed_biases
+    from recognizer3d_tpu_torch.training import losses
+    from recognizer3d_tpu_torch.training.trainer import make_optimizer, train_step
+
+    settings = RandLANetSettings(n_classes=3, n_points=512, n_neighbors=16,
+                                 layer_sizes=[16, 64], knn="naive")
+    rng = np.random.RandomState(0)
+    xyz = torch.from_numpy(rng.rand(2, 512, 3).astype(np.float32))
+    labels = (xyz[..., 0] > 0.6).long() + (xyz[..., 1] > 0.8).long()
+    perm = torch.from_numpy(rng.permutation(512))
+    keep = torch.from_numpy(rng.rand(2, 512, 32) < 0.5)
+    results = {}
+    for device in ("cpu", dev):
+        model = Model(settings, device=device, seed=3)
+        model.module.train()
+        opt = make_optimizer(model.module, 1e-2)
+        _build.reset_launches()
+        loss, _ = train_step(model.module, opt, losses.get_loss("dice"), xyz.to(device),
+                             labels.to(device), perm.to(device), keep.to(device))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES == {"knn_topk": 2}
+        results[str(device)] = (float(loss), {n: p.grad.cpu() for n, p in
+                                              model.module.named_parameters()},
+                                {n: b.cpu() for n, b in model.module.named_buffers()})
+    (loss_c, g_c, b_c), (loss_g, g_g, b_g) = results["cpu"], results[str(dev)]
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    absorbed = bn_absorbed_biases(g_c)
+    for name, ref in g_c.items():
+        tol = 1e-4 * float(g_c[absorbed.get(name, name)].abs().max())
+        assert float((g_g[name] - ref).abs().max()) <= tol, name
+    for name, ref in b_c.items():
+        assert float((b_g[name] - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), name
 
 
 @pytest.mark.parametrize(
