@@ -25,6 +25,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    recall on the first frame, the frame p50, the card against the CPU on one
    frame, and the sampled recall of the default window on the gaussian
    probe ``0.2·randn(65536, 3)`` (seed 0) that ``bench.py`` reports;
+4b. the bfloat16 compute mode (``compute_dtype="bfloat16"``) on both
+   configurations: the bundled weights loaded with it (app-bf16), and with
+   it and ``settings64a`` (approx64k-bf16, the config of
+   ``benchmarks/validate_bf16.py``), saved under ``build/``; ``Predictor`` of
+   each archive answers the frames of 3 and 4, launch counts checked per
+   frame (the LFA kernels' bfloat16 forms 2 and 2, their float32 forms 0,
+   the KNN kernels as in float32), frame p50 printed. On one frame the card
+   is held against the CPU port in bfloat16 (confidences within 2e-2,
+   masks equal where the CPU's class-1 confidence lies more than 0.05 from
+   the threshold), and on every frame the bfloat16 mask's foreground IoU
+   against the float32 mask (the same frame and permutation, float16
+   upload) is printed and held to ``BF16_MASK_IOU_FLOOR``;
 5. the live depth path: ``LivePredictor(Model.load(pretrained/mock_fingertip))``
    at the L515's 1024×768 intrinsics and 16,384 display points answers
    z16 depth frames made from 60,000-point mock frames, launch counts
@@ -64,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (batch 3) while recording the inputs it hands to each kernel wrapper,
    then hold every kernel against its plain PyTorch version on those
    inputs (B5, which no path runs, on the inputs of B3's level-0 calls; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
-   the kernels line reporting S = 45)
+   the kernels line reporting S = 45), the LFA kernels' bfloat16 forms
+   on the inputs of one frame of each bfloat16 path (``_lfa_error``)
    and time the kernel, the plain version and (where one exists) a PyTorch
    library call computing the same function (device time from
    torch.profiler). B1 must equal its plain version with the indices in
@@ -72,7 +85,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    sort (``knn_topk_plain(support, query, 1)``), ties included; their
    bounds count the distances their culled walks evaluate at those inputs
    (the CPU models in ``benchmarks/knn_cull.py`` and
-   ``benchmarks/argmin_cull.py``), not every pair. Time the live path's subsample
+   ``benchmarks/argmin_cull.py``), not every pair; the bfloat16 LFA forms'
+   bounds take their dots at the tensor cores' bfloat16 rate
+   (``_lfa_bound``). Time the live path's subsample
    selection (a stable sort) against ``torch.topk``, and the exact k = 32
    self-KNN of the approx64k frame's Morton-sorted 65,536-point level 0
    (the recall guard's exact fallback) on B1 and on the brute-force
@@ -120,6 +135,21 @@ PER_FRAME_64K = {
     "argmin_1nn": 2, "argmin_1nn_order": 1,
 }
 
+# the bfloat16 compute mode: the app archive and the approx64k settings
+# loaded with compute_dtype="bfloat16" and saved under build/; per frame the
+# LFA kernels' bfloat16 forms take the float32 forms' launches
+BF16_ARCHIVE = ROOT / "build" / "bf16" / "mock_fingertip_bf16"
+APPROX_BF16_ARCHIVE = ROOT / "build" / "bf16" / "mock_fingertip_approx64k_bf16"
+_TO_BF16 = {"lfa_round1": "lfa_round1_bf16", "lfa_pool2_res": "lfa_pool2_res_bf16"}
+PER_FRAME_BF16 = {_TO_BF16.get(k, k): v for k, v in PER_FRAME.items()}
+PER_FRAME_64K_BF16 = {_TO_BF16.get(k, k): v for k, v in PER_FRAME_64K.items()}
+# the bfloat16 mask's foreground IoU against the float32 mask, every frame.
+# On an H100 (80GB HBM3, 700 W) it read 1.0 on each of the 5 frames of both
+# bfloat16 paths (the mock frames' confidences lie far from the threshold);
+# the JAX package's TPU gate saw 0.91-1.0 on real captures
+# (benchmarks/bf16_validation.json), which these frames are not
+BF16_MASK_IOU_FLOOR = 0.99
+
 # the live depth path: the app archive at the L515's default intrinsics, 16,384
 # display points (main.py's LivePredictor), depth frames made from mock frames
 # of 60,000 points; per frame the four encoder self-KNNs, the fused LFA at
@@ -165,6 +195,7 @@ FP32_GRAD_MEDIAN_LIMIT = 5e-4
 # kernels whose registers, shared memory and spills the build report prints
 PTXAS_KERNELS = ("knn_cull_kernel", "knn_window_kernel", "argmin_cull_kernel",
                  "argmin_order_kernel", "lfa_round1_tile_kernel", "lfa_pool2_tile_kernel",
+                 "lfa_round1_bf16_tile_kernel", "lfa_pool2_bf16_tile_kernel",
                  "roll_stages_kernel")
 
 # kernel -> (source, the TPU kernel it replaces), in the order of the line
@@ -183,12 +214,24 @@ KERNELS = {
                         "recognizer3d_tpu/ops/knn.py:348"),
     "roll_stages": ("recognizer3d_tpu_torch/csrc/bitonic.cu",
                     "benchmarks/bench_roll_stages.py:56"),
+    # the bfloat16 forms of B2, B3, B5 (the same kernel bodies under
+    # io = bfloat16: lfa_pallas.py:322, :509, :445)
+    "lfa_round1_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                        "recognizer3d_tpu/ops/lfa_pallas.py:138"),
+    "lfa_pool2_res_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                           "recognizer3d_tpu/ops/lfa_pallas.py:221"),
+    "lfa_pool2_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
+                       "recognizer3d_tpu/ops/lfa_pallas.py:192"),
 }
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
-# operations/s outside the tensor cores (the kernels run no tensor-core op)
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
+# operations/s outside the tensor cores, and bfloat16 products summed in
+# float32 on the tensor cores (a bfloat16 product is exact in float32, so
+# that is the bfloat16 dot's contract; the float32 dots have no tensor-core
+# rate of their own, TF32 rounds their operands)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_TENSOR_OPS_PER_S = 989e12
 # float32 lane instructions/s: the 67 TFLOP/s count an FMA as two
 # operations; a compare or a select is one instruction, executed at the
 # FMA's instruction rate, so work made of them is bounded at half the flop
@@ -252,6 +295,16 @@ def _bound(nbytes: float, nops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _lfa_bound(nbytes: float, dots: float, rest: float, bf16: bool):
+    """``_bound`` of a fused LFA kernel's work: in bfloat16 its dots at the
+    tensor cores' bfloat16 rate and the rest (distances, RPE, BatchNorm,
+    softmax, activations, the weighted sums over K) at the float32 rate,
+    their times added; in float32 all of it at the float32 rate."""
+    if not bf16:
+        return _bound(nbytes, dots + rest)
+    return _bound(nbytes, dots / PEAK_BF16_TENSOR_OPS_PER_S * PEAK_F32_OPS_PER_S + rest)
+
+
 # --- work counts (each input read once, each output written once) ----------
 
 
@@ -298,36 +351,43 @@ def _window_work(m: int, n: int, w: int, k: int):
     return 4 * 3 * (m + n) + 4 * m * 2 * k, 9 * m * w
 
 
-def _round1_work(rows: int, k: int, h: int):
+def _round1_work(rows: int, k: int, h: int, elem: int = 4):
+    # (bytes, dot operations, other operations); elem: bytes of a row
+    # element (gathered, pooled, rpe2): 4, or 2 in bfloat16; d2, the centre
+    # term and the constants stay float32
     c2 = 2 * h
-    nbytes = 4 * rows * (k * c2 + k + h + h + k * h) + 4 * (5 * h + 7 * h * h)
-    per_row = (
+    nbytes = rows * (elem * (k * c2 + h + k * h) + 4 * (k + h)) + 4 * (5 * h + 7 * h * h)
+    dots = (
+        2 * k * c2 * c2        # scores
+        + 2 * c2 * h           # pool MLP
+        + 2 * k * h * h        # mlp_rpe2
+    )
+    rest = (
         k                      # sqrt of the distances
         + 5 * k * h            # RPE sum, w9 term, BN affine, relu
-        + 2 * k * c2 * c2      # scores
         + 5 * k * c2           # softmax over K
         + 2 * k * c2           # weighted sum
-        + 2 * c2 * h + 2 * h   # pool MLP, offset, relu
-        + 2 * k * h * h + 2 * k * h  # mlp_rpe2, offset, relu
+        + 2 * h                # pool MLP's offset, relu
+        + 2 * k * h            # mlp_rpe2's offset, relu
     )
-    return nbytes, rows * per_row
+    return nbytes, rows * dots, rows * rest
 
 
-def _pool2_work(rows: int, k: int, h: int, f: int, residual: bool = True):
+def _pool2_work(rows: int, k: int, h: int, f: int, residual: bool = True, elem: int = 4):
+    # (bytes, dot operations, other operations); elem: bytes of a row
+    # element (rpe2, g2, f_in, out): 4, or 2 in bfloat16
     c2, c4 = 2 * h, 4 * h
+    dots = 2 * k * c2 * c2 + 2 * c2 * c2           # scores, pool MLP
+    rest = 5 * k * c2 + 2 * k * c2 + 2 * c2         # softmax, sum, offset, relu
     if not residual:
-        nbytes = 4 * rows * (2 * k * h + c2) + 4 * (2 * c2 * c2 + c2)
-        per_row = 2 * k * c2 * c2 + 5 * k * c2 + 2 * k * c2 + 2 * c2 * c2 + 2 * c2
-        return nbytes, rows * per_row
-    nbytes = 4 * rows * (2 * k * h + f + c4) + 4 * (
+        nbytes = elem * rows * (2 * k * h + c2) + 4 * (2 * c2 * c2 + c2)
+        return nbytes, rows * dots, rows * rest
+    nbytes = elem * rows * (2 * k * h + f + c4) + 4 * (
         2 * c2 * c2 + c2 + c2 * c4 + f * c4 + c4
     )
-    per_row = (
-        2 * k * c2 * c2 + 5 * k * c2 + 2 * k * c2   # scores, softmax, sum
-        + 2 * c2 * c2 + 2 * c2                     # pool MLP, offset, relu
-        + 2 * c2 * c4 + 2 * f * c4 + 3 * c4        # mlp2, shortcut, lrelu
-    )
-    return nbytes, rows * per_row
+    dots += 2 * c2 * c4 + 2 * f * c4                # mlp2, shortcut
+    rest += 3 * c4                                  # offset, lrelu
+    return nbytes, rows * dots, rows * rest
 
 
 def _roll_work(n_elem: int, stages: int):
@@ -394,9 +454,12 @@ def _drive(torch, build, predictor, frames, per_frame, label):
     return latencies, masks, totals
 
 
-def _card_vs_cpu(Model, archive, frame, label):
+def _card_vs_cpu(Model, archive, frame, label, conf_tol=1e-4, band=1e-4):
     """One frame's confidences on the card against the same Model.predict
-    on the CPU; returns the card's model."""
+    on the CPU: within ``conf_tol``, masks equal where the CPU's class-1
+    confidence lies more than ``band`` from the threshold 0.5 (float32:
+    1e-4 and 1e-4; bfloat16, whose roundings flip with the order of a sum:
+    2e-2 and 0.05). Returns the card's model."""
     model = Model.load(archive, device="cuda", transfer_dtype="float32")
     cpu_model = Model.load(archive, device="cpu", transfer_dtype="float32")
     np.random.seed(7)
@@ -405,16 +468,67 @@ def _card_vs_cpu(Model, archive, frame, label):
     conf_cpu = cpu_model.predict(frame)
     if conf_gpu.shape != (2, frame.shape[0]) or not np.isfinite(conf_gpu).all():
         raise RuntimeError(f"{label}: confidences of shape {conf_gpu.shape}, or not finite")
-    conf_err = float(np.abs(conf_gpu - conf_cpu).max())
-    near = np.abs(conf_cpu[1] - 0.5) <= 1e-4
+    diff = np.abs(conf_gpu - conf_cpu)
+    conf_err = float(diff.max())
+    near = np.abs(conf_cpu[1] - 0.5) <= band
     mask_diff = int(((conf_gpu[1] > 0.5) != (conf_cpu[1] > 0.5))[~near].sum())
-    if conf_err > 1e-4 or mask_diff:
+    if conf_err > conf_tol or mask_diff:
         raise RuntimeError(
             f"{label}: card vs CPU: max abs conf err {conf_err}, {mask_diff} mask points differ"
         )
-    print(f"{label}: card vs CPU confidences: max abs err {conf_err:.3g}, masks equal "
-          f"({int(near.sum())} points within 1e-4 of the threshold)", flush=True)
+    print(f"{label}: card vs CPU confidences: max abs err {conf_err:.3g}, mean "
+          f"{float(diff.mean()):.3g}, masks equal ({int(near.sum())} points within {band} of "
+          f"the threshold)", flush=True)
     return model
+
+
+def _bf16_mask_iou(Model, archive32, archive16, frames, label):
+    """The bfloat16 model's foreground mask against the float32 model's on
+    each frame (the same permutation, float16 upload as ``Predictor``):
+    the IoU per frame, held to ``BF16_MASK_IOU_FLOOR``."""
+    m32 = Model.load(archive32, device="cuda", transfer_dtype="float16")
+    m16 = Model.load(archive16, device="cuda", transfer_dtype="float16")
+    ious = []
+    for i, frame in enumerate(frames):
+        np.random.seed(i)
+        a = m32.predict_mask(frame)
+        np.random.seed(i)
+        b = m16.predict_mask(frame)
+        ious.append(float((a & b).sum() / max(int((a | b).sum()), 1)))
+    print(f"{label}: foreground IoU of the bfloat16 mask against the float32 mask per frame "
+          f"{[round(x, 5) for x in ious]}; min {min(ious):.5f}, mean "
+          f"{statistics.mean(ious):.5f} (floor {BF16_MASK_IOU_FLOOR})", flush=True)
+    if min(ious) < BF16_MASK_IOU_FLOOR:
+        raise RuntimeError(f"{label}: bfloat16 mask IoU {min(ious)} below {BF16_MASK_IOU_FLOOR}")
+
+
+def _lfa_error(torch, outs, refs, label):
+    """Max abs error of an LFA kernel's outputs against its plain version's.
+    float32: at most 1e-5 (the same arithmetic summed in another order).
+    bfloat16 (rows of the last axis): at least 99.9% of the elements within
+    one bfloat16 ulp, |Δ| ≤ 2⁻⁷·|ref| + 1e-6, and every element within one
+    ulp of itself plus one ulp of its row's largest magnitude (where the two
+    round an intermediate to different sides of a midpoint, the outputs it
+    feeds move by one ulp of it). Returns (error, a note with the shares
+    within one ulp and bit-identical)."""
+    err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
+    if outs[0].dtype == torch.float32:
+        if err > 1e-5:
+            raise RuntimeError(f"{label}: max abs err {err}")
+        return err, ""
+    n = within = same = 0
+    for o, r in zip(outs, refs):
+        d, ref = (o.float() - r.float()).abs(), r.float().abs()
+        if not bool((d <= 2.0**-7 * (ref + ref.amax(-1, keepdim=True)) + 1e-6).all()):
+            raise RuntimeError(f"{label}: an element beyond one ulp of itself and its row's "
+                               f"largest: max abs err {err}")
+        n += d.numel()
+        within += int((d <= 2.0**-7 * ref + 1e-6).sum())
+        same += int((d == 0).sum())
+    if within / n < 0.999:
+        raise RuntimeError(f"{label}: {within / n:.6f} of the elements within one bfloat16 ulp")
+    return err, (f" ({within / n:.6f} within one bfloat16 ulp, {n - within} of {n} beyond; "
+                 f"{same / n:.6f} bit-identical)")
 
 
 def _record_frame(run_frame, targets, per_frame, label):
@@ -547,89 +661,92 @@ def _check_kernels(torch, calls, results, label, plain_reps):
               f"{'argmin' if k == 1 else 'topk'} {lib:.4f} ms, bound {bound[0]:.5f} ms "
               f"({bound[1]})", flush=True)
 
-    # B2: fused LFA round 1 at encoder levels 0 and 1
-    for args, _ in calls.get("lfa_round1", []):
-        gathered, d2, center = args[:3]
-        b, rows, k, c2 = gathered.shape
-        h = c2 // 2
-        pooled, rpe2 = lfa_kernels.lfa_round1(*args)
-        consts = lfa_kernels.round1_constants(*args[3:])
-        ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
-        torch.cuda.synchronize()
-        err = max((pooled - ref_p).abs().max().item(), (rpe2 - ref_r).abs().max().item())
-        if err > 1e-5:
-            raise RuntimeError(f"{label} lfa_round1 h={h}: max abs err {err}")
-        ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
-                        "lfa_round1_tile_kernel")
-        plain = _device_ms(
-            torch,
-            lambda: lfa_kernels.lfa_round1_plain(
-                gathered, d2, center, lfa_kernels.round1_constants(*args[3:])
-            ),
-            2 * plain_reps,
-        )
-        bound = _bound(*_round1_work(b * rows, k, h))
-        results.add("lfa_round1", err, ms, plain, bound, None)
-        print(f"{label} lfa_round1 B={b} N={rows} K={k} h={h}: max abs err {err:.3g}; kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
-              f"({bound[1]})", flush=True)
+    # B2: fused LFA round 1 at encoder levels 0 and 1, in either form
+    for name in ("lfa_round1", "lfa_round1_bf16"):
+        for args, _ in calls.get(name, []):
+            gathered, d2, center = args[:3]
+            b, rows, k, c2 = gathered.shape
+            h, dt = c2 // 2, gathered.dtype
+            pooled, rpe2 = lfa_kernels.lfa_round1(*args)
+            consts = lfa_kernels.round1_constants(*args[3:], dtype=dt)
+            ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
+            torch.cuda.synchronize()
+            err, note = _lfa_error(torch, [pooled, rpe2.reshape(b, rows, k, h)],
+                                   [ref_p, ref_r.reshape(b, rows, k, h)], f"{label} {name} h={h}")
+            ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
+                            "lfa_round1_bf16_tile_kernel" if dt == torch.bfloat16
+                            else "lfa_round1_tile_kernel")
+            plain = _device_ms(
+                torch,
+                lambda: lfa_kernels.lfa_round1_plain(
+                    gathered, d2, center, lfa_kernels.round1_constants(*args[3:], dtype=dt)
+                ),
+                2 * plain_reps,
+            )
+            bound = _lfa_bound(*_round1_work(b * rows, k, h, gathered.element_size()),
+                               dt == torch.bfloat16)
+            results.add(name, err, ms, plain, bound, None)
+            print(f"{label} {name} B={b} N={rows} K={k} h={h}: max abs err {err:.3g}{note}; "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
+                  f"({bound[1]})", flush=True)
 
     # B3: fused attentive pool 2 + residual at encoder levels 0 and 1, and
-    # B5 (pool 2 alone, which no path runs) on the level-0 inputs
-    for args, kwargs in calls.get("lfa_pool2_res", []):
-        rpe2, g2 = args[:2]
-        f_in = args[7]
-        b, rows, k, h = g2.shape
-        f = f_in.shape[-1]
-        out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
-        consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:])
-        ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if err > 1e-5:
-            raise RuntimeError(f"{label} lfa_pool2_res h={h}: max abs err {err}")
-        ms = _device_ms(
-            torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
-            "lfa_pool2_tile_kernel",
-        )
-        plain = _device_ms(
-            torch,
-            lambda: lfa_kernels.attentive_pool2_residual_plain(
-                rpe2, g2, f_in,
-                lfa_kernels.pool2_constants(*args[2:7], *args[8:]), k,
-            ),
-            2 * plain_reps,
-        )
-        bound = _bound(*_pool2_work(b * rows, k, h, f))
-        results.add("lfa_pool2_res", err, ms, plain, bound, None)
-        print(f"{label} lfa_pool2_res B={b} N={rows} K={k} h={h} F={f}: max abs err {err:.3g}; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
-              f"({bound[1]})", flush=True)
-        if h != 8:
-            continue
-        head = args[2:7]
-        out = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
-        ref = lfa_kernels.attentive_pool2_plain(
-            rpe2, g2, lfa_kernels.pool2_constants(*head), k
-        )
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if err > 1e-5:
-            raise RuntimeError(f"{label} lfa_pool2 h={h}: max abs err {err}")
-        ms = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
-                        50, "lfa_pool2_tile_kernel")
-        plain = _device_ms(
-            torch,
-            lambda: lfa_kernels.attentive_pool2_plain(
-                rpe2, g2, lfa_kernels.pool2_constants(*head), k
-            ),
-            2 * plain_reps,
-        )
-        bound = _bound(*_pool2_work(b * rows, k, h, 0, residual=False))
-        results.add("lfa_pool2", err, ms, plain, bound, None)
-        print(f"{label} lfa_pool2 (B5, on B3's level-0 inputs) B={b} N={rows} K={k} h={h}: "
-              f"max abs err {err:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-              f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
+    # B5 (pool 2 alone, which no path runs) on the level-0 inputs, in either
+    # form
+    for name in ("lfa_pool2_res", "lfa_pool2_res_bf16"):
+        bf16 = name.endswith("_bf16")
+        kernel = "lfa_pool2_bf16_tile_kernel" if bf16 else "lfa_pool2_tile_kernel"
+        for args, kwargs in calls.get(name, []):
+            rpe2, g2 = args[:2]
+            f_in = args[7]
+            b, rows, k, h = g2.shape
+            f, dt, elem = f_in.shape[-1], rpe2.dtype, rpe2.element_size()
+            out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
+            consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt)
+            ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
+            torch.cuda.synchronize()
+            err, note = _lfa_error(torch, [out], [ref], f"{label} {name} h={h}")
+            ms = _device_ms(
+                torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50, kernel
+            )
+            plain = _device_ms(
+                torch,
+                lambda: lfa_kernels.attentive_pool2_residual_plain(
+                    rpe2, g2, f_in,
+                    lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt), k,
+                ),
+                2 * plain_reps,
+            )
+            bound = _lfa_bound(*_pool2_work(b * rows, k, h, f, elem=elem), bf16)
+            results.add(name, err, ms, plain, bound, None)
+            print(f"{label} {name} B={b} N={rows} K={k} h={h} F={f}: max abs err {err:.3g}"
+                  f"{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
+                  f"({bound[1]})", flush=True)
+            if h != 8:
+                continue
+            b5 = "lfa_pool2_bf16" if bf16 else "lfa_pool2"
+            head = args[2:7]
+            out = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+            ref = lfa_kernels.attentive_pool2_plain(
+                rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=dt), k
+            )
+            torch.cuda.synchronize()
+            err, note = _lfa_error(torch, [out], [ref], f"{label} {b5} h={h}")
+            ms = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
+                            50, kernel)
+            plain = _device_ms(
+                torch,
+                lambda: lfa_kernels.attentive_pool2_plain(
+                    rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=dt), k
+                ),
+                2 * plain_reps,
+            )
+            bound = _lfa_bound(*_pool2_work(b * rows, k, h, 0, residual=False, elem=elem),
+                               bf16)
+            results.add(b5, err, ms, plain, bound, None)
+            print(f"{label} {b5} (B5, on B3's level-0 inputs) B={b} N={rows} K={k} h={h}: "
+                  f"max abs err {err:.3g}{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
 
 
 def _exact_64k(torch, morton, knn_kernels, cloud):
@@ -1146,6 +1263,27 @@ def main() -> None:
     del predictor64
     model64 = _card_vs_cpu(Model, APPROX_ARCHIVE, frames64[1], "approx64k")
 
+    # --- 4b. the bfloat16 compute mode: app-bf16 and approx64k-bf16 ----------
+    models_bf16 = {}
+    for label, archive32, archive, settings, path_frames, per_frame in (
+        ("app-bf16", ARCHIVE, BF16_ARCHIVE, {}, frames, PER_FRAME_BF16),
+        ("approx64k-bf16", APPROX_ARCHIVE, APPROX_BF16_ARCHIVE, APPROX_SETTINGS, frames64,
+         PER_FRAME_64K_BF16),
+    ):
+        port_knn.reset_window_guard()
+        Model.load(ARCHIVE, device="cuda", compute_dtype="bfloat16", **settings).save(archive)
+        predictor_bf = Predictor(archive, warmup_points=path_frames[0].shape[0])
+        torch.cuda.synchronize()
+        s_bf = predictor_bf.model.settings
+        print(f"{label}: Predictor of {archive.relative_to(ROOT)} (compute_dtype="
+              f"{s_bf.compute_dtype}, knn={s_bf.knn}, n_points={s_bf.n_points})", flush=True)
+        _, _, launches_bf = _drive(torch, _build, predictor_bf, path_frames, per_frame, label)
+        for name, count in launches_bf.items():
+            launches[name] = launches.get(name, 0) + count
+        del predictor_bf
+        models_bf16[label] = _card_vs_cpu(Model, archive, path_frames[1], label, 2e-2, 0.05)
+        _bf16_mask_iou(Model, archive32, archive, path_frames, label)
+
     # --- 5. the live depth path -----------------------------------------------
     port_knn.reset_window_guard()
     launches_live, live_frame = _live_path(
@@ -1190,6 +1328,17 @@ def main() -> None:
     calls64 = _record_frame(lambda: model64.predict(frames64[0]), targets, PER_FRAME_64K,
                             "approx64k")
     calls_live = _record_frame(live_frame, targets, PER_FRAME_LIVE, "live")
+    # the bfloat16 paths' LFA calls (their KNN kernels get the float32
+    # paths' inputs: the geometry stays float32)
+    targets_bf16 = [(lfa_kernels, "lfa_round1", "lfa_round1_bf16"),
+                    (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res_bf16")]
+    calls_bf16 = {
+        label: _record_frame(lambda: models_bf16[label].predict(path_frames[0]), targets_bf16,
+                             per_frame, label)
+        for label, path_frames, per_frame in (("app-bf16", frames, PER_FRAME_BF16),
+                                              ("approx64k-bf16", frames64, PER_FRAME_64K_BF16))
+    }
+    del models_bf16
     from recognizer3d_tpu_torch.training.trainer import train_step
 
     with _Recorder(targets) as rec:  # a train step needs autograd: no inference_mode
@@ -1223,13 +1372,16 @@ def main() -> None:
         _check_kernels(torch, calls_live, results, "live", plain_reps=10)
         _check_kernels(torch, calls_train, results, "train step", plain_reps=10)
         _check_kernels(torch, calls_val, results, "train validation", plain_reps=10)
+        _check_kernels(torch, calls_bf16["app-bf16"], results, "app-bf16", plain_reps=10)
+        _check_kernels(torch, calls_bf16["approx64k-bf16"], results, "approx64k-bf16",
+                       plain_reps=3)
         _check_roll_stages(torch, results)
         _time_selection(torch, pipeline, pipeline.cloud_to_depth(
             make_frame(np.random.RandomState(500), 0.0, FRAME_POINTS)[0],
             pipeline.DepthIntrinsics(),
         ))
         _exact_64k(torch, morton, knn_kernels, sample)
-    del calls, calls64, calls_live, calls_train, calls_val
+    del calls, calls64, calls_live, calls_train, calls_val, calls_bf16
 
     # --- 9. result lines ------------------------------------------------------
     kernels = []

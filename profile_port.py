@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [app|approx64k|live|train ...]
+    python3 profile_port.py [app|approx64k|live|train|app-bf16|approx64k-bf16 ...]
 
-For each path named (all four by default): the app path is
+For each path named (the first four by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
 approx64k is the reference-default ``knn="approximate"`` at 65,536 points
 (the bundled weights with ``bench.py``'s ``settings64a``, saved under
 ``build/`` as ``chip_smoke.py`` does) on mock frames of 150,000 points;
+app-bf16 and approx64k-bf16 are the same two with
+``compute_dtype="bfloat16"`` (saved under ``build/`` as ``chip_smoke.py``
+does);
 live is the depth-camera tick, ``LivePredictor`` of the bundled archive at
 the L515's 1024×768 intrinsics and 16,384 display points, on z16 frames
 made from mock frames of 60,000 points; train is one app-config train
@@ -35,9 +38,11 @@ import numpy as np
 
 from chip_smoke import (
     APPROX_ARCHIVE,
+    APPROX_BF16_ARCHIVE,
     APPROX_FRAME_POINTS,
     APPROX_SETTINGS,
     ARCHIVE,
+    BF16_ARCHIVE,
     FRAME_POINTS,
     LIVE_DISPLAY,
     _gpu_line,
@@ -143,6 +148,13 @@ def main() -> None:
         elif path == "approx64k":
             Model.load(ARCHIVE, device="cuda", **APPROX_SETTINGS).save(APPROX_ARCHIVE)
             archive, points, frames = APPROX_ARCHIVE, APPROX_FRAME_POINTS, FRAMES // 2
+        elif path == "app-bf16":
+            Model.load(ARCHIVE, device="cuda", compute_dtype="bfloat16").save(BF16_ARCHIVE)
+            archive, points, frames = BF16_ARCHIVE, FRAME_POINTS, FRAMES
+        elif path == "approx64k-bf16":
+            Model.load(ARCHIVE, device="cuda", compute_dtype="bfloat16",
+                       **APPROX_SETTINGS).save(APPROX_BF16_ARCHIVE)
+            archive, points, frames = APPROX_BF16_ARCHIVE, APPROX_FRAME_POINTS, FRAMES // 2
         else:
             raise SystemExit(f"profile_port: unknown path {path!r}")
         clouds = [

@@ -158,7 +158,7 @@ def count_increasing(support, query, k, starts, w, qb, queries):
     return _scan(d, order, 0, k, 32 * list_registers(k))[2]
 
 
-def _mock_frame(frame_points: int, seed: int = 300) -> np.ndarray:
+def _mock_frame(frame_points: int, seed: int = 300, angle: float = 0.0) -> np.ndarray:
     """A mock frame of ``bin/make_mock_data`` (``frame_points`` points, in
     the order it makes them)."""
     root = Path(__file__).resolve().parents[2]
@@ -168,7 +168,7 @@ def _mock_frame(frame_points: int, seed: int = 300) -> np.ndarray:
     spec = importlib.util.spec_from_loader("make_mock_data", loader)
     module = importlib.util.module_from_spec(spec)
     loader.exec_module(module)
-    return module.make_frame(np.random.RandomState(seed), 0.0, frame_points)[0]
+    return module.make_frame(np.random.RandomState(seed), angle, frame_points)[0]
 
 
 def _mock_level0(points: int = 65_536, frame_points: int = 150_000):

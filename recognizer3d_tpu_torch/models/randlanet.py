@@ -21,8 +21,18 @@ Submodules are named after the flax paths (``encoder_0.mlp1.conv``,
 a rename plus a transpose. Levels whose half width is 8 or 32 run the
 fused LFA kernels (``ops/lfa_kernels.py``) in eval mode; the train forward
 takes the unfused branch, as the JAX package's does, and autograd
-differentiates it (the JAX package has no backward kernel). The bfloat16
-compute mode is ROADMAP A11.
+differentiates it (the JAX package has no backward kernel).
+
+``compute_dtype="bfloat16"`` serves the eval forward with flax's
+semantics (``nn.Dense(dtype=bfloat16)`` and friends): parameters and
+BatchNorm statistics stay float32; a Dense casts its input, kernel and bias
+to bfloat16, rounds the product (float32 sums) and then adds the bias in
+bfloat16; BatchNorm computes in float32 from its bfloat16 input and rounds
+its output; activations, attentive pooling and its softmax run in bfloat16,
+their sums in float32; the geometry, the neighbour search, the RPE
+projections and the gather table stay float32, and the fused levels run the
+LFA kernels' bfloat16 forms. The logits leave as float32. Training in
+bfloat16 is ROADMAP A12.
 
 Initialisation follows the JAX package's torch-style U(±1/√fan) draws,
 including the decoders' fan of ``n_out_ch`` (the reference's
@@ -45,6 +55,14 @@ from recognizer3d_tpu_torch.ops.morton import (
 )
 
 _BN_EPS = 1e-6
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        # jax.nn.leaky_relu multiplies by the slope cast to the input's dtype
+        slope = float(torch.tensor(slope, dtype=torch.bfloat16))
+    return F.leaky_relu(x, slope)
 
 
 def _activation(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
@@ -53,8 +71,35 @@ def _activation(name: Optional[str], x: torch.Tensor) -> torch.Tensor:
     if name == "relu":
         return torch.relu(x)
     if name == "lrelu0.2":
-        return F.leaky_relu(x, 0.2)
+        return _leaky_relu(x, 0.2)
     raise ValueError(name)
+
+
+def _dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``linear(x)``; in bfloat16, flax's ``nn.Dense(dtype=bfloat16)``:
+    input, weight and bias cast to bfloat16, the product rounded to
+    bfloat16 (cuBLAS sums in float32: the model turns off its reduced
+    precision reductions), then the bias added in bfloat16."""
+    if dtype != torch.bfloat16:
+        return linear(x)
+    weight, bias = _bf16_params(linear)
+    y = F.linear(x.to(dtype), weight)
+    return y if bias is None else y + bias
+
+
+def _bf16_params(linear: nn.Linear):
+    """The Dense's weight and bias cast to bfloat16, kept on the module and
+    cast again only when a parameter's storage, device or version changes (a
+    load, a move, an in-place update): the served forward reads the same
+    copies every frame instead of casting each Dense's twice a frame."""
+    params = (linear.weight, linear.bias)
+    key = tuple(None if p is None else (p.device, p.data_ptr(), p._version) for p in params)
+    cached = linear.__dict__.get("_bf16_params")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, *(None if p is None else p.to(torch.bfloat16) for p in params))
+        linear.__dict__["_bf16_params"] = cached
+    return cached[1:]
 
 
 class BatchNorm(nn.Module):
@@ -80,8 +125,10 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            # a bfloat16 input is normalised in float32 and rounded back, as
+            # flax's BatchNorm(dtype=bfloat16) does
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean) * mul + self.bias
+            return ((x - self.running_mean) * mul + self.bias).to(x.dtype)
         axes = tuple(range(x.dim() - 1))
         mean = x.mean(axes)
         var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
@@ -104,12 +151,14 @@ class SharedMLP(nn.Module):
 
     The Dense draws weight and bias from U(±1/√fan), fan = ``n_in`` (torch's
     ``nn.Linear`` default) unless ``init_fan`` overrides it, as the JAX
-    package does for the decoders."""
+    package does for the decoders. ``dtype`` is the activation dtype."""
 
     def __init__(self, n_in: int, n_out: int, bn: bool = True,
-                 activation: Optional[str] = None, init_fan: Optional[int] = None):
+                 activation: Optional[str] = None, init_fan: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.activation = activation
+        self.compute_dtype = dtype
         self.conv = nn.Linear(n_in, n_out)
         if init_fan is not None:
             bound = 1.0 / init_fan**0.5
@@ -119,7 +168,7 @@ class SharedMLP(nn.Module):
         self.batch_norm = BatchNorm(n_out) if bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        x = _dense(self.conv, x, self.compute_dtype)
         if self.batch_norm is not None:
             x = self.batch_norm(x)
         return _activation(self.activation, x)
@@ -143,10 +192,13 @@ class FusedRPEMLP(nn.Module):
     """``mlp_rpe1`` over the 10-channel LocSE encoding
     ``[center, nbr, center − nbr, dist]``, split exactly into
     ``(Wc + Wd)·center + (Wn − Wd)·nbr + w9·dist + b``: the neighbour term
-    is a projection of the support cloud that rides the neighbour gather."""
+    is a projection of the support cloud that rides the neighbour gather.
+    The encoding sums in float32; in bfloat16 it is rounded before the
+    BatchNorm."""
 
-    def __init__(self, half: int):
+    def __init__(self, half: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.conv = _RPEKernel(half)
         self.batch_norm = BatchNorm(half)
 
@@ -168,20 +220,32 @@ class FusedRPEMLP(nn.Module):
             + distances[..., None] * k[9]
             + self.conv.bias
         )
+        if self.compute_dtype == torch.bfloat16:
+            out = out.to(torch.bfloat16)
         return torch.relu(self.batch_norm(out))
 
 
 class AttentivePooling(nn.Module):
-    """Attention over the K neighbours: (B, N, K, C) -> (B, N, n_out)."""
+    """Attention over the K neighbours: (B, N, K, C) -> (B, N, n_out).
 
-    def __init__(self, n_in: int, n_out: int):
+    In bfloat16 the softmax is ``jax.nn.softmax``'s: each operation rounds
+    to bfloat16, the sums (its normaliser and the pooled sum) accumulate in
+    float32 and round once."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.score_fn = nn.Linear(n_in, n_in, bias=False)
-        self.mlp = SharedMLP(n_in, n_out, activation="relu")
+        self.mlp = SharedMLP(n_in, n_out, activation="relu", dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scores = torch.softmax(self.score_fn(x), dim=-2)  # softmax over K
-        return self.mlp((scores * x).sum(dim=-2))
+        scores = _dense(self.score_fn, x, self.compute_dtype)
+        if self.compute_dtype != torch.bfloat16:
+            scores = torch.softmax(scores, dim=-2)  # softmax over K
+            return self.mlp((scores * x).sum(dim=-2))
+        e = torch.exp(scores - scores.amax(dim=-2, keepdim=True))
+        scores = e / e.float().sum(dim=-2, keepdim=True).to(e.dtype)
+        return self.mlp((scores * x.to(e.dtype)).float().sum(dim=-2).to(e.dtype))
 
     def score_kernel(self) -> torch.Tensor:
         return self.score_fn.weight.t()
@@ -195,34 +259,42 @@ class LocalFeatureAggregation(nn.Module):
     ``features`` rows follow ``xyz``'s order (any order: the search and
     every reduction are order-agnostic) and the output keeps it."""
 
-    def __init__(self, n_in: int, n_out: int, n_neighbors: int, knn_approach: str):
+    def __init__(self, n_in: int, n_out: int, n_neighbors: int, knn_approach: str,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         half = n_out // 2
+        dt = self.compute_dtype = dtype
         self.n_neighbors = n_neighbors
         self.knn_approach = knn_approach
         self.half = half
-        self.mlp1 = SharedMLP(n_in, half, activation="lrelu0.2")
-        self.mlp_rpe1 = FusedRPEMLP(half)
-        self.pool1 = AttentivePooling(n_out, half)
-        self.mlp_rpe2 = SharedMLP(half, half, activation="relu")
-        self.pool2 = AttentivePooling(n_out, n_out)
-        self.mlp2 = SharedMLP(n_out, 2 * n_out)
-        self.shortcut = SharedMLP(n_in, 2 * n_out)
+        self.mlp1 = SharedMLP(n_in, half, activation="lrelu0.2", dtype=dt)
+        self.mlp_rpe1 = FusedRPEMLP(half, dtype=dt)
+        self.pool1 = AttentivePooling(n_out, half, dtype=dt)
+        self.mlp_rpe2 = SharedMLP(half, half, activation="relu", dtype=dt)
+        self.pool2 = AttentivePooling(n_out, n_out, dtype=dt)
+        self.mlp2 = SharedMLP(n_out, 2 * n_out, dtype=dt)
+        self.shortcut = SharedMLP(n_in, 2 * n_out, dtype=dt)
 
     def fused(self) -> bool:
         """Whether the eval forward runs the fused LFA kernels."""
         return not self.training and lfa_kernels.supports(
-            self.n_neighbors, self.half, "float32"
+            self.n_neighbors, self.half, str(self.compute_dtype).removeprefix("torch.")
         )
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
         half = self.half
+        fused = self.fused()
         feats = self.mlp1(features)
-        # the mlp_rpe1 neighbour term and the feature rows share one gather
-        table = torch.cat([self.mlp_rpe1.support_projection(xyz), feats], dim=-1)
+        # the mlp_rpe1 neighbour term and the feature rows share one gather;
+        # the table is float32 (bfloat16 rows round after the gather, or,
+        # for the kernels' bfloat16 form, before it: the same values)
+        support = self.mlp_rpe1.support_projection(xyz)
+        table = torch.cat([support, feats.to(support.dtype)], dim=-1)
+        if fused and self.compute_dtype == torch.bfloat16:
+            table = table.to(torch.bfloat16)
         neighbors, d2 = knn_presorted(xyz, xyz, self.n_neighbors, self.knn_approach)
         gathered = gather_neighbors(table, neighbors)  # (B, N, K, 2·half)
-        if self.fused():
+        if fused:
             s1, o1 = self.mlp_rpe1.batch_norm.eval_affine()
             wp1, bp1 = self.pool1.mlp.dense_wb()
             sp1, op1 = self.pool1.mlp.batch_norm.eval_affine()
@@ -247,13 +319,13 @@ class LocalFeatureAggregation(nn.Module):
             )
         distances = torch.sqrt(d2)
         rpe = self.mlp_rpe1(xyz, gathered[..., :half], distances)
-        cat = torch.cat([rpe, gathered[..., half:]], dim=-1)  # (B, N, K, n_out)
+        cat = torch.cat([rpe, gathered[..., half:].to(rpe.dtype)], dim=-1)  # (B, N, K, n_out)
         feats = self.pool1(cat)
         rpe = self.mlp_rpe2(rpe)
         cat = torch.cat([rpe, gather_neighbors(feats, neighbors)], dim=-1)
         feats = self.pool2(cat)
         out = self.mlp2(feats) + self.shortcut(features)
-        return F.leaky_relu(out, 0.01)
+        return _leaky_relu(out, 0.01)
 
 
 def upsample_nni(features, xyz, xyz_upsampled, knn_approach: str) -> torch.Tensor:
@@ -294,17 +366,16 @@ class RandLANet(nn.Module):
 
     def __init__(self, settings: RandLANetSettings):
         super().__init__()
-        if settings.compute_dtype != "float32":
-            raise NotImplementedError(
-                f'compute_dtype="{settings.compute_dtype}" is not ported yet '
-                "(ROADMAP A11)"
-            )
         # Full float32 matmuls on the card: TF32 keeps ~3 decimal digits,
         # which would move the neighbour geometry (the RPE projections) and
-        # break the float32 parity contract with the JAX package.
+        # break the float32 parity contract with the JAX package. bfloat16
+        # matmuls sum in float32, as the JAX package's dots do
+        # (preferred_element_type): cuBLAS may not reduce in bfloat16.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.settings = s = settings
+        dt = self.compute_dtype = _DTYPES[s.compute_dtype]
         dim = 3 + s.n_features
         self.fc_start = nn.Linear(dim, 8)
         self.bn_start = BatchNorm(8)
@@ -312,22 +383,23 @@ class RandLANet(nn.Module):
         for i, n_out in enumerate(s.layer_sizes):
             self.add_module(
                 f"encoder_{i}",
-                LocalFeatureAggregation(n_in, n_out, s.n_neighbors, s.knn),
+                LocalFeatureAggregation(n_in, n_out, s.n_neighbors, s.knn, dt),
             )
             n_in = 2 * n_out
-        self.mlp = SharedMLP(n_in, n_in, activation="relu")
+        self.mlp = SharedMLP(n_in, n_in, activation="relu", dtype=dt)
         n_outs = list(s.layer_sizes[::-1][1:])
         decoder_channels = [2 * n for n in n_outs] + [8]
         skips = [2 * n for n in s.layer_sizes[::-1]]
         for i, (n_out_ch, skip) in enumerate(zip(decoder_channels, skips)):
             self.add_module(
                 f"decoder_{i}",
-                SharedMLP(n_in + skip, n_out_ch, activation="relu", init_fan=n_out_ch),
+                SharedMLP(n_in + skip, n_out_ch, activation="relu", init_fan=n_out_ch,
+                          dtype=dt),
             )
             n_in = n_out_ch
-        self.fc_end_0 = SharedMLP(8, 64, activation="relu")
-        self.fc_end_1 = SharedMLP(64, 32, activation="relu")
-        self.fc_end_2 = SharedMLP(32, s.n_classes, bn=False)
+        self.fc_end_0 = SharedMLP(8, 64, activation="relu", dtype=dt)
+        self.fc_end_1 = SharedMLP(64, 32, activation="relu", dtype=dt)
+        self.fc_end_2 = SharedMLP(32, s.n_classes, bn=False, dtype=dt)
 
     def forward(self, inputs: torch.Tensor, permutation: torch.Tensor,
                 dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -337,9 +409,15 @@ class RandLANet(nn.Module):
         assert N >= s.min_n_points, (
             f"Input point cloud should have at least {s.min_n_points} points!"
         )
+        if self.training and self.compute_dtype != torch.float32:
+            raise NotImplementedError(
+                f'training in compute_dtype="{s.compute_dtype}" is not ported yet '
+                "(ROADMAP A12)"
+            )
         permutation = permutation.long()
         xyz = inputs[..., :3].float()
-        feats = F.leaky_relu(self.bn_start(self.fc_start(inputs)), 0.2)
+        # fc_start casts all of its input, xyz included, to the compute dtype
+        feats = _leaky_relu(self.bn_start(_dense(self.fc_start, inputs, self.compute_dtype)), 0.2)
 
         level_sizes = [N]
         for i in range(s.n_layers):

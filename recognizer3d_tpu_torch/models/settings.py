@@ -48,9 +48,9 @@ class RandLANetSettings:
     knn: str = "approximate"
     #: Upsampling approach for postprocessing: "none"|"nni"|"nna"|"idw"|"isdw"
     upsampling: str = "nni"
-    #: Activation dtype of the dense/attention chain. Only "float32" runs in
-    #: this package so far ("bfloat16" is ROADMAP A11); the field is kept so
-    #: archives of both packages share one config layout.
+    #: Activation dtype of the dense/attention chain: "float32" or
+    #: "bfloat16" (parameters, BatchNorm statistics and geometry stay
+    #: float32; training runs in float32 only so far, ROADMAP A12).
     compute_dtype: str = "float32"
 
     def __post_init__(self):

@@ -133,6 +133,11 @@ _SIGNATURES = {
     "r3d_lfa_pool2_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (rpe2, g2, consts, out, rows, K, h, stream)
     "r3d_lfa_pool2": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # the bfloat16 forms of the three LFA kernels: the same arguments, the
+    # rows (gathered, pooled, rpe2, g2, f_in, out) bfloat16
+    "r3d_lfa_round1_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "r3d_lfa_pool2_res_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "r3d_lfa_pool2_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (x, out, rows, ts, stages, stream)
     "r3d_roll_stages": [_P, _P, _I, _I, _I, _P],
 }

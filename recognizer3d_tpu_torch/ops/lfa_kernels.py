@@ -15,6 +15,13 @@ affines into the constants the same way (``lfa_pallas.py:329-359`` and
 ``:517-521``). The folded constants then feed either the plain PyTorch
 version (a CPU tensor) or the kernel (a CUDA tensor; no fallback).
 :func:`supports` is the JAX gate unchanged: levels with half width 8 or 32.
+
+Each kernel has a float32 and a bfloat16 form, chosen by the dtype of the
+row inputs, as the JAX wrappers choose theirs (``io = bfloat16`` at
+``lfa_pallas.py:322``, ``:445`` and ``:509``): under bfloat16 the rows
+move as bfloat16, the dots read bfloat16-rounded operands and sum in
+float32, and the RPE, BN affines and softmax stay float32. The launch
+counts keep the forms apart (``lfa_round1`` / ``lfa_round1_bf16``, …).
 """
 
 from typing import Dict, Tuple
@@ -40,15 +47,42 @@ def supports(k: int, half: int, dtype: str) -> bool:
     )
 
 
+def _check_supported(k: int, h: int, dtype: torch.dtype) -> None:
+    if not supports(k, h, str(dtype).removeprefix("torch.")):
+        raise ValueError(f"fused LFA does not take K={k}, half={h}, dtype {dtype}")
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32)
 
 
-def round1_constants(w9, b1, s1, o1, ws, wp, bp, sp, op, w2, b2, s2, o2) -> Dict:
+def _bf16r(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16, kept in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _round_mats(c: Dict, names, dtype: torch.dtype) -> Dict:
+    """Under bfloat16 I/O the matrices the kernels' dots read are folded in
+    float32 and then rounded to bfloat16 once, as the JAX wrappers cast
+    them (``.astype(io)``); offsets, scales and ``w9`` stay float32."""
+    if dtype == torch.bfloat16:
+        c.update({name: _bf16r(c[name]) for name in names})
+    return c
+
+
+def _softmax_k(scores: torch.Tensor) -> torch.Tensor:
+    """Softmax over K (dim -2) as the JAX kernels write it: e / sum(e)."""
+    e = torch.exp(scores - scores.amax(dim=-2, keepdim=True))
+    return e / e.sum(dim=-2, keepdim=True)
+
+
+def round1_constants(w9, b1, s1, o1, ws, wp, bp, sp, op, w2, b2, s2, o2,
+                     dtype: torch.dtype = torch.float32) -> Dict:
     """The BN-folded constants of round 1: o1 <- s1·b1 + o1, Wp <- Wp·sp,
-    op <- sp·bp + op, W2 <- W2·s2, o2 <- s2·b2 + o2."""
+    op <- sp·bp + op, W2 <- W2·s2, o2 <- s2·b2 + o2; for bfloat16 I/O
+    (``dtype``) Ws, Wp and W2 rounded to bfloat16."""
     s1, sp, s2 = _f32(s1), _f32(sp), _f32(s2)
-    return {
+    return _round_mats({
         "w9": _f32(w9),
         "s1": s1,
         "o1": s1 * _f32(b1) + _f32(o1),
@@ -57,23 +91,46 @@ def round1_constants(w9, b1, s1, o1, ws, wp, bp, sp, op, w2, b2, s2, o2) -> Dict
         "op": sp * _f32(bp) + _f32(op),
         "w2": _f32(w2) * s2[None, :],
         "o2": s2 * _f32(b2) + _f32(o2),
-    }
+    }, ("ws", "wp", "w2"), dtype)
 
 
 def lfa_round1_plain(gathered, d2, center, c: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the round-1 kernel on folded constants ``c``:
     gathered (B, N, K, 2h), d2 (B, N, K), center (B, N, h) ->
-    (pooled (B, N, h), rpe2 (B, N, K·h))."""
+    (pooled (B, N, h), rpe2 (B, N, K·h)), in ``gathered``'s dtype.
+
+    bfloat16 ``gathered`` takes the rounding points of the JAX kernel's
+    bfloat16 form: the RPE and its BN affine in float32 (the affine one
+    fused multiply-add), the concatenation rounded to bfloat16 for the
+    score and rpe2 dots, the softmax in float32, each product ``w·cat`` (of
+    the unrounded concatenation) rounded to bfloat16 before the pooled sum,
+    every dot a float32 sum of exact products, and the outputs rounded
+    once."""
     B, n, k, c2 = gathered.shape
     h = c2 // 2
+    bf16 = gathered.dtype == torch.bfloat16
+    g = gathered.float() if bf16 else gathered
     dist = torch.sqrt(torch.clamp(d2, min=0.0))
-    pre = (gathered[..., :h] + center[:, :, None, :]) + dist[..., None] * c["w9"]
-    rpe = torch.relu(pre * c["s1"] + c["o1"])
-    cat = torch.cat([rpe, gathered[..., h:]], dim=-1)
-    w = torch.softmax(cat @ c["ws"], dim=-2)
-    pooled = torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
-    rpe2 = torch.relu(rpe @ c["w2"] + c["o2"])
-    return pooled, rpe2.reshape(B, n, k * h)
+    pre = (g[..., :h] + center[:, :, None, :]) + dist[..., None] * c["w9"]
+    if bf16:
+        # one rounding, as the fused multiply-add the compilers make of
+        # ``pre * s1 + o1`` (XLA on the CPU, the CUDA kernel's fmaf): the
+        # float64 product is exact, and a sum rounded twice differs from
+        # one rounding only at a float32 midpoint
+        rpe = torch.relu((pre.double() * c["s1"] + c["o1"]).float())
+    else:
+        rpe = torch.relu(pre * c["s1"] + c["o1"])
+    cat = torch.cat([rpe, g[..., h:]], dim=-1)
+    if not bf16:
+        w = torch.softmax(cat @ c["ws"], dim=-2)
+        pooled = torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
+        rpe2 = torch.relu(rpe @ c["w2"] + c["o2"])
+        return pooled, rpe2.reshape(B, n, k * h)
+    catd = _bf16r(cat)
+    w = _softmax_k(catd @ c["ws"])
+    pooled = torch.relu(_bf16r(w * cat).sum(dim=-2) @ c["wp"] + c["op"])
+    rpe2 = torch.relu(catd[..., :h] @ c["w2"] + c["o2"])
+    return pooled.to(torch.bfloat16), rpe2.reshape(B, n, k * h).to(torch.bfloat16)
 
 
 def _pack(parts) -> torch.Tensor:
@@ -86,16 +143,17 @@ def lfa_round1(
     """First LFA round, fused (arguments as ``lfa_pallas.lfa_round1_fused``).
 
     :param gathered: (B, N, K, 2h) neighbour rows, [:h] support projection,
-        [h:] mlp1 features.
-    :param d2: (B, N, K) squared neighbour distances.
-    :param center_term: (B, N, h) per-point centre projection.
-    :return: (pooled1 (B, N, h), rpe2 (B, N, K·h)), float32.
+        [h:] mlp1 features; float32, or bfloat16 for the kernel's bfloat16
+        form.
+    :param d2: (B, N, K) squared neighbour distances, float32.
+    :param center_term: (B, N, h) per-point centre projection, float32.
+    :return: (pooled1 (B, N, h), rpe2 (B, N, K·h)), in ``gathered``'s dtype.
     """
     B, n, k, c2 = gathered.shape
     h = c2 // 2
-    if not supports(k, h, "float32"):
-        raise ValueError(f"fused LFA does not take K={k}, half={h}")
-    c = round1_constants(w9, b1, s1, o1, ws, wp, bp, sp, op, w2, b2, s2, o2)
+    dtype = gathered.dtype
+    _check_supported(k, h, dtype)
+    c = round1_constants(w9, b1, s1, o1, ws, wp, bp, sp, op, w2, b2, s2, o2, dtype=dtype)
     if gathered.device.type == "cpu":
         return lfa_round1_plain(gathered, d2, center_term, c)
     if gathered.device.type != "cuda":
@@ -103,27 +161,30 @@ def lfa_round1(
     dev = gathered.device
     consts = _pack([c["w9"], c["s1"], c["o1"], c["ws"], c["wp"], c["op"],
                     c["w2"], c["o2"]])
-    _build.check_cuda_tensor("gathered", gathered, torch.float32, (B, n, k, c2), dev, align=16)
+    _build.check_cuda_tensor("gathered", gathered, dtype, (B, n, k, c2), dev, align=16)
     _build.check_cuda_tensor("d2", d2, torch.float32, (B, n, k), dev)
     _build.check_cuda_tensor("center_term", center_term, torch.float32, (B, n, h), dev)
     _build.check_cuda_tensor("consts", consts, torch.float32, (5 * h + 7 * h * h,), dev)
-    pooled = torch.empty((B, n, h), dtype=torch.float32, device=dev)
-    rpe2 = torch.empty((B, n, k * h), dtype=torch.float32, device=dev)
+    pooled = torch.empty((B, n, h), dtype=dtype, device=dev)
+    rpe2 = torch.empty((B, n, k * h), dtype=dtype, device=dev)
     lib = _build.library()
-    _build.LAUNCHES["lfa_round1"] += 1
-    status = lib.r3d_lfa_round1(
+    name = "lfa_round1" if dtype == torch.float32 else "lfa_round1_bf16"
+    _build.LAUNCHES[name] += 1
+    status = getattr(lib, "r3d_" + name)(
         gathered.data_ptr(), d2.data_ptr(), center_term.data_ptr(),
         consts.data_ptr(), pooled.data_ptr(), rpe2.data_ptr(),
         B * n, k, h, _build.stream_ptr(dev),
     )
-    _build.check_status("r3d_lfa_round1", status)
+    _build.check_status("r3d_" + name, status)
     return pooled, rpe2
 
 
-def pool2_constants(ws, wp, bp, sp, op, wm=None, wsh=None, off=None) -> Dict:
+def pool2_constants(ws, wp, bp, sp, op, wm=None, wsh=None, off=None,
+                    dtype: torch.dtype = torch.float32) -> Dict:
     """The BN-folded constants of pool 2: Wp <- Wp·sp, op <- sp·bp + op;
     the residual's ``wm``, ``wsh`` and ``off`` arrive folded (as in the JAX
-    call site) and are left out for pool 2 alone."""
+    call site) and are left out for pool 2 alone. For bfloat16 I/O
+    (``dtype``) Ws, Wp, Wm and Wsh rounded to bfloat16."""
     sp = _f32(sp)
     c = {
         "ws": _f32(ws),
@@ -132,58 +193,94 @@ def pool2_constants(ws, wp, bp, sp, op, wm=None, wsh=None, off=None) -> Dict:
     }
     if wm is not None:
         c.update(wm=_f32(wm), wsh=_f32(wsh), off=_f32(off))
-    return c
+    return _round_mats(c, [name for name in ("ws", "wp", "wm", "wsh") if name in c], dtype)
+
+
+def _pool2_head(rpe2, g2, c: Dict, k: int) -> torch.Tensor:
+    """Attentive pool 2 and the pool MLP + BN + relu, in float32 (for
+    bfloat16 inputs with their kernel's rounding points)."""
+    B, n, kh = rpe2.shape
+    h = kh // k
+    cat = torch.cat([rpe2.reshape(B, n, k, h), g2.reshape(B, n, k, h)], dim=-1)
+    if rpe2.dtype != torch.bfloat16:
+        w = torch.softmax(cat @ c["ws"], dim=-2)
+        return torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
+    cat = cat.float()
+    w = _softmax_k(cat @ c["ws"])
+    return torch.relu(_bf16r(w * cat).sum(dim=-2) @ c["wp"] + c["op"])
 
 
 def attentive_pool2_plain(rpe2, g2, c: Dict, k: int) -> torch.Tensor:
     """Plain version of the pool-2 kernel on folded constants:
-    rpe2 (B, N, K·h), g2 (B, N, K, h) -> (B, N, 2h)."""
-    B, n, kh = rpe2.shape
-    h = kh // k
-    cat = torch.cat([rpe2.reshape(B, n, k, h), g2.reshape(B, n, k, h)], dim=-1)
-    w = torch.softmax(cat @ c["ws"], dim=-2)
-    return torch.relu((w * cat).sum(dim=-2) @ c["wp"] + c["op"])
+    rpe2 (B, N, K·h), g2 (B, N, K, h) -> (B, N, 2h), in ``rpe2``'s dtype
+    (bfloat16: the output rounded once)."""
+    return _pool2_head(rpe2, g2, c, k).to(rpe2.dtype)
 
 
 def attentive_pool2_residual_plain(rpe2, g2, f_in, c: Dict, k: int) -> torch.Tensor:
     """Plain version of the pool-2 + residual kernel on folded constants:
-    rpe2 (B, N, K·h), g2 (B, N, K, h), f_in (B, N, F) -> (B, N, 4h)."""
-    pooled = attentive_pool2_plain(rpe2, g2, c, k)
+    rpe2 (B, N, K·h), g2 (B, N, K, h), f_in (B, N, F) -> (B, N, 4h), in
+    ``rpe2``'s dtype (bfloat16: the pooled rows rounded before the mlp2
+    dot, ``f_in`` bfloat16 in the shortcut dot, the output rounded once)."""
+    pooled = _pool2_head(rpe2, g2, c, k)
+    if rpe2.dtype == torch.bfloat16:
+        pooled, f_in = _bf16r(pooled), f_in.float()
     res = (pooled @ c["wm"] + f_in @ c["wsh"]) + c["off"]
-    return F.leaky_relu(res, 0.01)
+    return F.leaky_relu(res, 0.01).to(rpe2.dtype)
+
+
+def _pool2_launch(name, rpe2, g2, f_in, consts_parts, out_width, k):
+    """Launch ``r3d_<name>`` (pool 2 alone without ``f_in``) on CUDA
+    tensors, after checking them; returns the output rows."""
+    B, n, kh = rpe2.shape
+    h = kh // k
+    dtype, dev = rpe2.dtype, rpe2.device
+    consts = _pack(consts_parts)
+    _build.check_cuda_tensor("rpe2", rpe2, dtype, (B, n, kh), dev, align=16)
+    _build.check_cuda_tensor("g2", g2, dtype, (B, n, k, h), dev, align=16)
+    nf = 0
+    if f_in is not None:
+        nf = f_in.shape[-1]
+        if dtype == torch.bfloat16 and nf % 2:
+            raise ValueError(f"f_in: {nf} bfloat16 features a row, expected an even count")
+        # rows copied 4 bytes at a time
+        _build.check_cuda_tensor("f_in", f_in, dtype, (B, n, nf), dev, align=4)
+    expected = 8 * h * h + 2 * h + (8 * h * h + 4 * h + 4 * h * nf if f_in is not None else 0)
+    _build.check_cuda_tensor("consts", consts, torch.float32, (expected,), dev)
+    out = torch.empty((B, n, out_width), dtype=dtype, device=dev)
+    lib = _build.library()
+    if dtype == torch.bfloat16:
+        name += "_bf16"
+    _build.LAUNCHES[name] += 1
+    fn = getattr(lib, "r3d_" + name)
+    stream = _build.stream_ptr(dev)
+    if f_in is None:
+        status = fn(rpe2.data_ptr(), g2.data_ptr(), consts.data_ptr(), out.data_ptr(),
+                    B * n, k, h, stream)
+    else:
+        status = fn(rpe2.data_ptr(), g2.data_ptr(), f_in.data_ptr(), consts.data_ptr(),
+                    out.data_ptr(), B * n, k, h, nf, stream)
+    _build.check_status("r3d_" + name, status)
+    return out
 
 
 def attentive_pool2(rpe2, g2, ws, wp, bp, sp, op, k: int) -> torch.Tensor:
     """Second attentive pooling without the residual, fused (arguments as
     ``lfa_pallas.attentive_pool2_fused``): returns the pool MLP + BN + relu
-    output (B, N, 2h).
+    output (B, N, 2h), in ``rpe2``'s dtype (float32 or bfloat16).
 
     :param rpe2: (B, N, K·h) from :func:`lfa_round1`.
     :param g2: (B, N, K, h) gathered pooled rows.
     """
     B, n, kh = rpe2.shape
     h = kh // k
-    if not supports(k, h, "float32"):
-        raise ValueError(f"fused LFA does not take K={k}, half={h}")
-    c = pool2_constants(ws, wp, bp, sp, op)
+    _check_supported(k, h, rpe2.dtype)
+    c = pool2_constants(ws, wp, bp, sp, op, dtype=rpe2.dtype)
     if rpe2.device.type == "cpu":
         return attentive_pool2_plain(rpe2, g2, c, k)
     if rpe2.device.type != "cuda":
         raise ValueError(f"unsupported device {rpe2.device}")
-    dev = rpe2.device
-    consts = _pack([c["ws"], c["wp"], c["op"]])
-    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev, align=16)
-    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev, align=16)
-    _build.check_cuda_tensor("consts", consts, torch.float32, (8 * h * h + 2 * h,), dev)
-    out = torch.empty((B, n, 2 * h), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    _build.LAUNCHES["lfa_pool2"] += 1
-    status = lib.r3d_lfa_pool2(
-        rpe2.data_ptr(), g2.data_ptr(), consts.data_ptr(), out.data_ptr(),
-        B * n, k, h, _build.stream_ptr(dev),
-    )
-    _build.check_status("r3d_lfa_pool2", status)
-    return out
+    return _pool2_launch("lfa_pool2", rpe2, g2, None, [c["ws"], c["wp"], c["op"]], 2 * h, k)
 
 
 def attentive_pool2_residual(
@@ -191,7 +288,8 @@ def attentive_pool2_residual(
 ) -> torch.Tensor:
     """Second attentive pooling with the block residual, fused (arguments
     as ``lfa_pallas.attentive_pool2_residual_fused``): returns
-    ``leaky_relu(mlp2(pool2(...)) + shortcut(f_in), 0.01)`` (B, N, 4h).
+    ``leaky_relu(mlp2(pool2(...)) + shortcut(f_in), 0.01)`` (B, N, 4h), in
+    ``rpe2``'s dtype (float32 or bfloat16; ``g2`` and ``f_in`` alike).
 
     :param rpe2: (B, N, K·h) from :func:`lfa_round1`.
     :param g2: (B, N, K, h) gathered pooled rows.
@@ -201,28 +299,11 @@ def attentive_pool2_residual(
     """
     B, n, kh = rpe2.shape
     h = kh // k
-    nf = f_in.shape[-1]
-    if not supports(k, h, "float32"):
-        raise ValueError(f"fused LFA does not take K={k}, half={h}")
-    c = pool2_constants(ws, wp, bp, sp, op, wm, wsh, off)
+    _check_supported(k, h, rpe2.dtype)
+    c = pool2_constants(ws, wp, bp, sp, op, wm, wsh, off, dtype=rpe2.dtype)
     if rpe2.device.type == "cpu":
         return attentive_pool2_residual_plain(rpe2, g2, f_in, c, k)
     if rpe2.device.type != "cuda":
         raise ValueError(f"unsupported device {rpe2.device}")
-    dev = rpe2.device
-    consts = _pack([c["ws"], c["wp"], c["op"], c["wm"], c["wsh"], c["off"]])
-    _build.check_cuda_tensor("rpe2", rpe2, torch.float32, (B, n, kh), dev, align=16)
-    _build.check_cuda_tensor("g2", g2, torch.float32, (B, n, k, h), dev, align=16)
-    _build.check_cuda_tensor("f_in", f_in, torch.float32, (B, n, nf), dev)
-    _build.check_cuda_tensor(
-        "consts", consts, torch.float32, (16 * h * h + 6 * h + 4 * h * nf,), dev
-    )
-    out = torch.empty((B, n, 4 * h), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    _build.LAUNCHES["lfa_pool2_res"] += 1
-    status = lib.r3d_lfa_pool2_res(
-        rpe2.data_ptr(), g2.data_ptr(), f_in.data_ptr(), consts.data_ptr(),
-        out.data_ptr(), B * n, k, h, nf, _build.stream_ptr(dev),
-    )
-    _build.check_status("r3d_lfa_pool2_res", status)
-    return out
+    parts = [c["ws"], c["wp"], c["op"], c["wm"], c["wsh"], c["off"]]
+    return _pool2_launch("lfa_pool2_res", rpe2, g2, f_in, parts, 4 * h, k)

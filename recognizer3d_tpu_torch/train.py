@@ -13,7 +13,8 @@ spawned process that reports its progress as int percentages over a queue
 taken relative to the working directory.
 
 Not ported yet: the TensorBoard server the JAX CLI starts (it waits for
-the UI, ROADMAP A10) and the bfloat16 compute mode (A11).
+the UI, ROADMAP A10) and ``--compute-dtype bfloat16`` (training in bfloat16,
+ROADMAP A12).
 """
 
 import queue as queue_mod

@@ -29,7 +29,8 @@ batch there, with no host preprocessing. The JAX package runs that epoch
 as one ``lax.scan``; here it is a loop of steps.
 
 Not ported: data-parallel training (ROADMAP A9), checkpoints and resume
-(queued behind this slice), the bfloat16 compute mode (A11).
+(queued behind this slice), training in the bfloat16 compute mode (A12);
+:meth:`Trainer.evaluate` runs in it, its forward being the served one.
 """
 
 import logging
@@ -110,7 +111,8 @@ def _check_supported(settings: TrainingSettings, model) -> None:
         )
     if model.settings.compute_dtype != "float32":
         raise NotImplementedError(
-            f'compute_dtype="{model.settings.compute_dtype}" is not ported yet (ROADMAP A11)'
+            f'training in compute_dtype="{model.settings.compute_dtype}" is not ported yet '
+            "(ROADMAP A12); evaluation and serving run in it"
         )
 
 

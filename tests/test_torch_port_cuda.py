@@ -9,7 +9,9 @@ route's support layouts (staged in shared memory, read from global memory)
 and its streaming kernel for the largest supports, the round-1 kernel on
 ragged row tiles at every neighbour count it takes, the window kernel on
 Morton-sorted clouds at every window of the recall guard's ladder, the
-pool-2 kernels on ragged row tiles and other neighbour counts, the 1-NN
+pool-2 kernels on ragged row tiles and other neighbour counts, the bfloat16
+forms of the three LFA kernels on ragged row tiles, batches and other
+neighbour counts (and their refusals of mixed dtypes), the 1-NN
 kernel on sorted, unsorted, tied, duplicated, flat and far inputs at
 supports of 1 to 65,536 points (ordered in shared memory or by its own
 launch), the bitonic stage kernel at other shapes and stage counts, one small live depth frame
@@ -327,6 +329,91 @@ def test_pool2_kernels_on_ragged_tiles(dev, n, h, f, k):
     ref_p = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*head), k)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
+
+
+def _assert_bf16_close(got, ref):
+    """The bfloat16 forms against their plain versions (the rule of
+    ``tests/test_torch_port_bf16.py``): at least 99.9% of the elements
+    within one bfloat16 ulp, |Δ| ≤ 2⁻⁷·|ref| + 1e-6, every element within
+    one ulp of itself plus one ulp of its row's largest magnitude, and at
+    least 99% bit-identical."""
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    d, r = (got.float() - ref.float()).abs(), ref.float().abs()
+    assert bool((d <= 2.0**-7 * (r + r.amax(-1, keepdim=True)) + 1e-6).all())
+    assert (d <= 2.0**-7 * r + 1e-6).float().mean().item() >= 0.999
+    assert (d == 0).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize(
+    "b,n,h,k,f",
+    [(b, n, h, k, f) for b, n in ((1, 1), (1, 77), (3, 301), (1, 16387))
+     for h, k, f in ((8, 32, 8), (32, 32, 32))]
+    + [(1, 77, 8, 8, 8), (2, 300, 8, 16, 6), (1, 77, 8, 64, 8), (1, 41, 8, 128, 8),
+       (1, 40, 32, 8, 8), (3, 77, 32, 16, 32)],
+)
+def test_bf16_lfa_kernels_match_plain(dev, b, n, h, k, f):
+    """The bfloat16 forms of B2, B3 and B5 against their plain versions:
+    row counts that are no multiple of the row tile, batches, h = 8 and 32,
+    K of one softmax chunk (8, 16, 32) and of several (64, 128, where the
+    scores are computed again against the final maximum), and an F (6)
+    that is no multiple of 8. Each form is launched once, under its own
+    launch count."""
+    rng = np.random.RandomState(b + n + h + k + f)
+    c2 = 2 * h
+    r1 = _round1_args(rng, dev, b, n, h, k)
+    r1[0] = r1[0].to(torch.bfloat16)
+    head = [
+        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
+        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
+    ]
+    g2 = _rand(rng, dev, b, n, k, h).abs().to(torch.bfloat16)
+    f_in = _rand(rng, dev, b, n, f, scale=1.0).to(torch.bfloat16)
+    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
+    _build.reset_launches()
+    pooled, rpe2 = lfa_kernels.lfa_round1(*r1)
+    out = lfa_kernels.attentive_pool2_residual(rpe2, g2, *head, f_in, *tail, k=k)
+    out2 = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"lfa_round1_bf16": 1, "lfa_pool2_res_bf16": 1, "lfa_pool2_bf16": 1}
+    bf16 = torch.bfloat16
+    ref_p, ref_r = lfa_kernels.lfa_round1_plain(
+        *r1[:3], lfa_kernels.round1_constants(*r1[3:], dtype=bf16)
+    )
+    _assert_bf16_close(pooled, ref_p)
+    _assert_bf16_close(rpe2.reshape(b, n, k, h), ref_r.reshape(b, n, k, h))
+    ref = lfa_kernels.attentive_pool2_residual_plain(
+        rpe2, g2, f_in, lfa_kernels.pool2_constants(*head, *tail, dtype=bf16), k
+    )
+    _assert_bf16_close(out, ref)
+    ref2 = lfa_kernels.attentive_pool2_plain(
+        rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=bf16), k
+    )
+    _assert_bf16_close(out2, ref2)
+
+
+def test_bf16_lfa_wrappers_refuse_mixed_dtypes(dev):
+    """A bfloat16 form takes its rows all bfloat16 (d2 and the centre term
+    float32), and an even F; anything else raises and launches nothing."""
+    rng = np.random.RandomState(9)
+    h, k, n = 8, 32, 40
+    r1 = _round1_args(rng, dev, 1, n, h, k)
+    r1[0] = r1[0].to(torch.bfloat16)
+    head = [_rand(rng, dev, 2 * h, 2 * h), _rand(rng, dev, 2 * h, 2 * h),
+            _rand(rng, dev, 2 * h), _rand(rng, dev, 2 * h, low=0.5), _rand(rng, dev, 2 * h)]
+    rpe2 = _rand(rng, dev, 1, n, k * h).to(torch.bfloat16)
+    g2 = _rand(rng, dev, 1, n, k, h)
+    tail3 = [_rand(rng, dev, 2 * h, 4 * h), _rand(rng, dev, 3, 4 * h), _rand(rng, dev, 4 * h)]
+    _build.reset_launches()
+    with pytest.raises(TypeError, match="d2: dtype"):
+        lfa_kernels.lfa_round1(r1[0], r1[1].to(torch.bfloat16), *r1[2:])
+    with pytest.raises(TypeError, match="g2: dtype"):
+        lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+    with pytest.raises(ValueError, match="even"):
+        lfa_kernels.attentive_pool2_residual(
+            rpe2, g2.to(torch.bfloat16), *head,
+            _rand(rng, dev, 1, n, 3).to(torch.bfloat16), *tail3, k=k,
+        )
+    assert not _build.LAUNCHES
 
 
 def _misaligned(t):
