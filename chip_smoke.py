@@ -10,8 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``build/torch_kernels/`` and print the build seconds and the compiler's
    registers, shared memory and spills for the culled exact KNN kernel
    (B1), the window kernel (B6), the 1-NN kernel and its ordering kernel
-   (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5)
-   and the bitonic stage kernel (B7);
+   (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5),
+   the bfloat16 forms of B2, B3 and B5 and the bitonic stage kernel (B7),
+   and the count of HMMA (tensor-core) instructions in the SASS of each
+   compiled bfloat16 LFA kernel, which fails the run where it is 0;
 3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
    frames of 60,000 points with every launch count set to 0 just before
    each frame; each kernel must have been launched its expected number of
@@ -31,12 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``benchmarks/validate_bf16.py``), saved under ``build/``; ``Predictor`` of
    each archive answers the frames of 3 and 4, launch counts checked per
    frame (the LFA kernels' bfloat16 forms 2 and 2, their float32 forms 0,
-   the KNN kernels as in float32), frame p50 printed. On one frame the card
-   is held against the CPU port in bfloat16 (confidences within 2e-2,
-   masks equal where the CPU's class-1 confidence lies more than 0.05 from
-   the threshold), and on every frame the bfloat16 mask's foreground IoU
-   against the float32 mask (the same frame and permutation, float16
-   upload) is printed and held to ``BF16_MASK_IOU_FLOOR``;
+   the KNN kernels as in float32), frame p50 printed. On every frame the
+   card is held against the CPU port in bfloat16 by
+   ``benchmarks/bf16_card_vs_cpu.logits_agree`` (the largest |Δ logit| in
+   bfloat16 ulps of the frame's largest |logit| and the mean |Δ| relative
+   to the mean |logit|), which the card's float32 model, the control, must
+   miss on every frame; and on every frame the bfloat16
+   mask's foreground IoU against the float32 mask (the same frame and
+   permutation, float16 upload) is printed and held to
+   ``BF16_MASK_IOU_FLOOR``;
 5. the live depth path: ``LivePredictor(Model.load(pretrained/mock_fingertip))``
    at the L515's 1024×768 intrinsics and 16,384 display points answers
    z16 depth frames made from 60,000-point mock frames, launch counts
@@ -195,8 +200,10 @@ FP32_GRAD_MEDIAN_LIMIT = 5e-4
 # kernels whose registers, shared memory and spills the build report prints
 PTXAS_KERNELS = ("knn_cull_kernel", "knn_window_kernel", "argmin_cull_kernel",
                  "argmin_order_kernel", "lfa_round1_tile_kernel", "lfa_pool2_tile_kernel",
-                 "lfa_round1_bf16_tile_kernel", "lfa_pool2_bf16_tile_kernel",
-                 "roll_stages_kernel")
+                 "lfa_round1_mma_kernel", "lfa_pool2_mma_kernel", "roll_stages_kernel")
+# the bfloat16 LFA kernels, whose dots run on the tensor cores: every compiled
+# instance must hold HMMA instructions in its SASS
+MMA_KERNELS = ("lfa_round1_mma_kernel", "lfa_pool2_mma_kernel")
 
 # kernel -> (source, the TPU kernel it replaces), in the order of the line
 KERNELS = {
@@ -214,8 +221,8 @@ KERNELS = {
                         "recognizer3d_tpu/ops/knn.py:348"),
     "roll_stages": ("recognizer3d_tpu_torch/csrc/bitonic.cu",
                     "benchmarks/bench_roll_stages.py:56"),
-    # the bfloat16 forms of B2, B3, B5 (the same kernel bodies under
-    # io = bfloat16: lfa_pallas.py:322, :509, :445)
+    # the bfloat16 forms of B2, B3, B5 (the TPU kernels under io = bfloat16:
+    # lfa_pallas.py:322, :509, :445), on the tensor cores
     "lfa_round1_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
                         "recognizer3d_tpu/ops/lfa_pallas.py:138"),
     "lfa_pool2_res_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
@@ -454,12 +461,12 @@ def _drive(torch, build, predictor, frames, per_frame, label):
     return latencies, masks, totals
 
 
-def _card_vs_cpu(Model, archive, frame, label, conf_tol=1e-4, band=1e-4):
+def _card_vs_cpu(Model, archive, frame, label):
     """One frame's confidences on the card against the same Model.predict
-    on the CPU: within ``conf_tol``, masks equal where the CPU's class-1
-    confidence lies more than ``band`` from the threshold 0.5 (float32:
-    1e-4 and 1e-4; bfloat16, whose roundings flip with the order of a sum:
-    2e-2 and 0.05). Returns the card's model."""
+    on the CPU (float32): within 1e-4, masks equal where the CPU's class-1
+    confidence lies more than 1e-4 from the threshold 0.5. Returns the
+    card's model."""
+    conf_tol = band = 1e-4
     model = Model.load(archive, device="cuda", transfer_dtype="float32")
     cpu_model = Model.load(archive, device="cpu", transfer_dtype="float32")
     np.random.seed(7)
@@ -479,6 +486,35 @@ def _card_vs_cpu(Model, archive, frame, label, conf_tol=1e-4, band=1e-4):
     print(f"{label}: card vs CPU confidences: max abs err {conf_err:.3g}, mean "
           f"{float(diff.mean()):.3g}, masks equal ({int(near.sum())} points within {band} of "
           f"the threshold)", flush=True)
+    return model
+
+
+def _bf16_card_vs_cpu(Model, archive32, archive, frames, label):
+    """Every frame of a bfloat16 path on the card against the same
+    Model.predict on the CPU (frame i after ``np.random.seed(i)``), judged on
+    the logits by ``bf16_card_vs_cpu.logits_agree``; the control, the card's
+    float32 model of the same settings against the CPU's bfloat16 model,
+    must fail that rule on every frame. Returns the card's bfloat16 model."""
+    from recognizer3d_tpu_torch.benchmarks.bf16_card_vs_cpu import (
+        describe, logits_agree, predict_logits)
+
+    model = Model.load(archive, device="cuda", transfer_dtype="float32")
+    cpu_model = Model.load(archive, device="cpu", transfer_dtype="float32")
+    model32 = Model.load(archive32, device="cuda", transfer_dtype="float32")
+    for i, frame in enumerate(frames):
+        conf, logits = predict_logits(model, frame, i)
+        _, logits_cpu = predict_logits(cpu_model, frame, i)
+        _, logits32 = predict_logits(model32, frame, i)
+        if conf.shape != (2, frame.shape[0]) or not np.isfinite(conf).all():
+            raise RuntimeError(f"{label}: confidences of shape {conf.shape}, or not finite")
+        ok, reading = logits_agree(logits, logits_cpu)
+        control_ok, control = logits_agree(logits32, logits_cpu)
+        print(f"{label}: frame {i} card vs CPU: {describe(reading)}; control (the card's "
+              f"float32 model): {describe(control)}", flush=True)
+        if not ok or control_ok:
+            raise RuntimeError(f"{label}: frame {i}: the card's bfloat16 logits "
+                               f"{'meet' if ok else 'miss'} the rule against the CPU's, the "
+                               f"float32 control {'meets' if control_ok else 'misses'} it")
     return model
 
 
@@ -674,7 +710,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             err, note = _lfa_error(torch, [pooled, rpe2.reshape(b, rows, k, h)],
                                    [ref_p, ref_r.reshape(b, rows, k, h)], f"{label} {name} h={h}")
             ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
-                            "lfa_round1_bf16_tile_kernel" if dt == torch.bfloat16
+                            "lfa_round1_mma_kernel" if dt == torch.bfloat16
                             else "lfa_round1_tile_kernel")
             plain = _device_ms(
                 torch,
@@ -695,7 +731,7 @@ def _check_kernels(torch, calls, results, label, plain_reps):
     # form
     for name in ("lfa_pool2_res", "lfa_pool2_res_bf16"):
         bf16 = name.endswith("_bf16")
-        kernel = "lfa_pool2_bf16_tile_kernel" if bf16 else "lfa_pool2_tile_kernel"
+        kernel = "lfa_pool2_mma_kernel" if bf16 else "lfa_pool2_tile_kernel"
         for args, kwargs in calls.get(name, []):
             rpe2, g2 = args[:2]
             f_in = args[7]
@@ -1216,6 +1252,12 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.3f} s -> {lib_path}", flush=True)
     for line in _build.ptxas_report(PTXAS_KERNELS):
         print(f"ptxas: {line}", flush=True)
+    hmma = _build.sass_counts(MMA_KERNELS, "HMMA")
+    for kernel, count in hmma.items():
+        print(f"sass: {kernel}: {count} HMMA", flush=True)
+    if not hmma or not all(hmma.values()) or not all(
+            any(n in k for k in hmma) for n in MMA_KERNELS):
+        raise RuntimeError(f"bfloat16 LFA kernels without HMMA in their SASS: {hmma}")
 
     make_frame = _make_frame()
     frames = [
@@ -1281,7 +1323,7 @@ def main() -> None:
         for name, count in launches_bf.items():
             launches[name] = launches.get(name, 0) + count
         del predictor_bf
-        models_bf16[label] = _card_vs_cpu(Model, archive, path_frames[1], label, 2e-2, 0.05)
+        models_bf16[label] = _bf16_card_vs_cpu(Model, archive32, archive, path_frames, label)
         _bf16_mask_iou(Model, archive32, archive, path_frames, label)
 
     # --- 5. the live depth path -----------------------------------------------

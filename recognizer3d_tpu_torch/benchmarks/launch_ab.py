@@ -1,6 +1,7 @@
-"""Time B1, B2, B4 and B7 under launch policies other than the built ones.
+"""Time B1, B2, B4, B7 and the bfloat16 LFA kernels under launch policies
+other than the built ones.
 
-    python -m recognizer3d_tpu_torch.benchmarks.launch_ab
+    python -m recognizer3d_tpu_torch.benchmarks.launch_ab [B1 B2 B4 B7 bf16]
 
 Needs a card. Each variant is a copy of ``csrc/`` with one line of a
 launcher or one constant changed, built under
@@ -21,20 +22,36 @@ launcher or one constant changed, built under
   threads (as built: 512);
 * ``roll_e32``, ``roll_e64``: the bitonic stage kernel (B7) with 32, or 64,
   elements a thread at every S (as built: 32 up to S = 15, 64 beyond);
-* ``roll_threads64``: B7 in blocks of 64 threads (as built: 128).
+* ``roll_threads64``: B7 in blocks of 64 threads (as built: 128);
+* ``bf16_warps8``, ``bf16_warps4``: the bfloat16 round-1 kernel (B2-bf16)
+  and pool 2 alone (B5-bf16) in blocks of 8 warps at h = 8, or of 4 at
+  h = 32 (as built: 4 and 8); each warp takes one row at a time, so these
+  set the rows a block has in flight and how often a block stages the
+  constant matrices;
+* ``bf16_tile8``, ``bf16_tile16``: pool 2 with the residual (B3-bf16) at
+  h = 32 in tiles of 8 rows, 8 warps a block, or at h = 8 in tiles of 16,
+  16 warps (as built: 16 at h = 32 and 8 at h = 8, a warp a row);
+* ``bf16_wait_all``: the three bfloat16 kernels with each warp waiting for
+  its next row's copies as well as the current one's before it computes,
+  so that a warp's staging no longer overlaps its own work (as built: the
+  next row is copied while the current one computes).
 
 B1 runs the k = 32 self-KNN of Morton-sorted mock levels at the served
 paths' sizes, the recall guard's 256-query re-search of the 65,536-point
 level and that level's exact self-KNN; B2 runs the served levels' shapes
 (K = 32); B4 the served paths' upsamples (``benchmarks/argmin_cull.
 served_cases``), timed with the ordering launch where there is one; B7 the
-TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45.
-Every variant is held to
-the plain version first (B1, B4 and B7 bit for bit, B2 within 1e-5). Each line prints, per variant, two device times a call of
+TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45;
+B2-bf16, B3-bf16 and B5-bf16 the bfloat16 paths' shapes (K = 32; h = 8 at
+2,500 and 65,536 rows, h = 32 at 625 and 16,384; F = 8 and 32). Every variant is held
+to the plain version first (B1, B4 and B7 bit for bit, B2 within 1e-5, the
+bfloat16 kernels within one bfloat16 ulp of the output plus one of its
+row's largest magnitude). Each line prints, per variant, two device times a call of
 the kernel (torch.profiler) taken in the order built, variants, variants
 reversed, built, so that a drift of the card's clock shows.
 """
 
+import argparse
 import contextlib
 import shutil
 import subprocess
@@ -68,6 +85,25 @@ VARIANTS = {
     "roll_e64": ("bitonic.cu", "return stages <= ROLL_E32_MAX_STAGES ? 32 : 64;", "return 64;"),
     "roll_threads64": ("bitonic.cu", "constexpr int ROLL_THREADS = 128;",
                        "constexpr int ROLL_THREADS = 64;"),
+    "bf16_warps8": ("lfa.cu", "constexpr int BF_WARPS_H8 = 4;", "constexpr int BF_WARPS_H8 = 8;"),
+    "bf16_warps4": ("lfa.cu", "constexpr int BF_WARPS_H32 = 8;",
+                    "constexpr int BF_WARPS_H32 = 4;"),
+    "bf16_tile8": ("lfa.cu", "constexpr int BF_TILE_ROWS_H32 = 16;",
+                   "constexpr int BF_TILE_ROWS_H32 = 8;"),
+    "bf16_tile16": ("lfa.cu", "constexpr int BF_TILE_ROWS_H8 = 8;",
+                    "constexpr int BF_TILE_ROWS_H8 = 16;"),
+    "bf16_wait_all": ("lfa.cu", 'asm volatile("cp.async.wait_group 1;\\n" ::: "memory");',
+                      'asm volatile("cp.async.wait_group 0;\\n" ::: "memory");'),
+}
+
+
+#: the variants each section times beside the built kernels
+SECTIONS = {
+    "B1": ("group1", "group2"),
+    "B2": ("r1_full_tile",),
+    "B4": ("argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256", "nn_threads1024"),
+    "B7": ("roll_e32", "roll_e64", "roll_threads64"),
+    "bf16": ("bf16_warps8", "bf16_warps4", "bf16_tile8", "bf16_tile16", "bf16_wait_all"),
 }
 
 
@@ -132,18 +168,46 @@ def _knn_cases(dev):
 def _round1_cases(dev):
     """(label, lfa_round1's arguments) at the served levels' shapes."""
     rng = np.random.RandomState(0)
+    return [(f"round1 N={rows} h={h}", _round1_cases_args(rng, dev, rows, h, 32))
+            for rows, h in ((2500, 8), (625, 32), (65_536, 8), (16_384, 32))]
+
+
+def _bf16_cases(dev):
+    """(label, lfa_round1's arguments, attentive_pool2_residual's) in
+    bfloat16 at the bfloat16 paths' shapes, pool 2 on round 1's rpe2."""
+    rng = np.random.RandomState(1)
     cases = []
-    for rows, h in ((2500, 8), (625, 32), (65_536, 8), (16_384, 32)):
+    for rows, h, f in ((2500, 8, 8), (625, 32, 32), (65_536, 8, 8), (16_384, 32, 32)):
         k, c2 = 32, 2 * h
-        shapes = [(1, rows, k, c2), (1, rows, k), (1, rows, h), (h,), (h,), (h,), (h,),
-                  (c2, c2), (c2, h), (h,), (h,), (h,), (h, h), (h,), (h,), (h,)]
-        args = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev)
-                for s in shapes]
-        args[1] = args[1].abs() * 0.01  # squared distances
-        for i in (5, 10, 14):  # BatchNorm scales
-            args[i] = args[i].abs() + 0.5
-        cases.append((f"round1 N={rows} h={h}", args))
+        r1 = _round1_cases_args(rng, dev, rows, h, k)
+        r1[0] = r1[0].to(torch.bfloat16)
+        _, rpe2 = lfa_kernels.lfa_round1(*r1)
+        head = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+                for s in ((c2, c2), (c2, c2), (c2,), (c2,), (c2,))]
+        head[3] = head[3].abs() + 0.5  # BatchNorm scale
+        g2 = torch.tensor(np.abs(rng.randn(1, rows, k, h)) * 0.3, device=dev).to(torch.bfloat16)
+        f_in = torch.tensor(rng.randn(1, rows, f), device=dev).to(torch.bfloat16)
+        tail = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev)
+                for s in ((c2, 4 * h), (f, 4 * h), (4 * h,))]
+        cases.append((f"N={rows} h={h} F={f}", r1, [rpe2, g2, *head, f_in, *tail]))
     return cases
+
+
+def _round1_cases_args(rng, dev, rows, h, k):
+    c2 = 2 * h
+    shapes = [(1, rows, k, c2), (1, rows, k), (1, rows, h), (h,), (h,), (h,), (h,),
+              (c2, c2), (c2, h), (h,), (h,), (h,), (h, h), (h,), (h,), (h,)]
+    args = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev) for s in shapes]
+    args[1] = args[1].abs() * 0.01  # squared distances
+    for i in (5, 10, 14):  # BatchNorm scales
+        args[i] = args[i].abs() + 0.5
+    return args
+
+
+def _near_bf16(out, ref) -> bool:
+    """Within one bfloat16 ulp of itself plus one of its row's largest."""
+    d, r = (out.float() - ref.float()).abs(), ref.float().abs()
+    return bool((d <= 2.0**-7 * (r + r.amax(-1, keepdim=True)) + 1e-6).all())
 
 
 def _line(label, variants, timed, reps):
@@ -156,87 +220,139 @@ def _line(label, variants, timed, reps):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("sections", nargs="*", choices=list(SECTIONS), default=list(SECTIONS),
+                        help="the kernels to time (default: all)")
+    opts = parser.parse_args()
     dev = torch.device("cuda")
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"gpu: {gpu}", flush=True)
+    names = [v for sec in opts.sections for v in SECTIONS[sec]]
     libs = {"built": _build.library()}
     with ThreadPoolExecutor(4) as pool:
-        libs.update(zip(VARIANTS, pool.map(_build_variant, VARIANTS)))
+        libs.update(zip(names, pool.map(_build_variant, names)))
 
-    k = 32
-    knn_variants = ("built", "group1", "group2")
-    for label, s, q in _knn_cases(dev):
-        ref = knn_kernels.knn_topk_plain(s, q, k)
-        for name in knn_variants:
-            with _using(libs[name]):
-                idx, d2 = knn_kernels.knn_topk(s, q, k)
-            if not (torch.equal(idx, ref[0]) and torch.equal(d2, ref[1])):
-                raise RuntimeError(f"B1 {label} on {name}: not equal to the plain version")
-        del ref
+    if "B1" in opts.sections:
+        k = 32
+        knn_variants = ("built", *SECTIONS["B1"])
+        for label, s, q in _knn_cases(dev):
+            ref = knn_kernels.knn_topk_plain(s, q, k)
+            for name in knn_variants:
+                with _using(libs[name]):
+                    idx, d2 = knn_kernels.knn_topk(s, q, k)
+                if not (torch.equal(idx, ref[0]) and torch.equal(d2, ref[1])):
+                    raise RuntimeError(f"B1 {label} on {name}: not equal to the plain version")
+            del ref
 
-        def timed(name, reps, s=s, q=q):
-            with _using(libs[name]):
-                return _ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_cull_kernel")
+            def timed(name, reps, s=s, q=q):
+                with _using(libs[name]):
+                    return _ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_cull_kernel")
 
-        _line(f"B1 {label} k={k}", knn_variants, timed, 5 if s.shape[1] > 10_000 else 50)
+            _line(f"B1 {label} k={k}", knn_variants, timed, 5 if s.shape[1] > 10_000 else 50)
 
-    r1_variants = ("built", "r1_full_tile")
-    for label, args in _round1_cases(dev):
-        ref_p, ref_r = lfa_kernels.lfa_round1_plain(
-            *args[:3], lfa_kernels.round1_constants(*args[3:]))
-        for name in r1_variants:
-            with _using(libs[name]):
-                pooled, rpe2 = lfa_kernels.lfa_round1(*args)
-            err = max((pooled - ref_p).abs().max().item(), (rpe2 - ref_r).abs().max().item())
-            if err > 1e-5:
-                raise RuntimeError(f"B2 {label} on {name}: max abs err {err:.3g}")
+    if "B2" in opts.sections:
+        r1_variants = ("built", *SECTIONS["B2"])
+        for label, args in _round1_cases(dev):
+            ref_p, ref_r = lfa_kernels.lfa_round1_plain(
+                *args[:3], lfa_kernels.round1_constants(*args[3:]))
+            for name in r1_variants:
+                with _using(libs[name]):
+                    pooled, rpe2 = lfa_kernels.lfa_round1(*args)
+                err = max((pooled - ref_p).abs().max().item(), (rpe2 - ref_r).abs().max().item())
+                if err > 1e-5:
+                    raise RuntimeError(f"B2 {label} on {name}: max abs err {err:.3g}")
 
-        def timed(name, reps, args=args):
-            with _using(libs[name]):
-                return _ms(lambda: lfa_kernels.lfa_round1(*args), reps,
-                           "lfa_round1_tile_kernel")
+            def timed(name, reps, args=args):
+                with _using(libs[name]):
+                    return _ms(lambda: lfa_kernels.lfa_round1(*args), reps,
+                               "lfa_round1_tile_kernel")
 
-        _line(f"B2 {label} K={k}", r1_variants, timed, 50)
+            _line(f"B2 {label} K={k}", r1_variants, timed, 50)
 
-    b4_variants = ("built", "argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256",
-                   "nn_threads1024")
-    for label, s, q in argmin_cull.served_cases():
-        s = torch.from_numpy(s)[None].to(dev)
-        q = torch.from_numpy(q)[None].to(dev)
-        ref_i, ref_d = knn_kernels.knn_topk_plain(s, q, 1)
-        for name in b4_variants:
-            with _using(libs[name]):
-                idx, d2 = knn_kernels.argmin_1nn(s, q)
-            if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
-                raise RuntimeError(f"B4 {label} on {name}: not equal to the plain version")
+    if "B4" in opts.sections:
+        b4_variants = ("built", *SECTIONS["B4"])
+        for label, s, q in argmin_cull.served_cases():
+            s = torch.from_numpy(s)[None].to(dev)
+            q = torch.from_numpy(q)[None].to(dev)
+            ref_i, ref_d = knn_kernels.knn_topk_plain(s, q, 1)
+            for name in b4_variants:
+                with _using(libs[name]):
+                    idx, d2 = knn_kernels.argmin_1nn(s, q)
+                if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
+                    raise RuntimeError(f"B4 {label} on {name}: not equal to the plain version")
 
-        def timed(name, reps, s=s, q=q):
-            with _using(libs[name]):
-                return _ms(lambda: knn_kernels.argmin_1nn(s, q), reps, "argmin_")
+            def timed(name, reps, s=s, q=q):
+                with _using(libs[name]):
+                    return _ms(lambda: knn_kernels.argmin_1nn(s, q), reps, "argmin_")
 
-        _line(f"B4 {label} (kernel + ordering)", b4_variants, timed, 50)
+            _line(f"B4 {label} (kernel + ordering)", b4_variants, timed, 50)
 
-    b7_variants = ("built", "roll_e32", "roll_e64", "roll_threads64")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    x = torch.rand((512, 128, 1024), generator=gen, device=dev)
-    for stages in (1, 5, 6, 12, 15, 16, 24, 45):
-        ref = bitonic_kernels.roll_stages_plain(x, stages)
-        for name in b7_variants:
-            with _using(libs[name]):
-                if not torch.equal(bitonic_kernels.roll_stages(x, stages), ref):
-                    raise RuntimeError(f"B7 S={stages} on {name}: not equal to the plain version")
-        del ref
+    if "B7" in opts.sections:
+        b7_variants = ("built", *SECTIONS["B7"])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        x = torch.rand((512, 128, 1024), generator=gen, device=dev)
+        for stages in (1, 5, 6, 12, 15, 16, 24, 45):
+            ref = bitonic_kernels.roll_stages_plain(x, stages)
+            for name in b7_variants:
+                with _using(libs[name]):
+                    if not torch.equal(bitonic_kernels.roll_stages(x, stages), ref):
+                        raise RuntimeError(f"B7 S={stages} on {name}: not equal to the plain version")
+            del ref
 
-        def timed(name, reps, stages=stages):
-            with _using(libs[name]):
-                return _ms(lambda: bitonic_kernels.roll_stages(x, stages), reps,
-                           "roll_stages_kernel")
+            def timed(name, reps, stages=stages):
+                with _using(libs[name]):
+                    return _ms(lambda: bitonic_kernels.roll_stages(x, stages), reps,
+                               "roll_stages_kernel")
 
-        _line(f"B7 (512, 128, 1024) S={stages}", b7_variants, timed, 20)
+            _line(f"B7 (512, 128, 1024) S={stages}", b7_variants, timed, 20)
+
+    if "bf16" in opts.sections:
+        bf_variants = ("built", *SECTIONS["bf16"])
+        for label, r1, p2 in _bf16_cases(dev):
+            bf16 = torch.bfloat16
+            rows, h = r1[0].shape[1], r1[0].shape[3] // 2
+            refs = (
+                *lfa_kernels.lfa_round1_plain(
+                    *r1[:3], lfa_kernels.round1_constants(*r1[3:], dtype=bf16)),
+                lfa_kernels.attentive_pool2_residual_plain(
+                    *p2[:2], p2[7],
+                    lfa_kernels.pool2_constants(*p2[2:7], *p2[8:], dtype=bf16), 32),
+                lfa_kernels.attentive_pool2_plain(
+                    *p2[:2], lfa_kernels.pool2_constants(*p2[2:7], dtype=bf16), 32),
+            )
+            for name in bf_variants:
+                with _using(libs[name]):
+                    outs = (*lfa_kernels.lfa_round1(*r1),
+                            lfa_kernels.attentive_pool2_residual(*p2, k=32),
+                            lfa_kernels.attentive_pool2(*p2[:7], k=32))
+                # rpe2's rows: one neighbour's h channels
+                pairs = [(o.reshape(1, rows, 32, h), r.reshape(1, rows, 32, h)) if i == 1
+                         else (o, r) for i, (o, r) in enumerate(zip(outs, refs))]
+                if not all(_near_bf16(o, r) for o, r in pairs):
+                    raise RuntimeError(f"bf16 {label} on {name}: beyond the plain versions")
+            del outs, refs, pairs
+
+            def timed_r1(name, reps, r1=r1):
+                with _using(libs[name]):
+                    return _ms(lambda: lfa_kernels.lfa_round1(*r1), reps, "lfa_round1_mma_kernel")
+
+            def timed_p2(name, reps, p2=p2):
+                with _using(libs[name]):
+                    return _ms(lambda: lfa_kernels.attentive_pool2_residual(*p2, k=32), reps,
+                               "lfa_pool2_mma_kernel")
+
+            def timed_p5(name, reps, p2=p2):
+                with _using(libs[name]):
+                    return _ms(lambda: lfa_kernels.attentive_pool2(*p2[:7], k=32), reps,
+                               "lfa_pool2_mma_kernel")
+
+            _line(f"B2-bf16 {label} K=32", bf_variants, timed_r1, 50)
+            _line(f"B3-bf16 {label} K=32", bf_variants, timed_p2, 50)
+            _line(f"B5-bf16 {label} K=32", bf_variants, timed_p5, 50)
 
 
 if __name__ == "__main__":

@@ -63,29 +63,57 @@
 // The bfloat16 forms (r3d_lfa_round1_bf16, r3d_lfa_pool2_res_bf16,
 // r3d_lfa_pool2_bf16) replace the same three TPU kernels compiled with
 // io = bfloat16 (lfa_pallas.py:322, :445, :509): the rows arrive and leave
-// as bfloat16, and every dot reads bfloat16-rounded operands, summed in
-// float32; the RPE, the BN affines and the softmax stay float32. They keep
-// the float32 kernels' tile design and arithmetic on CUDA cores, fed by
-// half the bytes (lfa_round1_bf16_tile_kernel, lfa_pool2_bf16_tile_kernel):
-// - the next tile's bfloat16 rows are copied 16 bytes (8 values) at a time
-//   by cp.async into a staging buffer of two, while the current tile
-//   computes; each tile is then widened once into a float32 tile, so the
-//   score product's inner loop is the float32 kernels' own;
-// - the rounding points are the plain versions' (ops/lfa_kernels.py): the
-//   RPE as (g + centre) + dist·w9 then one fused multiply-add for the BN
-//   affine (which XLA makes of it too), kept unrounded for the weighted
-//   sum and rounded to bfloat16 in the tile for the score and rpe2 dots;
-//   the softmax normalised before each product w·x is rounded to bfloat16
-//   (with several chunks of K, K > 32, each chunk's scores are computed
-//   again against the final maximum); pool 2's pooled row rounded before
-//   the mlp2 dot; every output rounded once (__float2bfloat16_rn);
-// - the constants arrive float32, the matrices already rounded to
-//   bfloat16 by the wrapper, so the products of the dots are exact.
-// Bound: the bytes halve, so at h = 8 round 1 stays bound by them and pool
-// 2 becomes bound by its operations, as both are at h = 32 (no tensor
-// cores yet). Measured, they are slower than the float32 forms: the
-// division, product and rounding per neighbour and channel and the
-// widening pass cost more than the halved bytes save (PERF.md).
+// as bfloat16, every dot reads bfloat16-rounded operands and sums in
+// float32 (the TPU kernel's MXU dots, lfa_pallas.py:181-190), and the RPE,
+// the BN affines and the softmax stay float32. Bound: their bytes (1.7 kB a
+// row at h = 8, 4 to 6 kB at h = 32): at the tensor cores' bfloat16 rate
+// the dots take a few percent of the byte time, the softmax and the
+// weighted sum over K about as much again on the CUDA cores. The design
+// (lfa_round1_mma_kernel, lfa_pool2_mma_kernel) keeps the per-(neighbour,
+// channel) work to the softmax and w·x:
+// - a persistent grid of blocks of 4 (h = 8) or 8 (h = 32) warps; each
+//   block transposes the constant matrices into bfloat16 in shared memory
+//   once, then each warp walks its own rows, one at a time, staging the
+//   next row by 16-byte cp.async into the second of two buffers while it
+//   computes: no block barrier after the constants (but in pool 2 with
+//   the residual, below);
+// - the rows stay bfloat16 in shared memory (no widening), each padded by
+//   16 bytes so that the eight rows an ldmatrix reads fall on distinct
+//   banks;
+// - the scores run transposed on the tensor cores, Sᵀ = Wsᵀ·bf16(cat)ᵀ
+//   (mma.sync m16n8k16, f32 sums): each channel is an mma row and each
+//   neighbour a column, so a lane holds two channels of 2 neighbours of
+//   every 8, and the softmax over K and the weighted sum over K run in the
+//   lane and its quad (two shuffles), as FlashAttention's row softmax.
+//   The staged row-major [neighbour][channel] tile is the B operand in
+//   column-major form (ldmatrix without .trans); Wsᵀ's fragments come by
+//   ldmatrix from the block's copy;
+// - round 1 computes bf16(rpe) in the B fragments' own layout from the
+//   staged g, d2 and centre term (no rpe tile), and the unrounded rpe
+//   again in the accumulators' layout for the weighted sum; its rpe2 dot
+//   (neighbours as rows: m16n8k8 at h = 8, m16n8k16 at h = 32) takes its A
+//   fragments from those same registers;
+// - pool 2's mlp2 and shortcut dots run over the tile's 8 rows, transposed
+//   (outᵀ = Wmᵀ·bf16(pooled)ᵀ + Wshᵀ·f_inᵀ, F padded to 16 with zeros),
+//   the outputs staged in shared memory and stored 16 bytes at a time;
+// - off the tensor cores: the pool MLP agg @ Wp (agg is a float32 sum with
+//   no rounding point before the dot, as in the TPU kernel), the RPE, the
+//   BN affines, the softmax and the division w = e / z, rounded as the
+//   plain version's division rounds it but from one correctly rounded
+//   reciprocal a channel and two fused corrections a quotient (div_rn);
+// - pool 2 with the residual gives each of a block's 8 warps one row of the
+//   block's 8-row tile, so that few rows (625 at app-bf16's level 1) still
+//   spread over many warps, and splits the tile's mlp2 m-tiles among them.
+// The rounding points are the plain versions' (ops/lfa_kernels.py): the
+// RPE as (g + centre) + dist·w9 then one fused multiply-add for the BN
+// affine (which XLA makes of it too), kept unrounded for the weighted sum
+// and rounded to bfloat16 for the score and rpe2 dots; the softmax
+// normalised before each product w·x is rounded to bfloat16 (with several
+// chunks of K, K = 64 and 128 at h = 8, each chunk's scores are computed
+// again against the final maximum); pool 2's pooled row rounded before the
+// mlp2 dot; every output rounded once (__float2bfloat16_rn). A bfloat16
+// product is exact in float32, so only the order of the f32 sums differs
+// from the plain versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -410,293 +438,650 @@ lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2
   }
 }
 
+// --- the bfloat16 forms, on the tensor cores (see the note at the top) -------
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// warps a block of the bfloat16 round-1 kernel and of pool 2 alone: the
+// block stages the constant matrices once and each warp then walks its own
+// rows (benchmarks/launch_ab.py times 8 at h = 8 as bf16_warps8, 4 at h = 32
+// as bf16_warps4; on an H100 80GB HBM3 at 700 W, 4 at h = 32 took B2-bf16
+// at 16,384 rows from 0.0862 to 0.0907 ms and 8 at h = 8 moved no kernel by
+// more than 4%)
+constexpr int BF_WARPS_H8 = 4;
+constexpr int BF_WARPS_H32 = 8;
+// rows of pool 2's residual tile, a multiple of 8 (the n of its mlp2 and
+// shortcut products), one a warp: at h = 32 16 where shared memory holds
+// them (F up to about 64), else 8 (launch_ab.py's bf16_tile8: B3-bf16 at
+// 16,384 rows 0.1022 against 0.0843 ms; bf16_tile16 at h = 8 and 65,536
+// rows 0.0763 against 0.0675)
+constexpr int BF_TILE_ROWS_H8 = 8;
+constexpr int BF_TILE_ROWS_H32 = 16;
+// bfloat16 elements after each row of a staged tile or matrix: rows then lie
+// an odd number of 16-byte units apart, so the eight rows an ldmatrix reads
+// fall on distinct banks
+constexpr int BF_PAD = 8;
+
+__host__ __device__ constexpr int bf_warps(int h) { return h == 8 ? BF_WARPS_H8 : BF_WARPS_H32; }
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// s[kk] = cat[kk, :] @ Ws[:, j] for the KC neighbours of one chunk (cat
-// rows of C2 floats in shared memory, Ws (C2 x C2) in shared memory).
-template <int KC, int C2>
-__device__ __forceinline__ void score_chunk(const float* ws, const float* cat, int j,
-                                            float (&s)[KC]) {
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) s[kk] = 0.f;
-#pragma unroll 2
-  for (int c = 0; c < C2; c += 4) {
-    const float w0 = ws[c * C2 + j], w1 = ws[(c + 1) * C2 + j];
-    const float w2 = ws[(c + 2) * C2 + j], w3 = ws[(c + 3) * C2 + j];
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const float4 x = *reinterpret_cast<const float4*>(cat + kk * C2 + c);
-      s[kk] = fmaf(x.w, w3, fmaf(x.z, w2, fmaf(x.y, w1, fmaf(x.x, w0, s[kk]))));
-    }
-  }
+__device__ __forceinline__ float bf16_at(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// two bfloat16 in one register, lo in the low half (the lower index of an
+// mma fragment's pair)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// The bfloat16 forms' attentive pooling of channel j over K neighbours:
-// sum_k bf16(w[k] * x[k]) with w = softmax_K(cat @ Ws[:, j]) normalised
-// first (w = e / z), x[k] = xf[k * xs] the unrounded lane. The first pass
-// takes the maximum and z online by chunks of KC; with one chunk (K = KC)
-// its exponentials stay in registers, with several (MULTI) each chunk's
-// scores are computed again against the final maximum.
-template <int KC, int C2, bool MULTI>
-__device__ __forceinline__ float pool_bf16(const float* ws, const float* cat, const float* xf,
-                                           int xs, int j, int K) {
-  float s[KC];
-  float m = -CUDART_INF_F, z = 0.f;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    score_chunk<KC, C2>(ws, cat + k0 * C2, j, s);
-    float mc = s[0];
-#pragma unroll
-    for (int kk = 1; kk < KC; ++kk) mc = fmaxf(mc, s[kk]);
-    const float mn = fmaxf(m, mc);
-    const float scale = expf(m - mn);  // 0 on the first chunk
-    float zc = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      s[kk] = expf(s[kk] - mn);
-      zc += s[kk];
-    }
-    z = fmaf(z, scale, zc);
-    m = mn;
-  }
-  float a = 0.f;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    if (MULTI) {
-      score_chunk<KC, C2>(ws, cat + k0 * C2, j, s);
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) s[kk] = expf(s[kk] - m);
-    }
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      a += bf16_round(__fmul_rn(__fdiv_rn(s[kk], z), xf[(k0 + kk) * xs]));
-    }
-  }
-  return a;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Round 1, bfloat16 form (see the note at the top). Thread (r, j) of a
-// tile owns channel j < 2h of row r; blockDim.x = TR * 2h. Dynamic shared
-// memory: two bfloat16 staging buffers of TR * K*2h | the float32 tile
-// (TR, K*2h + pad): the concatenation rounded to bfloat16 | the unrounded
-// rpe (TR, K, h) | two d2 buffers of TR * K | two centre buffers of TR * h
-// | the constants of round1_consts | agg (TR, 2h).
-template <int H, int KC, bool MULTI>
-__global__ void __launch_bounds__(TILE_THREADS)
-lfa_round1_bf16_tile_kernel(const __nv_bfloat16* __restrict__ g, const float* __restrict__ d2,
-                            const float* __restrict__ center, const float* __restrict__ consts,
-                            __nv_bfloat16* __restrict__ pooled_out,
-                            __nv_bfloat16* __restrict__ rpe2_out, int rows, int K) {
-  constexpr int C2 = 2 * H;
-  constexpr int KR = KC / 2;
-  const int TR = blockDim.x / C2;
-  const int L = K * C2;
-  const int RS = L + TILE_ROW_PAD;
-  extern __shared__ __align__(16) float r1b_sm[];
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(r1b_sm);
-  float* tile = r1b_sm + TR * L;  // after 2 * TR * L bfloat16
-  float* rpef = tile + TR * RS;
-  float* dbuf = rpef + TR * K * H;
-  float* cbuf = dbuf + 2 * TR * K;
-  float* cst = cbuf + 2 * TR * H;
-  float* agg = cst + round1_consts(H);
-  const float* w9 = cst;
-  const float* s1 = w9 + H;
-  const float* o1 = s1 + H;
-  const float* ws = o1 + H;
-  const float* wp = ws + C2 * C2;
-  const float* op = wp + C2 * H;
-  const float* w2 = op + H;
-  const float* o2 = w2 + H * H;
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
-  for (int i = threadIdx.x; i < round1_consts(H); i += blockDim.x) cp_async4(cst + i, consts + i);
+// ldmatrix (8x8 matrices of 16-bit elements, rows of 16 bytes): lane l
+// gives the address of row l & 7 of matrix l >> 3, and receives the pair of
+// elements 2(l & 3), +1 of row l >> 2 of each matrix
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
 
-  const int n_tiles = (rows + TR - 1) / TR;
-  // rows [tile * TR, +TR) of g (contiguous), d2 and center into buffer buf
-  auto load_tile = [&](int tile_i, int buf) {
-    const int row0 = tile_i * TR;
-    const int nr = min(TR, rows - row0);
-    const __nv_bfloat16* src = g + static_cast<size_t>(row0) * L;
-    __nv_bfloat16* dst = stage + buf * TR * L;
-    for (int e = 8 * threadIdx.x; e < nr * L; e += 8 * blockDim.x) cp_async16(dst + e, src + e);
-    for (int e = threadIdx.x; e < nr * K; e += blockDim.x) {
-      cp_async4(dbuf + buf * TR * K + e, d2 + static_cast<size_t>(row0) * K + e);
-    }
-    for (int e = threadIdx.x; e < nr * H; e += blockDim.x) {
-      cp_async4(cbuf + buf * TR * H + e, center + static_cast<size_t>(row0) * H + e);
-    }
-    cp_async_commit();
-  };
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_addr(p))
+               : "memory");
+}
 
-  const int r = threadIdx.x / C2, j = threadIdx.x - r * C2;
-  const int ch = j % H, half = j / H;  // the rpe2 channel and neighbour half
-  int buf = 0;
-  if (blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
-  for (int tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();  // this tile (and, first time, the constants) visible;
-    // every thread is past the previous tile
-    if (tile_i + gridDim.x < n_tiles) load_tile(tile_i + gridDim.x, buf ^ 1);
-    const __nv_bfloat16* sr = stage + buf * TR * L + r * L + j;
-    float* cat_w = tile + r * RS + j;
-    float* rp = rpef + r * K * H + j;
-    if (j < H) {
-      // rpe = relu(fma((g_rpe + center) + dist * w9, s1, o1))
-      const float* db = dbuf + buf * TR * K + r * K;
-      const float cj = cbuf[buf * TR * H + r * H + j];
-      const float w9j = w9[j], s1j = s1[j], o1j = o1[j];
-      for (int k = 0; k < K; ++k) {
-        const float dist = sqrtf(fmaxf(db[k], 0.f));
-        const float pre = __fadd_rn(__fadd_rn(__bfloat162float(sr[k * C2]), cj),
-                                    __fmul_rn(dist, w9j));
-        const float rpe = fmaxf(__fmaf_rn(pre, s1j, o1j), 0.f);
-        rp[k * H] = rpe;
-        cat_w[k * C2] = bf16_round(rpe);
+__device__ __forceinline__ unsigned ldsm_x1(const void* p) {
+  unsigned r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+               : "=r"(r)
+               : "r"(smem_addr(p))
+               : "memory");
+  return r;
+}
+
+// d += a·b on the tensor cores: bfloat16 operands, float32 sums. m16n8k16:
+// a (16 x 16) row-major, b (16 x 8) column-major, d (16 x 8); lane (g, q) =
+// (l >> 2, l & 3) holds a's rows g, g + 8 at columns 2q, 2q + 1 (and + 8),
+// b's column g at rows 2q, 2q + 1 (and + 8), d's rows g, g + 8 at columns
+// 2q, 2q + 1
+__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// m16n8k8: the depth-8 form (the rpe2 dot at h = 8)
+__device__ __forceinline__ void mma_k8(float (&d)[4], unsigned a0, unsigned a1, unsigned b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// e / z rounded to nearest, as __fdiv_rn, from y = __frcp_rn(z) (one a
+// channel): q0 = e·y lies within 1.5 ulps of e / z, the first fused
+// correction brings it within one, and the second, from a quotient within an
+// ulp and a correctly rounded reciprocal, rounds it exactly (Markstein's
+// theorem). e in [0, 1] and z in [1, K]: no overflow; a quotient below the
+// normal range may round otherwise, where its bfloat16 product vanishes.
+__device__ __forceinline__ float div_rn(float e, float z, float y) {
+  float q = __fmul_rn(e, y);
+  q = __fmaf_rn(__fmaf_rn(-q, z, e), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, z, e), y, q);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL_MASK, v, 2));
+}
+
+// the same sum on the quad's four lanes: (t0 + t1) + (t2 + t3)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL_MASK, v, 1);
+  return v + __shfl_xor_sync(FULL_MASK, v, 2);
+}
+
+// The pool MLP of one row, float32 off the tensor cores: relu(agg @ Wp + op)
+// for N outputs (Wp (2h, N) row-major), lane l < N/2 the output pair o = 2l,
+// o + 1, its 2h inputs summed in order (as the plain version's matmul sums
+// them on the CPU: spreading them over the idle lanes, in another order,
+// left fewer outputs bit-identical). Returns whether lane l holds a pair,
+// its bfloat16 pair in *out.
+template <int C2, int N>
+__device__ __forceinline__ bool pool_mlp(const float* agg, const float* wp, const float* op,
+                                         int lane, unsigned* out) {
+  if (lane >= N / 2) return false;
+  const int o = 2 * lane;
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < C2; ++c) {
+    const float ag = agg[c];
+    const float2 w = *reinterpret_cast<const float2*>(wp + c * N + o);
+    a0 = fmaf(ag, w.x, a0);
+    a1 = fmaf(ag, w.y, a1);
+  }
+  *out = pack_bf16(fmaxf(a0 + op[o], 0.f), fmaxf(a1 + op[o + 1], 0.f));
+  return true;
+}
+
+// The score dot's B fragments of one staged row, bf16(cat) (K neighbours x
+// 2h channels, row stride sp): bf[n][s] = neighbours 8n.., channels 16s..,
+// as mma_k16's b (the row-major tile is b in column-major form: no .trans).
+template <int H, int K>
+__device__ __forceinline__ void load_cat_frags(unsigned (&bf)[K / 8][H / 8][2],
+                                               const __nv_bfloat16* t, int sp, int lane) {
+  constexpr int NT = K / 8;
+  const int mi = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int p = 0; p < (NT + 1) / 2; ++p) {
+    const int n = min(2 * p + (mi >> 1), NT - 1);  // K = 8: the second n-tile repeats
+#pragma unroll
+    for (int s = 0; s < H / 8; ++s) {
+      unsigned r[4];
+      ldsm_x4(r, t + (8 * n + rr) * sp + 16 * s + 8 * (mi & 1));
+      bf[2 * p][s][0] = r[0];
+      bf[2 * p][s][1] = r[1];
+      if (2 * p + 1 < NT) {
+        bf[2 * p + 1][s][0] = r[2];
+        bf[2 * p + 1][s][1] = r[3];
       }
-    } else {
-      for (int k = 0; k < K; ++k) cat_w[k * C2] = __bfloat162float(sr[k * C2]);
     }
-    __syncthreads();  // the tile widened, its rpe lanes transformed
+  }
+}
 
-    const int row = tile_i * TR + r;
-    const float* cat = tile + r * RS;
-    // the weighted sum reads lane j unrounded: the rpe lanes from rpef
-    agg[r * C2 + j] =
-        pool_bf16<KC, C2, MULTI>(ws, cat, j < H ? rp : cat + j, j < H ? H : C2, j, K);
+// s[t] = the scores of n-tile n0 + t for the m-tile whose Wsᵀ fragments are a
+template <int H, int K, int NTC>
+__device__ __forceinline__ void score_tiles(float (&s)[NTC][4], const unsigned (&a)[H / 8][4],
+                                            const unsigned (&bf)[K / 8][H / 8][2], int n0) {
+#pragma unroll
+  for (int t = 0; t < NTC; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+  }
+#pragma unroll
+  for (int ks = 0; ks < H / 8; ++ks) {
+#pragma unroll
+    for (int t = 0; t < NTC; ++t) mma_k16(s[t], a[ks], bf[n0 + t][ks][0], bf[n0 + t][ks][1]);
+  }
+}
 
-    // rpe2[k, ch] = relu(bf16(rpe)[k, :] @ W2[:, ch] + o2[ch]) for the K/2
-    // neighbours of this thread's half, KR at a time
-    for (int k0 = half * (K / 2); k0 < (half + 1) * (K / 2); k0 += KR) {
-      float acc[KR];
+// Attentive pooling of one staged row: agg[j] = sum_k bf16(w[k, j]·x(k, j))
+// with w = softmax_K(bf16(cat) @ Ws) normalised first (w = e / z) and x the
+// unrounded lane. 16 channels (an m-tile) at a time, the scores transposed,
+// Sᵀ = Wsᵀ·bf16(cat)ᵀ: lane (g, q) holds channels 16mt + g and + 8 of the
+// neighbours 8n + 2q, + 1 of every n-tile n, so the softmax over K runs in
+// the lane and its quad (two shuffles). K = 64, 128: chunks of 32
+// neighbours, the maximum and z online, each chunk's scores computed again
+// against the final maximum. x(k, j, rpe): rpe tells whether channel j is
+// an rpe lane (known at compile time once the loops unroll).
+template <int H, int K, typename X>
+__device__ __forceinline__ void attentive_pool(const __nv_bfloat16* wst,
+                                               const unsigned (&bf)[K / 8][H / 8][2], X x,
+                                               float* agg, int lane) {
+  constexpr int C2 = 2 * H, SP = C2 + BF_PAD, KS = H / 8, NT = K / 8;
+  constexpr int NTC = NT < 4 ? NT : 4;
+  constexpr int CH = NT / NTC;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-      for (int kk = 0; kk < KR; ++kk) acc[kk] = 0.f;
-      const float* ck = cat + k0 * C2;
+  for (int mt = 0; mt < C2 / 16; ++mt) {
+    unsigned a[KS][4];
 #pragma unroll
-      for (int c = 0; c < H; c += 4) {
-        const float w0 = w2[c * H + ch], w1 = w2[(c + 1) * H + ch];
-        const float w2c = w2[(c + 2) * H + ch], w3 = w2[(c + 3) * H + ch];
+    for (int ks = 0; ks < KS; ++ks) {
+      ldsm_x4(a[ks], wst + (16 * mt + (lane & 7) + 8 * ((lane >> 3) & 1)) * SP + 16 * ks +
+                         8 * (lane >> 4));
+    }
+    float s[NTC][4];
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, z[2] = {0.f, 0.f};
 #pragma unroll
-        for (int kk = 0; kk < KR; ++kk) {
-          const float4 x = *reinterpret_cast<const float4*>(ck + kk * C2 + c);
-          acc[kk] = fmaf(x.w, w3, fmaf(x.z, w2c, fmaf(x.y, w1, fmaf(x.x, w0, acc[kk]))));
+    for (int c = 0; c < CH; ++c) {  // the maximum and z, online by chunks
+      score_tiles<H, K, NTC>(s, a, bf, c * NTC);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mc = -CUDART_INF_F;
+#pragma unroll
+        for (int t = 0; t < NTC; ++t) mc = fmaxf(mc, fmaxf(s[t][2 * hh], s[t][2 * hh + 1]));
+        const float mn = fmaxf(m[hh], quad_max(mc));
+        const float scale = expf(m[hh] - mn);  // 0 on the first chunk
+        float zc = 0.f;
+#pragma unroll
+        for (int t = 0; t < NTC; ++t) {
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            s[t][2 * hh + b] = expf(s[t][2 * hh + b] - mn);
+            zc += s[t][2 * hh + b];
+          }
+        }
+        z[hh] = fmaf(z[hh], scale, quad_sum(zc));
+        m[hh] = mn;
+      }
+    }
+    const float y[2] = {__frcp_rn(z[0]), __frcp_rn(z[1])};
+    float acc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      if (CH > 1) {  // one chunk: its exponentials are still in s
+        score_tiles<H, K, NTC>(s, a, bf, c * NTC);
+#pragma unroll
+        for (int t = 0; t < NTC; ++t) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][e] = expf(s[t][e] - m[e >> 1]);
         }
       }
-      if (row < rows) {
-        __nv_bfloat16* o = rpe2_out + static_cast<size_t>(row) * K * H + k0 * H + ch;
 #pragma unroll
-        for (int kk = 0; kk < KR; ++kk) {
-          o[kk * H] = __float2bfloat16_rn(fmaxf(acc[kk] + o2[ch], 0.f));
+      for (int t = 0; t < NTC; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, k = 8 * (c * NTC + t) + 2 * q + (e & 1);
+          const float w = div_rn(s[t][e], z[hh], y[hh]);
+          acc[hh] += bf16_round(__fmul_rn(w, x(k, 16 * mt + 8 * hh + g, 16 * mt + 8 * hh < H)));
         }
       }
     }
-    __syncthreads();  // agg of the tile visible
-
-    // pool MLP + BN + relu: pooled (TR, h) = relu(agg @ Wp + op)
-    if (j < H) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int i = 0; i < C2; ++i) acc = fmaf(agg[r * C2 + i], wp[i * H + j], acc);
-      if (row < rows) {
-        pooled_out[static_cast<size_t>(row) * H + j] = __float2bfloat16_rn(fmaxf(acc + op[j], 0.f));
-      }
+    acc[0] = quad_sum(acc[0]);
+    acc[1] = quad_sum(acc[1]);
+    if (q == 0) {
+      agg[16 * mt + g] = acc[0];
+      agg[16 * mt + 8 + g] = acc[1];
     }
   }
 }
 
-// Pool 2 (RES: + the residual), bfloat16 form. Thread (r, j) owns channel
-// j of row r; blockDim.x = TR * 2h. Dynamic shared memory: two bfloat16
-// staging buffers of TR * K*h rows of rpe2, two of g2 | the float32 tile
-// (TR, K*2h + pad) | Ws | Wp | op | agg (TR, 2h) | pooled (TR, 2h) | two
-// bfloat16 f_in buffers of TR * F.
-template <int H, int KC, bool RES, bool MULTI>
-__global__ void __launch_bounds__(TILE_THREADS)
-lfa_pool2_bf16_tile_kernel(const __nv_bfloat16* __restrict__ rpe2,
-                           const __nv_bfloat16* __restrict__ g2,
-                           const __nv_bfloat16* __restrict__ f_in,
-                           const float* __restrict__ consts, __nv_bfloat16* __restrict__ out,
-                           int rows, int K, int F) {
-  constexpr int C2 = 2 * H;
-  constexpr int C4 = 4 * H;
-  const int TR = blockDim.x / C2;
-  const int KH = K * H;
-  const int RS = K * C2 + TILE_ROW_PAD;
-  extern __shared__ __align__(16) float p2b_sm[];
-  __nv_bfloat16* stage_r = reinterpret_cast<__nv_bfloat16*>(p2b_sm);
-  __nv_bfloat16* stage_g = stage_r + 2 * TR * KH;
-  float* tile = p2b_sm + 2 * TR * KH;  // after 4 * TR * KH bfloat16
-  float* ws = tile + TR * RS;
-  float* wp = ws + C2 * C2;
-  float* op = wp + C2 * C2;
-  float* agg = op + C2;
-  float* pooled = agg + TR * C2;
-  __nv_bfloat16* fin = reinterpret_cast<__nv_bfloat16*>(pooled + TR * C2);
-  const float* wm = consts + pool2_head_consts(H);
-  const float* wsh = wm + C2 * C4;
-  const float* off = wsh + F * C4;
+// Byte offsets of lfa_round1_mma_kernel's shared memory: the block's
+// constants, then per warp two staging buffers and agg.
+template <int H, int K>
+struct Round1Layout {
+  static constexpr int C2 = 2 * H, SP = C2 + BF_PAD, SP2 = H + BF_PAD;
+  static constexpr int WST = 0;                       // Wsᵀ bf16 (2h, 2h + pad)
+  static constexpr int W2T = WST + C2 * SP * 2;       // W2ᵀ bf16 (h, h + pad)
+  static constexpr int WP = W2T + H * SP2 * 2;        // Wp f32 (2h, h)
+  static constexpr int VEC = WP + C2 * H * 4;         // w9 | s1 | o1 | op | o2, f32 (h) each
+  static constexpr int CONSTS = VEC + 5 * H * 4;
+  static constexpr int STAGE_D = K * SP * 2;          // after the rows: d2 (K) | centre (h)
+  static constexpr int STAGE_C = STAGE_D + K * 4;
+  static constexpr int STAGE = STAGE_C + H * 4;
+  static constexpr int AGG = 2 * STAGE;               // f32 (2h)
+  static constexpr int WARP = AGG + C2 * 4;
+  static constexpr size_t bytes() { return CONSTS + static_cast<size_t>(bf_warps(H)) * WARP; }
+};
 
-  for (int i = threadIdx.x; i < pool2_head_consts(H); i += blockDim.x) ws[i] = consts[i];
+// Round 1, bfloat16 form. A persistent grid; each warp takes a row at a time
+// (rows blockIdx.x * W + warp, + gridDim.x * W, ...) and stages the next one
+// by cp.async while it computes. Per row: the distances; the score dot's B
+// fragments by ldmatrix from the staged gathered rows, their rpe lanes
+// replaced by bf16(rpe) computed in the fragments' layout; the attentive
+// pooling (x: the rpe lanes computed again, unrounded, in the
+// accumulators' layout); rpe2 = relu(bf16(rpe) @ W2 + o2) on the tensor
+// cores, its A fragments those same registers; pooled = relu(agg @ Wp + op)
+// in float32.
+template <int H, int K>
+__global__ void __launch_bounds__(32 * bf_warps(H))
+lfa_round1_mma_kernel(const __nv_bfloat16* __restrict__ g, const float* __restrict__ d2,
+                      const float* __restrict__ center, const float* __restrict__ consts,
+                      __nv_bfloat16* __restrict__ pooled_out,
+                      __nv_bfloat16* __restrict__ rpe2_out, int rows) {
+  using L = Round1Layout<H, K>;
+  constexpr int C2 = 2 * H, SP = L::SP, SP2 = L::SP2, NT = K / 8, KS = H / 8;
+  constexpr int W = bf_warps(H);
+  extern __shared__ __align__(16) unsigned char r1m_sm[];
+  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(r1m_sm + L::WST);
+  __nv_bfloat16* w2t = reinterpret_cast<__nv_bfloat16*>(r1m_sm + L::W2T);
+  float* wp = reinterpret_cast<float*>(r1m_sm + L::WP);
+  float* w9 = reinterpret_cast<float*>(r1m_sm + L::VEC);
+  float* s1 = w9 + H;
+  float* o1 = s1 + H;
+  float* op = o1 + H;
+  float* o2 = op + H;
 
-  const int n_tiles = (rows + TR - 1) / TR;
-  auto load_tile = [&](int tile_i, int buf) {
-    const int row0 = tile_i * TR;
-    const int nr = min(TR, rows - row0);
-    const size_t src = static_cast<size_t>(row0) * KH;
-    for (int e = 8 * threadIdx.x; e < nr * KH; e += 8 * blockDim.x) {
-      cp_async16(stage_r + buf * TR * KH + e, rpe2 + src + e);
-      cp_async16(stage_g + buf * TR * KH + e, g2 + src + e);
+  // the constants (w9 | s1 | o1 | Ws | Wp | op | W2 | o2), the dots'
+  // matrices transposed into bfloat16 (exact: the wrapper rounded them)
+  const float* c_ws = consts + 3 * H;
+  const float* c_wp = c_ws + C2 * C2;
+  const float* c_w2 = c_wp + C2 * H + H;
+  for (int i = threadIdx.x; i < C2 * C2; i += blockDim.x) {
+    wst[(i % C2) * SP + i / C2] = __float2bfloat16_rn(c_ws[i]);
+  }
+  for (int i = threadIdx.x; i < H * H; i += blockDim.x) {
+    w2t[(i % H) * SP2 + i / H] = __float2bfloat16_rn(c_w2[i]);
+  }
+  for (int i = threadIdx.x; i < C2 * H; i += blockDim.x) wp[i] = c_wp[i];
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    w9[i] = consts[i];
+    s1[i] = consts[H + i];
+    o1[i] = consts[2 * H + i];
+    op[i] = c_wp[C2 * H + i];
+    o2[i] = c_w2[H * H + i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  unsigned char* wb = r1m_sm + L::CONSTS + warp * L::WARP;
+  float* agg = reinterpret_cast<float*>(wb + L::AGG);
+  const int nw = gridDim.x * W;
+  // row into staging buffer buf: the gathered rows into padded rows, 16
+  // bytes a copy; d2 and the centre term 4 bytes a copy
+  auto issue = [&](int row, int buf) {
+    unsigned char* st = wb + buf * L::STAGE;
+    __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(st);
+    const __nv_bfloat16* src = g + static_cast<size_t>(row) * K * C2;
+    for (int e = lane; e < K * H / 4; e += 32) {
+      cp_async16(gt + (e / (H / 4)) * SP + 8 * (e % (H / 4)), src + 8 * e);
     }
-    if constexpr (RES) {  // F even: pairs of values, 4 bytes at a time
-      for (int e = 2 * threadIdx.x; e < nr * F; e += 2 * blockDim.x) {
-        cp_async4(fin + buf * TR * F + e, f_in + static_cast<size_t>(row0) * F + e);
-      }
+    float* db = reinterpret_cast<float*>(st + L::STAGE_D);
+    for (int e = lane; e < K; e += 32) cp_async4(db + e, d2 + static_cast<size_t>(row) * K + e);
+    float* cb = reinterpret_cast<float*>(st + L::STAGE_C);
+    for (int e = lane; e < H; e += 32) {
+      cp_async4(cb + e, center + static_cast<size_t>(row) * H + e);
     }
-    cp_async_commit();
   };
 
-  const int r = threadIdx.x / C2, j = threadIdx.x - r * C2;
-  int buf = 0;
-  if (blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
-  for (int tile_i = blockIdx.x; tile_i < n_tiles; tile_i += gridDim.x, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (tile_i + gridDim.x < n_tiles) load_tile(tile_i + gridDim.x, buf ^ 1);
-    // cat = [rpe2 | g2] widened: channel j of each neighbour
-    const __nv_bfloat16* sr = (j < H ? stage_r + j : stage_g + (j - H)) + buf * TR * KH + r * KH;
-    float* cat_w = tile + r * RS + j;
-    for (int k = 0; k < K; ++k) cat_w[k * C2] = __bfloat162float(sr[k * H]);
-    __syncthreads();
+  int row = blockIdx.x * W + warp;
+  if (row < rows) issue(row, 0);
+  cp_async_commit();
+  for (int buf = 0; row < rows; row += nw, buf ^= 1) {
+    if (row + nw < rows) issue(row + nw, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncwarp();  // this row's copies, from every lane, visible
+    unsigned char* st = wb + buf * L::STAGE;
+    const __nv_bfloat16* gt = reinterpret_cast<const __nv_bfloat16*>(st);
+    float* dist = reinterpret_cast<float*>(st + L::STAGE_D);
+    const float* cen = reinterpret_cast<const float*>(st + L::STAGE_C);
+    for (int k = lane; k < K; k += 32) dist[k] = sqrtf(fmaxf(dist[k], 0.f));
+    __syncwarp();
+    // rpe = relu(fma((g_rpe + centre) + dist·w9, s1, o1)), the plain
+    // version's operations in its order
+    auto rpe = [&](int k, int c) {
+      const float pre =
+          __fadd_rn(__fadd_rn(bf16_at(gt + k * SP + c), cen[c]), __fmul_rn(dist[k], w9[c]));
+      return fmaxf(__fmaf_rn(pre, s1[c], o1[c]), 0.f);
+    };
 
-    const int row = tile_i * TR + r;
-    const float* cat = tile + r * RS;
-    agg[r * C2 + j] = pool_bf16<KC, C2, MULTI>(ws, cat, cat + j, C2, j, K);
-    __syncthreads();
+    unsigned bf[NT][KS][2];
+    load_cat_frags<H, K>(bf, gt, SP, lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int c = 16 * ks + 8 * hf + 2 * q;
+          if (16 * ks + 8 * hf < H) bf[n][ks][hf] = pack_bf16(rpe(8 * n + gq, c), rpe(8 * n + gq, c + 1));
+        }
+      }
+    }
+    attentive_pool<H, K>(
+        wst, bf,
+        [&](int k, int j, bool is_rpe) { return is_rpe ? rpe(k, j) : bf16_at(gt + k * SP + j); },
+        agg, lane);
 
-    // pool MLP + BN + relu: relu(agg @ Wp + op)
-    float acc = 0.f;
-#pragma unroll 8
-    for (int i = 0; i < C2; ++i) acc = fmaf(agg[r * C2 + i], wp[i * C2 + j], acc);
-    const float p = fmaxf(acc + op[j], 0.f);
+    // rpe2 (K x h) = relu(bf16(rpe) @ W2 + o2): neighbours as the mma's
+    // rows, its A fragments the rpe lanes of bf
+    __nv_bfloat16* r2 = rpe2_out + static_cast<size_t>(row) * K * H;
+#pragma unroll
+    for (int mt = 0; mt < (K + 15) / 16; ++mt) {
+      const int n0 = 2 * mt, n1 = min(2 * mt + 1, NT - 1);
+#pragma unroll
+      for (int nt = 0; nt < H / 8; ++nt) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (H == 8) {
+          mma_k8(d, bf[n0][0][0], bf[n1][0][0], ldsm_x1(w2t + (lane & 7) * SP2));
+        } else {
+#pragma unroll
+          for (int ks = 0; ks < H / 16; ++ks) {
+            unsigned b0, b1;
+            ldsm_x2(b0, b1, w2t + (8 * nt + (lane & 7)) * SP2 + 16 * ks + 8 * ((lane >> 3) & 1));
+            const unsigned a[4] = {bf[n0][ks][0], bf[n1][ks][0], bf[n0][ks][1], bf[n1][ks][1]};
+            mma_k16(d, a, b0, b1);
+          }
+        }
+        const int ch = 8 * nt + 2 * q, k0 = 16 * mt + gq;
+        *reinterpret_cast<unsigned*>(r2 + k0 * H + ch) =
+            pack_bf16(fmaxf(d[0] + o2[ch], 0.f), fmaxf(d[1] + o2[ch + 1], 0.f));
+        if (k0 + 8 < K) {
+          *reinterpret_cast<unsigned*>(r2 + (k0 + 8) * H + ch) =
+              pack_bf16(fmaxf(d[2] + o2[ch], 0.f), fmaxf(d[3] + o2[ch + 1], 0.f));
+        }
+      }
+    }
+    __syncwarp();  // agg of the row visible
+
+    // pooled (h) = relu(agg @ Wp + op)
+    unsigned p;
+    if (pool_mlp<C2, H>(agg, wp, op, lane, &p)) {
+      *reinterpret_cast<unsigned*>(pooled_out + static_cast<size_t>(row) * H + 2 * lane) = p;
+    }
+    __syncwarp();  // the staging buffer and agg free for the rows ahead
+  }
+}
+
+// Warps a block of lfa_pool2_mma_kernel: with the residual one a row of the
+// block's tile of tr rows, else bf_warps(h), each on its own rows.
+__host__ __device__ constexpr int pool2_warps(int h, bool res, int tr) {
+  return res ? tr : bf_warps(h);
+}
+
+// Byte offsets of lfa_pool2_mma_kernel's shared memory: the block's
+// constants and, with the residual, its tile's pooled rows, two buffers of
+// the tile's f_in rows (fp: F padded to 16 with zeros) and its output rows;
+// then per warp two staging buffers (the concatenation [rpe2 | g2], padded
+// rows) and agg.
+struct Pool2Layout {
+  int wst, wp, op, wmt, wsht, off, pooled, fin, out, warps, stage, agg, warp;
+  __host__ __device__ Pool2Layout(int h, int k, bool res, int fp, int tile_rows) {
+    const int c2 = 2 * h, c4 = 4 * h, sp = c2 + BF_PAD, spf = fp + BF_PAD, spo = c4 + BF_PAD;
+    const int tr = res ? tile_rows : 0;
+    wst = 0;                                  // Wsᵀ bf16 (2h, 2h + pad)
+    wp = wst + c2 * sp * 2;                   // Wp f32 (2h, 2h)
+    op = wp + c2 * c2 * 4;                    // op f32 (2h)
+    wmt = op + c2 * 4;                        // Wmᵀ bf16 (4h, 2h + pad)
+    wsht = wmt + (res ? c4 * sp * 2 : 0);     // Wshᵀ bf16 (4h, fp + pad)
+    off = wsht + (res ? c4 * spf * 2 : 0);    // off f32 (4h)
+    pooled = off + (res ? c4 * 4 : 0);        // bf16 (tr, 2h + pad)
+    fin = pooled + tr * sp * 2;               // bf16 2 x (tr, fp + pad)
+    out = fin + 2 * tr * spf * 2;             // bf16 (tr, 4h + pad)
+    warps = out + tr * spo * 2;
+    stage = k * sp * 2;
+    agg = 2 * stage;                          // f32 (2h)
+    warp = agg + c2 * 4;
+  }
+  __host__ __device__ size_t bytes(int warps_a_block) const {
+    return warps + static_cast<size_t>(warps_a_block) * warp;
+  }
+};
+
+// Attentive pooling and the pool MLP of the row staged at t: pooled (2h) =
+// relu(agg @ Wp + op), its bfloat16 pair of channels o, o + 1 handed to
+// put(o, pair) by lane o / 2.
+template <int H, int K, typename Put>
+__device__ __forceinline__ void pool2_row(const __nv_bfloat16* t, const __nv_bfloat16* wst,
+                                          const float* wp, const float* op, float* agg,
+                                          int lane, Put put) {
+  constexpr int C2 = 2 * H, SP = C2 + BF_PAD;
+  unsigned bf[K / 8][H / 8][2];
+  load_cat_frags<H, K>(bf, t, SP, lane);
+  attentive_pool<H, K>(
+      wst, bf, [&](int k, int j, bool) { return bf16_at(t + k * SP + j); }, agg, lane);
+  __syncwarp();  // agg of the row visible
+  unsigned p;
+  if (pool_mlp<C2, C2>(agg, wp, op, lane, &p)) put(2 * lane, p);
+}
+
+// Pool 2 (RES: + the residual), bfloat16 form. A persistent grid. Without
+// the residual each warp takes a row at a time (rows blockIdx.x * W + warp,
+// + gridDim.x * W, ...); with it the block takes tiles of TR rows (tiles
+// blockIdx.x, + gridDim.x, ...), warp w row w of each. A warp stages its
+// next row by cp.async while it computes the current one: the score dot's B
+// fragments by ldmatrix from the staged [rpe2 | g2], the attentive pooling,
+// pooled = relu(agg @ Wp + op) in float32. With the residual the tile then
+// ends with out = leaky_relu((bf16(pooled) @ Wm + f_in @ Wsh) + off) on the
+// tensor cores, transposed (outᵀ = Wmᵀ·pooledᵀ + Wshᵀ·f_inᵀ: the tile's
+// rows are the mma's n), 16 output channels (an m-tile) a warp, staged in
+// shared memory and stored 16 bytes at a time: two block barriers a tile.
+template <int H, int K, bool RES, int TR>
+__global__ void __launch_bounds__(32 * pool2_warps(H, RES, TR))
+lfa_pool2_mma_kernel(const __nv_bfloat16* __restrict__ rpe2,
+                     const __nv_bfloat16* __restrict__ g2,
+                     const __nv_bfloat16* __restrict__ f_in, const float* __restrict__ consts,
+                     __nv_bfloat16* __restrict__ out, int rows, int F) {
+  constexpr int C2 = 2 * H, C4 = 4 * H, SP = C2 + BF_PAD, SPO = C4 + BF_PAD;
+  constexpr int KS = H / 8, W = pool2_warps(H, RES, TR), NR = TR / 8;
+  const int fp = (F + 15) & ~15, spf = fp + BF_PAD;
+  const Pool2Layout L(H, K, RES, fp, TR);
+  extern __shared__ __align__(16) unsigned char p2m_sm[];
+  __nv_bfloat16* wst = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.wst);
+  float* wp = reinterpret_cast<float*>(p2m_sm + L.wp);
+  float* op = reinterpret_cast<float*>(p2m_sm + L.op);
+  __nv_bfloat16* wmt = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.wmt);
+  __nv_bfloat16* wsht = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.wsht);
+  float* off = reinterpret_cast<float*>(p2m_sm + L.off);
+  __nv_bfloat16* pooled = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.pooled);
+  __nv_bfloat16* fin = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.fin);
+  __nv_bfloat16* ot = reinterpret_cast<__nv_bfloat16*>(p2m_sm + L.out);
+
+  // the constants (Ws | Wp | op [| Wm | Wsh | off]), the dots' matrices
+  // transposed into bfloat16 (exact: the wrapper rounded them); Wshᵀ's
+  // columns and the f_in rows' padding beyond F zero
+  const float* c_wp = consts + C2 * C2;
+  const float* c_op = c_wp + C2 * C2;
+  for (int i = threadIdx.x; i < C2 * C2; i += blockDim.x) {
+    wst[(i % C2) * SP + i / C2] = __float2bfloat16_rn(consts[i]);
+    wp[i] = c_wp[i];
+  }
+  for (int i = threadIdx.x; i < C2; i += blockDim.x) op[i] = c_op[i];
+  if constexpr (RES) {
+    const float* c_wm = c_op + C2;
+    const float* c_wsh = c_wm + C2 * C4;
+    const float* c_off = c_wsh + F * C4;
+    for (int i = threadIdx.x; i < C2 * C4; i += blockDim.x) {
+      wmt[(i % C4) * SP + i / C4] = __float2bfloat16_rn(c_wm[i]);
+    }
+    for (int i = threadIdx.x; i < C4 * fp; i += blockDim.x) {
+      const int o = i / fp, f = i % fp;
+      wsht[o * spf + f] = __float2bfloat16_rn(f < F ? c_wsh[f * C4 + o] : 0.f);
+    }
+    for (int i = threadIdx.x; i < C4; i += blockDim.x) off[i] = c_off[i];
+    for (int i = threadIdx.x; i < 2 * TR * fp; i += blockDim.x) {
+      if (i % fp >= F) fin[(i / fp) * spf + i % fp] = __float2bfloat16_rn(0.f);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  unsigned char* wb = p2m_sm + L.warps + warp * L.warp;
+  float* agg = reinterpret_cast<float*>(wb + L.agg);
+  // row into staging buffer buf: rpe2 and g2 side by side in padded rows,
+  // 16 bytes a copy; with the residual its f_in into row `warp` of f_in
+  // buffer fb, 4 bytes a copy
+  auto issue = [&](int row, int buf, int fb) {
+    if (row >= rows) return;
+    __nv_bfloat16* t = reinterpret_cast<__nv_bfloat16*>(wb + buf * L.stage);
+    const size_t src = static_cast<size_t>(row) * K * H;
+    for (int e = lane; e < K * H / 8; e += 32) {
+      __nv_bfloat16* dst = t + (e / (H / 8)) * SP + 8 * (e % (H / 8));
+      cp_async16(dst, rpe2 + src + 8 * e);
+      cp_async16(dst + H, g2 + src + 8 * e);
+    }
     if constexpr (RES) {
-      pooled[r * C2 + j] = bf16_round(p);
-      __syncthreads();
-      // mlp2 + shortcut + leaky relu: out (TR, 4h), channels j and j + 2h
-      const __nv_bfloat16* fr = fin + buf * TR * F + r * F;
+      __nv_bfloat16* fr = fin + (fb * TR + warp) * spf;
+      for (int e = lane; e < F / 2; e += 32) {
+        cp_async4(fr + 2 * e, f_in + static_cast<size_t>(row) * F + 2 * e);
+      }
+    }
+  };
+  auto stage_of = [&](int buf) {
+    return reinterpret_cast<const __nv_bfloat16*>(wb + buf * L.stage);
+  };
+
+  if constexpr (!RES) {
+    const int nw = gridDim.x * W;
+    int row = blockIdx.x * W + warp;
+    issue(row, 0, 0);
+    cp_async_commit();
+    for (int buf = 0; row < rows; row += nw, buf ^= 1) {
+      issue(row + nw, buf ^ 1, 0);
+      cp_async_commit();
+      cp_async_wait_1();
+      __syncwarp();  // this row's copies, from every lane, visible
+      pool2_row<H, K>(stage_of(buf), wst, wp, op, agg, lane, [&](int o, unsigned p) {
+        *reinterpret_cast<unsigned*>(out + static_cast<size_t>(row) * C2 + o) = p;
+      });
+      __syncwarp();  // the staging buffer and agg free for the rows ahead
+    }
+  } else {
+    const int n_tiles = (rows + TR - 1) / TR;
+    if (blockIdx.x < n_tiles) issue(blockIdx.x * TR + warp, 0, 0);
+    cp_async_commit();
+    for (int tile = blockIdx.x, buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+      const int row = tile * TR + warp;
+      if (tile + gridDim.x < n_tiles) issue(row + gridDim.x * TR, buf ^ 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait_1();
+      __syncwarp();  // this row's copies, from every lane, visible
+      if (row < rows) {
+        pool2_row<H, K>(stage_of(buf), wst, wp, op, agg, lane, [&](int o, unsigned p) {
+          *reinterpret_cast<unsigned*>(pooled + warp * SP + o) = p;
+        });
+      }
+      __syncthreads();  // the tile's pooled and f_in rows visible
+      // mlp2 + shortcut + leaky relu, output channels 16mo.. for mo = warp,
+      // + W, ...
+      const __nv_bfloat16* fr = fin + buf * TR * spf;
+      const int arow = (lane & 7) + 8 * ((lane >> 3) & 1), acol = 8 * (lane >> 4);
+      const int brow = lane & 7, bcol = 8 * ((lane >> 3) & 1);
+      for (int mo = warp; mo < C4 / 16; mo += W) {
+        float pa[NR][4] = {}, pb[NR][4] = {};
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int o = j + t * C2;
-        float pa = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < C2; ++i) pa = fmaf(pooled[r * C2 + i], __ldg(wm + i * C4 + o), pa);
-        float pb = 0.f;
-        for (int f = 0; f < F; ++f) pb = fmaf(__bfloat162float(fr[f]), __ldg(wsh + f * C4 + o), pb);
-        const float res = (pa + pb) + __ldg(off + o);
-        if (row < rows) {
-          out[static_cast<size_t>(row) * C4 + o] =
-              __float2bfloat16_rn(res > 0.f ? res : 0.01f * res);
+        for (int ks = 0; ks < KS; ++ks) {
+          unsigned a[4];
+          ldsm_x4(a, wmt + (16 * mo + arow) * SP + 16 * ks + acol);
+#pragma unroll
+          for (int nr = 0; nr < NR; ++nr) {
+            unsigned b0, b1;
+            ldsm_x2(b0, b1, pooled + (8 * nr + brow) * SP + 16 * ks + bcol);
+            mma_k16(pa[nr], a, b0, b1);
+          }
+        }
+        for (int fs = 0; fs < fp / 16; ++fs) {
+          unsigned a[4];
+          ldsm_x4(a, wsht + (16 * mo + arow) * spf + 16 * fs + acol);
+#pragma unroll
+          for (int nr = 0; nr < NR; ++nr) {
+            unsigned b0, b1;
+            ldsm_x2(b0, b1, fr + (8 * nr + brow) * spf + 16 * fs + bcol);
+            mma_k16(pb[nr], a, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int nr = 0; nr < NR; ++nr) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // channel 16mo + g (+ 8), tile row 8nr + 2q (+ 1)
+            const int o = 16 * mo + gq + 8 * (e >> 1), r = 8 * nr + 2 * q + (e & 1);
+            const float res = (pa[nr][e] + pb[nr][e]) + off[o];
+            ot[r * SPO + o] = __float2bfloat16_rn(res > 0.f ? res : 0.01f * res);
+          }
         }
       }
-    } else if (row < rows) {
-      out[static_cast<size_t>(row) * C2 + j] = __float2bfloat16_rn(p);
+      __syncthreads();  // the tile's output rows staged; pooled and f_in read
+      for (int e = threadIdx.x; e < TR * (C4 / 8); e += blockDim.x) {
+        const int r = e / (C4 / 8), cc = e % (C4 / 8);
+        if (tile * TR + r < rows) {
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(tile * TR + r) * C4 + 8 * cc) =
+              *reinterpret_cast<const uint4*>(ot + r * SPO + 8 * cc);
+        }
+      }
     }
   }
 }
@@ -738,13 +1123,11 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, int n_tiles, int* g
   return 0;
 }
 
-// One launch of lfa_round1_tile_kernel<H, KC> (BF16: of
-// lfa_round1_bf16_tile_kernel<H, KC, MULTI>, MULTI = K > KC, the same rows
-// a tile).
-template <int H, int KC, bool BF16, bool MULTI>
-int launch_round1_tiles(const void* g, const float* d2, const float* center,
-                        const float* consts, void* pooled, void* rpe2, int rows,
-                        int K, cudaStream_t stream) {
+// One launch of lfa_round1_tile_kernel<H, KC>.
+template <int H, int KC>
+int launch_round1_tiles(const float* g, const float* d2, const float* center,
+                        const float* consts, float* pooled, float* rpe2, int rows, int K,
+                        cudaStream_t stream) {
   // at h = 8, half the rows of pool 2's tile: 128-thread blocks, more of
   // them an SM (benchmarks/launch_ab.py times pool 2's tile as
   // r1_full_tile; on an H100 80GB HBM3 at 700 W: 0.0119 against 0.0099 ms
@@ -752,51 +1135,74 @@ int launch_round1_tiles(const void* g, const float* d2, const float* center,
   const int tr = H == 8 ? tile_rows(K, H) / 2 : tile_rows(K, H);
   const int threads = tr * 2 * H;
   const size_t L = static_cast<size_t>(K) * 2 * H;
-  const size_t tile_floats = BF16 ? tr * L + tr * (L + TILE_ROW_PAD) + tr * L / 2
-                                  : 2 * tr * (L + TILE_ROW_PAD);
-  const size_t smem = (tile_floats + 2 * static_cast<size_t>(tr) * (K + H) + round1_consts(H) +
-                       static_cast<size_t>(tr) * 2 * H) *
+  const size_t smem = (2 * tr * (L + TILE_ROW_PAD) + 2 * static_cast<size_t>(tr) * (K + H) +
+                       round1_consts(H) + static_cast<size_t>(tr) * 2 * H) *
                       sizeof(float);
+  const auto kernel = lfa_round1_tile_kernel<H, KC>;
   int grid = 0;
-  const int n_tiles = (rows + tr - 1) / tr;
-  if constexpr (BF16) {
-    const auto kernel = lfa_round1_bf16_tile_kernel<H, KC, MULTI>;
-    const int err = persistent_grid(kernel, threads, smem, n_tiles, &grid);
-    if (err) return err;
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(g), d2, center, consts,
-        static_cast<__nv_bfloat16*>(pooled), static_cast<__nv_bfloat16*>(rpe2), rows, K);
-  } else {
-    const auto kernel = lfa_round1_tile_kernel<H, KC>;
-    const int err = persistent_grid(kernel, threads, smem, n_tiles, &grid);
-    if (err) return err;
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const float*>(g), d2, center, consts, static_cast<float*>(pooled),
-        static_cast<float*>(rpe2), rows, K);
-  }
+  const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
+  if (err) return err;
+  kernel<<<grid, threads, smem, stream>>>(g, d2, center, consts, pooled, rpe2, rows, K);
   return 0;
 }
 
 // K in {8, 16, 32} takes one chunk of K; larger multiples of 32 chunks of 32.
-template <int H, bool BF16>
-int launch_round1_k(const void* g, const float* d2, const float* center,
-                    const float* consts, void* pooled, void* rpe2, int rows, int K,
-                    cudaStream_t s) {
+template <int H>
+int launch_round1_k(const float* g, const float* d2, const float* center, const float* consts,
+                    float* pooled, float* rpe2, int rows, int K, cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_round1_tiles<H, 8, BF16, false>(g, d2, center, consts, pooled, rpe2, rows,
-                                                    K, s);
+      return launch_round1_tiles<H, 8>(g, d2, center, consts, pooled, rpe2, rows, K, s);
     case 16:
-      return launch_round1_tiles<H, 16, BF16, false>(g, d2, center, consts, pooled, rpe2, rows,
-                                                     K, s);
-    case 32:
-      return launch_round1_tiles<H, 32, BF16, false>(g, d2, center, consts, pooled, rpe2, rows,
-                                                     K, s);
+      return launch_round1_tiles<H, 16>(g, d2, center, consts, pooled, rpe2, rows, K, s);
     default:
       if (K < 32 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_round1_tiles<H, 32, BF16, true>(g, d2, center, consts, pooled, rpe2, rows,
-                                                    K, s);
+      return launch_round1_tiles<H, 32>(g, d2, center, consts, pooled, rpe2, rows, K, s);
   }
+}
+
+// One launch of lfa_round1_mma_kernel<H, K>: a persistent grid of
+// bf_warps(H)-warp blocks, no more blocks than a warp a row fills.
+template <int H, int K>
+int launch_round1_mma(const void* g, const float* d2, const float* center, const float* consts,
+                      void* pooled, void* rpe2, int rows, cudaStream_t stream) {
+  constexpr int W = bf_warps(H);
+  const auto kernel = lfa_round1_mma_kernel<H, K>;
+  const size_t smem = Round1Layout<H, K>::bytes();
+  int grid = 0;
+  const int err = persistent_grid(kernel, 32 * W, smem, (rows + W - 1) / W, &grid);
+  if (err) return err;
+  kernel<<<grid, 32 * W, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(g), d2, center, consts,
+      static_cast<__nv_bfloat16*>(pooled), static_cast<__nv_bfloat16*>(rpe2), rows);
+  return 0;
+}
+
+// K in {8, 16, 32}, and at h = 8 also 64 and 128 (the lanes K·2h stay within
+// the 2,048 of lfa_kernels.supports)
+template <int H>
+int launch_round1_mma_k(const void* g, const float* d2, const float* center,
+                        const float* consts, void* pooled, void* rpe2, int rows, int K,
+                        cudaStream_t s) {
+  switch (K) {
+    case 8:
+      return launch_round1_mma<H, 8>(g, d2, center, consts, pooled, rpe2, rows, s);
+    case 16:
+      return launch_round1_mma<H, 16>(g, d2, center, consts, pooled, rpe2, rows, s);
+    case 32:
+      return launch_round1_mma<H, 32>(g, d2, center, consts, pooled, rpe2, rows, s);
+    case 64:
+      if constexpr (H == 8) {
+        return launch_round1_mma<H, 64>(g, d2, center, consts, pooled, rpe2, rows, s);
+      }
+      break;
+    case 128:
+      if constexpr (H == 8) {
+        return launch_round1_mma<H, 128>(g, d2, center, consts, pooled, rpe2, rows, s);
+      }
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool BF16>
@@ -804,13 +1210,17 @@ int launch_round1(const void* g, const float* d2, const float* center, const flo
                   void* pooled, void* rpe2, int rows, int K, int h, void* stream) {
   if (rows == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto m = [](void* p) { return static_cast<float*>(p); };
   int err;
   switch (h) {
     case 8:
-      err = launch_round1_k<8, BF16>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      err = BF16 ? launch_round1_mma_k<8>(g, d2, center, consts, pooled, rpe2, rows, K, s)
+                 : launch_round1_k<8>(f(g), d2, center, consts, m(pooled), m(rpe2), rows, K, s);
       break;
     case 32:
-      err = launch_round1_k<32, BF16>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      err = BF16 ? launch_round1_mma_k<32>(g, d2, center, consts, pooled, rpe2, rows, K, s)
+                 : launch_round1_k<32>(f(g), d2, center, consts, m(pooled), m(rpe2), rows, K, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -819,64 +1229,104 @@ int launch_round1(const void* g, const float* d2, const float* center, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of lfa_pool2_tile_kernel<H, KC, RES> (BF16: of
-// lfa_pool2_bf16_tile_kernel<H, KC, RES, MULTI>, MULTI = K > KC, the same
-// rows a tile).
-template <int H, int KC, bool RES, bool BF16, bool MULTI>
-int launch_pool2_tiles(const void* rpe2, const void* g2, const void* f_in,
-                       const float* consts, void* out, int rows, int K, int F,
+// One launch of lfa_pool2_tile_kernel<H, KC, RES>.
+template <int H, int KC, bool RES>
+int launch_pool2_tiles(const float* rpe2, const float* g2, const float* f_in,
+                       const float* consts, float* out, int rows, int K, int F,
                        cudaStream_t stream) {
   const int tr = tile_rows(K, H);
   const int threads = tr * 2 * H;
   const size_t L = static_cast<size_t>(K) * 2 * H;
-  // BF16: the bfloat16 staging of rpe2 and g2 (2 buffers each) and f_in
-  // (2 buffers) beside one float32 tile
-  const size_t tile_floats = BF16 ? tr * L + tr * (L + TILE_ROW_PAD) : 2 * tr * (L + TILE_ROW_PAD);
-  const size_t fin_floats = RES ? (BF16 ? static_cast<size_t>(tr) * F : 2 * static_cast<size_t>(tr) * F) : 0;
-  const size_t smem = (tile_floats + pool2_head_consts(H) + 4 * static_cast<size_t>(tr) * H +
-                       fin_floats) *
+  const size_t fin_floats = RES ? 2 * static_cast<size_t>(tr) * F : 0;
+  const size_t smem = (2 * tr * (L + TILE_ROW_PAD) + pool2_head_consts(H) +
+                       4 * static_cast<size_t>(tr) * H + fin_floats) *
                       sizeof(float);
+  const auto kernel = lfa_pool2_tile_kernel<H, KC, RES>;
   int grid = 0;
-  const int n_tiles = (rows + tr - 1) / tr;
-  if constexpr (BF16) {
-    const auto kernel = lfa_pool2_bf16_tile_kernel<H, KC, RES, MULTI>;
-    const int err = persistent_grid(kernel, threads, smem, n_tiles, &grid);
-    if (err) return err;
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(rpe2), static_cast<const __nv_bfloat16*>(g2),
-        static_cast<const __nv_bfloat16*>(f_in), consts, static_cast<__nv_bfloat16*>(out),
-        rows, K, F);
-  } else {
-    const auto kernel = lfa_pool2_tile_kernel<H, KC, RES>;
-    const int err = persistent_grid(kernel, threads, smem, n_tiles, &grid);
-    if (err) return err;
-    kernel<<<grid, threads, smem, stream>>>(
-        static_cast<const float*>(rpe2), static_cast<const float*>(g2),
-        static_cast<const float*>(f_in), consts, static_cast<float*>(out), rows, K, F);
-  }
+  const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
+  if (err) return err;
+  kernel<<<grid, threads, smem, stream>>>(rpe2, g2, f_in, consts, out, rows, K, F);
   return 0;
 }
 
 // K in {8, 16, 32} takes one chunk of K; larger powers of two chunks of 32.
-template <int H, bool RES, bool BF16>
-int launch_pool2_k(const void* rpe2, const void* g2, const void* f_in,
-                   const float* consts, void* out, int rows, int K, int F,
-                   cudaStream_t s) {
+template <int H, bool RES>
+int launch_pool2_k(const float* rpe2, const float* g2, const float* f_in, const float* consts,
+                   float* out, int rows, int K, int F, cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_pool2_tiles<H, 8, RES, BF16, false>(rpe2, g2, f_in, consts, out, rows, K,
-                                                        F, s);
+      return launch_pool2_tiles<H, 8, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
     case 16:
-      return launch_pool2_tiles<H, 16, RES, BF16, false>(rpe2, g2, f_in, consts, out, rows, K,
-                                                         F, s);
-    case 32:
-      return launch_pool2_tiles<H, 32, RES, BF16, false>(rpe2, g2, f_in, consts, out, rows, K,
-                                                         F, s);
+      return launch_pool2_tiles<H, 16, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
     default:
       if (K < 32 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_pool2_tiles<H, 32, RES, BF16, true>(rpe2, g2, f_in, consts, out, rows, K,
-                                                        F, s);
+      return launch_pool2_tiles<H, 32, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
   }
+}
+
+// One launch of lfa_pool2_mma_kernel<H, K, RES, TR>: a persistent grid of
+// pool2_warps(H, RES, TR)-warp blocks.
+template <int H, int K, bool RES, int TR>
+int launch_pool2_mma_tiles(const void* rpe2, const void* g2, const void* f_in,
+                           const float* consts, void* out, int rows, int F,
+                           cudaStream_t stream) {
+  constexpr int W = pool2_warps(H, RES, TR);
+  const auto kernel = lfa_pool2_mma_kernel<H, K, RES, TR>;
+  const size_t smem = Pool2Layout(H, K, RES, (F + 15) & ~15, TR).bytes(W);
+  // blocks: one a tile with the residual, else one a row a warp
+  const int n_tiles = RES ? (rows + TR - 1) / TR : (rows + W - 1) / W;
+  int grid = 0;
+  const int err = persistent_grid(kernel, 32 * W, smem, n_tiles, &grid);
+  if (err) return err;
+  kernel<<<grid, 32 * W, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(rpe2), static_cast<const __nv_bfloat16*>(g2),
+      static_cast<const __nv_bfloat16*>(f_in), consts, static_cast<__nv_bfloat16*>(out), rows,
+      F);
+  return 0;
+}
+
+// The residual's tile: BF_TILE_ROWS_H8 rows at h = 8; at h = 32
+// BF_TILE_ROWS_H32 where a block of as many warps fits the card's shared
+// memory, else 8 (one n-tile).
+template <int H, int K, bool RES>
+int launch_pool2_mma(const void* rpe2, const void* g2, const void* f_in, const float* consts,
+                     void* out, int rows, int F, cudaStream_t stream) {
+  if constexpr (RES && H == 8) {
+    return launch_pool2_mma_tiles<H, K, RES, BF_TILE_ROWS_H8>(rpe2, g2, f_in, consts, out, rows,
+                                                             F, stream);
+  }
+  if constexpr (RES && H == 32) {
+    constexpr int TR = BF_TILE_ROWS_H32;
+    int device = 0, optin = 0;
+    int err = cudaGetDevice(&device);
+    if (!err) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err) return err;
+    if (Pool2Layout(H, K, RES, (F + 15) & ~15, TR).bytes(TR) <= static_cast<size_t>(optin)) {
+      return launch_pool2_mma_tiles<H, K, RES, TR>(rpe2, g2, f_in, consts, out, rows, F, stream);
+    }
+  }
+  return launch_pool2_mma_tiles<H, K, RES, 8>(rpe2, g2, f_in, consts, out, rows, F, stream);
+}
+
+// K as launch_round1_mma_k
+template <int H, bool RES>
+int launch_pool2_mma_k(const void* rpe2, const void* g2, const void* f_in, const float* consts,
+                       void* out, int rows, int K, int F, cudaStream_t s) {
+  switch (K) {
+    case 8:
+      return launch_pool2_mma<H, 8, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+    case 16:
+      return launch_pool2_mma<H, 16, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+    case 32:
+      return launch_pool2_mma<H, 32, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+    case 64:
+      if constexpr (H == 8) return launch_pool2_mma<H, 64, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      break;
+    case 128:
+      if constexpr (H == 8) return launch_pool2_mma<H, 128, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool RES, bool BF16>
@@ -886,13 +1336,18 @@ int launch_pool2(const void* rpe2, const void* g2, const void* f_in,
   if (rows == 0) return 0;
   if (BF16 && F % 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   int err;
   switch (h) {
     case 8:
-      err = launch_pool2_k<8, RES, BF16>(rpe2, g2, f_in, consts, out, rows, K, F, s);
+      err = BF16 ? launch_pool2_mma_k<8, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s)
+                 : launch_pool2_k<8, RES>(f(rpe2), f(g2), f(f_in), consts,
+                                          static_cast<float*>(out), rows, K, F, s);
       break;
     case 32:
-      err = launch_pool2_k<32, RES, BF16>(rpe2, g2, f_in, consts, out, rows, K, F, s);
+      err = BF16 ? launch_pool2_mma_k<32, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s)
+                 : launch_pool2_k<32, RES>(f(rpe2), f(g2), f(f_in), consts,
+                                           static_cast<float*>(out), rows, K, F, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -118,6 +118,26 @@ def ptxas_report(names) -> list:
     return lines
 
 
+def sass_counts(names, opcode: str) -> dict:
+    """Per compiled kernel whose (mangled) name contains one of ``names``:
+    the number of ``opcode`` instructions (e.g. ``HMMA``, the tensor cores'
+    matrix multiply-accumulate) in the library's SASS, read with the
+    ``cuobjdump`` of the toolkit that built it."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(build())], check=True,
+                         capture_output=True, text=True)
+    counts, kernel = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            kernel = name if any(n in name for n in names) else None
+            if kernel:
+                counts[kernel] = 0
+        elif kernel and f" {opcode}" in line:
+            counts[kernel] += 1
+    return counts
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {

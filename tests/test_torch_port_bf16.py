@@ -3,10 +3,11 @@
 The fused LFA kernels' bfloat16 forms (plain versions) against the Pallas
 kernels compiled with ``io = bfloat16`` in interpret mode, LFA blocks (fused
 and unfused) and the whole RandLA-Net in bfloat16 against the JAX package's
-bfloat16 forward, the archive round trip, and what bfloat16 leaves alone
-(the neighbour search, training). Blocks and the model are held nearer
-JAX's bfloat16 forward than its float32 one; the port's float32 forward,
-the control, is not.
+bfloat16 forward, the rule that holds the card's bfloat16 logits against
+the CPU's (``bf16_card_vs_cpu.logits_agree``), the archive round trip, and
+what bfloat16 leaves alone (the neighbour search, training). Blocks and the
+model are held nearer JAX's bfloat16 forward than its float32 one; the
+port's float32 forward, the control, is not.
 
 Tolerances. Where both sides round the same float32 value to bfloat16, a
 float32 difference from another summation order moves the result by at most
@@ -37,6 +38,7 @@ from recognizer3d_tpu.models.facade import Model as JaxModel
 from recognizer3d_tpu.models.settings import RandLANetSettings as JaxSettings
 from recognizer3d_tpu.ops import lfa_pallas
 from recognizer3d_tpu_torch import Model, Predictor, RandLANetSettings
+from recognizer3d_tpu_torch.benchmarks.bf16_card_vs_cpu import logits_agree
 from recognizer3d_tpu_torch.data import pipeline
 from recognizer3d_tpu_torch.models.live import LivePredictor
 from recognizer3d_tpu_torch.models import randlanet as port_rl
@@ -263,11 +265,37 @@ def _app_inputs(n=2048):
     return frame[None], perm
 
 
-def test_model_bf16_matches_jax_at_app_widths(force_fused):
-    """The whole RandLA-Net at the app widths (K=32, decimation 4, layers
-    [16, 64, 128, 256]) with the bundled weights on a 2,048-point mock
-    frame, bfloat16 on both sides (JAX on ``knn="pallas"``, its fused
-    levels in interpret mode). Judged on the logits by
+@pytest.fixture(scope="module")
+def app_logits():
+    """The logits (1, 2, 2048) of the whole RandLA-Net at the app widths
+    (K=32, decimation 4, layers [16, 64, 128, 256]) with the bundled
+    weights on a 2,048-point mock frame: keys (side, dtype), side "jax" (on
+    ``knn="pallas"``, its fused levels in interpret mode; bfloat16 compiled
+    strict) or "port", dtype "float32" or "bfloat16"."""
+    inputs, perm = _app_inputs()
+    variables = _flax_variables()
+    kwargs = dict(n_classes=2, n_points=2048, layer_sizes=[16, 64, 128, 256], knn="pallas")
+    logits = {}
+    jax_rl.FORCE_FUSED_LFA_INTERPRET = True
+    try:
+        for dtype, jit in (("float32", jax.jit), ("bfloat16", _jit_bf16)):
+            net = jax_rl.RandLANet(JaxSettings(**kwargs, compute_dtype=dtype))
+            logits["jax", dtype] = np.asarray(
+                jit(net.apply)(variables, jnp.asarray(inputs), jnp.asarray(perm)), np.float64
+            )
+            port = Model.load(ARCHIVE, device="cpu", compute_dtype=dtype, n_points=2048)
+            with torch.inference_mode():
+                out = port.module(torch.from_numpy(inputs), torch.from_numpy(perm))
+            assert out.dtype == torch.float32 and out.shape == (1, 2, 2048)
+            logits["port", dtype] = out.numpy().astype(np.float64)
+    finally:
+        jax_rl.FORCE_FUSED_LFA_INTERPRET = False
+    return logits
+
+
+def test_model_bf16_matches_jax_at_app_widths(app_logits):
+    """The whole RandLA-Net at the app widths, bfloat16 on both sides
+    (``app_logits``). Judged on the logits by
     ``_assert_rounds_as_jax_bf16`` (measured: mean |Δ| from JAX's bfloat16
     1.3e-3, max 0.125; JAX's bfloat16 from float32 1.56e-2, and the port's
     float32 from JAX's bfloat16 as far: the blocks round as JAX's do, and a
@@ -275,20 +303,7 @@ def test_model_bf16_matches_jax_at_app_widths(force_fused):
     confidences: the port's bfloat16 within max 5.5e-5, mean 3.3e-8 of
     JAX's (limits 5e-3 and 1e-5), its mean distance from JAX's float32
     2.0e-7 against JAX's bfloat16's 1.8e-7 (limit 1.1 times JAX's + 1e-4)."""
-    inputs, perm = _app_inputs()
-    variables = _flax_variables()
-    kwargs = dict(n_classes=2, n_points=2048, layer_sizes=[16, 64, 128, 256], knn="pallas")
-    logits = {}
-    for dtype, jit in (("float32", jax.jit), ("bfloat16", _jit_bf16)):
-        net = jax_rl.RandLANet(JaxSettings(**kwargs, compute_dtype=dtype))
-        logits["jax", dtype] = np.asarray(
-            jit(net.apply)(variables, jnp.asarray(inputs), jnp.asarray(perm)), np.float64
-        )
-        port = Model.load(ARCHIVE, device="cpu", compute_dtype=dtype, n_points=2048)
-        with torch.inference_mode():
-            out = port.module(torch.from_numpy(inputs), torch.from_numpy(perm))
-        assert out.dtype == torch.float32 and out.shape == (1, 2, 2048)
-        logits["port", dtype] = out.numpy().astype(np.float64)
+    logits = app_logits
     _assert_rounds_as_jax_bf16(logits["port", "bfloat16"], logits["port", "float32"],
                                logits["jax", "bfloat16"], logits["jax", "float32"])
     conf = {key: torch.softmax(torch.from_numpy(v), dim=1).numpy() for key, v in logits.items()}
@@ -297,6 +312,21 @@ def test_model_bf16_matches_jax_at_app_widths(force_fused):
     err_port = np.mean(np.abs(conf["port", "bfloat16"] - conf["jax", "float32"]))
     err_jax = np.mean(np.abs(conf["jax", "bfloat16"] - conf["jax", "float32"]))
     assert err_port <= 1.1 * err_jax + 1e-4, (err_port, err_jax)
+
+
+@pytest.mark.parametrize("other,agrees", [(("jax", "bfloat16"), True),
+                                          (("port", "float32"), False)])
+def test_bf16_logits_rule_tells_bf16_from_f32(app_logits, other, agrees):
+    """``bf16_card_vs_cpu.logits_agree``, the rule that holds the card's
+    bfloat16 logits against the CPU's on every frame, on the app-width
+    logits of ``app_logits``: JAX's strict bfloat16 logits, which differ
+    from the port's only by the order of sums, meet it against the port's
+    bfloat16 logits; the port's float32 logits (the control) miss it.
+    Measured: 2.0 bfloat16 ulps of the largest |logit| and a mean |Δ| of
+    1.7e-4 of the mean |logit| against JAX's bfloat16; 2.4 ulps and 2.0e-3
+    against the port's float32."""
+    ok, reading = logits_agree(app_logits[other][0], app_logits["port", "bfloat16"][0])
+    assert ok == agrees, reading
 
 
 def test_bf16_dense_copies_are_cast_once_and_follow_the_weights():

@@ -10,8 +10,9 @@ and its streaming kernel for the largest supports, the round-1 kernel on
 ragged row tiles at every neighbour count it takes, the window kernel on
 Morton-sorted clouds at every window of the recall guard's ladder, the
 pool-2 kernels on ragged row tiles and other neighbour counts, the bfloat16
-forms of the three LFA kernels on ragged row tiles, batches and other
-neighbour counts (and their refusals of mixed dtypes), the 1-NN
+forms of the three LFA kernels (on the tensor cores) on row counts that fill
+no warp's or block's tile, batches, every neighbour count and both widths
+(and their refusals of mixed dtypes), the 1-NN
 kernel on sorted, unsorted, tied, duplicated, flat and far inputs at
 supports of 1 to 65,536 points (ordered in shared memory or by its own
 launch), the bitonic stage kernel at other shapes and stage counts, one small live depth frame
@@ -349,15 +350,22 @@ def _assert_bf16_close(got, ref):
     [(b, n, h, k, f) for b, n in ((1, 1), (1, 77), (3, 301), (1, 16387))
      for h, k, f in ((8, 32, 8), (32, 32, 32))]
     + [(1, 77, 8, 8, 8), (2, 300, 8, 16, 6), (1, 77, 8, 64, 8), (1, 41, 8, 128, 8),
-       (1, 40, 32, 8, 8), (3, 77, 32, 16, 32)],
+       (1, 40, 32, 8, 8), (3, 77, 32, 16, 32)]
+    # the tensor-core design's edges: rows that fill no warp's tile of 8
+    # (1, 17, 1,001), batches 1 and 3, every K at both h, F = 8 and 32
+    + [(b, n, h, k, f) for b, n in ((1, 17), (3, 1001)) for h, ks in ((8, (8, 16, 32, 64)),
+                                                                      (32, (8, 16, 32)))
+       for k in ks for f in (8, 32)]
+    + [(3, 17, 8, 128, 32), (1, 1001, 8, 128, 8), (3, 1, 32, 32, 8), (3, 1, 8, 64, 32)],
 )
 def test_bf16_lfa_kernels_match_plain(dev, b, n, h, k, f):
     """The bfloat16 forms of B2, B3 and B5 against their plain versions:
-    row counts that are no multiple of the row tile, batches, h = 8 and 32,
-    K of one softmax chunk (8, 16, 32) and of several (64, 128, where the
-    scores are computed again against the final maximum), and an F (6)
-    that is no multiple of 8. Each form is launched once, under its own
-    launch count."""
+    row counts that are no multiple of a warp's tile (8 rows for pool 2 with
+    the residual) or of a block's warps, batches, h = 8 and 32, K of one
+    softmax chunk (8, 16, 32) and of several (64, 128, where the scores are
+    computed again against the final maximum), F of one padded k-step (6,
+    8) and of two (32). Each form is launched once, under its own launch
+    count."""
     rng = np.random.RandomState(b + n + h + k + f)
     c2 = 2 * h
     r1 = _round1_args(rng, dev, b, n, h, k)
