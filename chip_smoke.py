@@ -23,15 +23,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``bench.py``'s ``settings64a``): the bundled weights are loaded with
    those settings and saved under ``build/``, and ``Predictor`` of that
    archive answers mock frames of 150,000 points, launch counts checked per
-   frame as in 3. It prints the recall guard's result, the window's sampled
-   recall on the first frame, the frame p50, the card against the CPU on one
-   frame, and the sampled recall of the default window on the gaussian
-   probe ``0.2·randn(65536, 3)`` (seed 0) that ``bench.py`` reports;
+   frame as in 3. The session recall guard is reset before the path, and
+   ``Predictor`` keeps its warm-up out of it, so the guard probes the first
+   (seeded) frame, answered before the counted ones: the window it settles
+   on is the same in every process. It prints the recall guard's result,
+   the session window and exact fallback after that frame, the window's
+   sampled recall on the first frame, the frame p50, the card against the
+   CPU on one frame, and the sampled recall of the default window on the
+   gaussian probe ``0.2·randn(65536, 3)`` (seed 0) that ``bench.py``
+   reports;
 4b. the bfloat16 compute mode (``compute_dtype="bfloat16"``) on both
    configurations: the bundled weights loaded with it (app-bf16), and with
    it and ``settings64a`` (approx64k-bf16, the config of
    ``benchmarks/validate_bf16.py``), saved under ``build/``; ``Predictor`` of
-   each archive answers the frames of 3 and 4, launch counts checked per
+   each archive answers the frames of 3 and 4 (approx64k-bf16 after the
+   guard was reset and has probed its first frame, as in 4), launch counts checked per
    frame (the LFA kernels' bfloat16 forms 2 and 2, their float32 forms 0,
    the KNN kernels as in float32), frame p50 printed. On every frame the
    card is held against the CPU port in bfloat16 by
@@ -49,6 +55,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    held against the CPU port given the same uniform draw and permutation:
    selected indices equal, the float32 cloud within one ulp, packed xyz
    within one float16 ulp, masks equal away from the threshold;
+5b. the app entry point, ``recognizer3d_tpu_torch.app.App``, under the
+   repository's tkinter and vispy stubs (``tests/_tk_stub.py``,
+   ``tests/_vispy_stub.py``; a headless GPU machine need not have vispy), run from
+   ``build/app/``, whose ``data/mock`` holds seeded mock frames of 60,000
+   points and whose ``models/`` holds a copy of the bundled archive. The
+   cloud branch (``MockRealsenseCamera``, ``Predictor``) and then the depth
+   branch (``RECOGNIZER3D_MOCK_DEPTH=1``: ``DepthReplayCamera``,
+   ``LivePredictor`` at the camera's intrinsics): Predict toggled on at the
+   control bar, 10 predicting ticks, each made due at once with every
+   launch count set to 0 before it; each tick must launch its branch's
+   path (the app path's kernels, or the live path's), and the tick wall's
+   p50 is printed. The cloud branch's last tick (numpy seed 3) is held
+   against the CPU port's ``Predictor`` on its frame and seed: masks equal
+   where the CPU's class-1 confidence lies more than 1e-4 from the
+   threshold, confidences within 1e-4. Escape must exit the app and stop
+   its camera;
+5c. ``knn="kdtree"``: the bundled weights loaded with it and saved under
+   ``build/``; ``Predictor`` answers 3 frames of 3's, each launching B1 0
+   times (the host KD-tree searches every encoder level and decoder
+   upsampling), B2 2, B3 2 and B4 1 (the final upsample takes the exact
+   "naive" route); the host tree's calls and host time a frame and the
+   frame p50 are printed, and one frame on the card is held against the CPU
+   port as in 3 (the same host tree on both sides);
 6. B7's entry point: the table of
    ``recognizer3d_tpu_torch.benchmarks.bench_roll_stages`` at
    (512, 128, 1024), with the launch counts set to 0 before it;
@@ -113,6 +142,7 @@ import sys
 import time
 from datetime import datetime, timedelta
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -170,6 +200,22 @@ ROLL_STAGES = (1, 5, 15, 45)
 ROLL_TABLE_LAUNCHES = 5 * 2 * 5
 
 TORCH_ARCHIVE = ROOT / "build" / "torch_archive" / "mock_fingertip_reference"
+
+# the app entry point (recognizer3d_tpu_torch.app.App) under the repository's
+# tkinter and vispy stubs, run from APP_DIR: its data/mock holds APP_CLOUDS
+# seeded mock frames of FRAME_POINTS points, its models/ a copy of the bundled
+# archive. Each branch is timed over APP_TICKS predicting ticks, each made due
+# at once; a tick launches the kernels of the branch's path
+APP_DIR = ROOT / "build" / "app"
+APP_CLOUDS = 4
+APP_TICKS = 10
+APP_MODEL = "2026_01_01__00_00_00_000000000"
+
+# knn="kdtree": the bundled weights with the host KD-tree in every encoder
+# level and decoder upsampling, the final upsample on the exact "naive" route
+KDTREE_ARCHIVE = ROOT / "build" / "kdtree" / "mock_fingertip_kdtree"
+KDTREE_FRAMES = 3
+PER_FRAME_KDTREE = {"lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
 
 # the train path: the app's recipe (recognizer3d_tpu_torch.train.run_training)
 # on an annotated mock dataset, 2 epochs; 12 clouds split 9 / 3, so 3 steps
@@ -459,6 +505,18 @@ def _drive(torch, build, predictor, frames, per_frame, label):
           f"p50 {statistics.median(latencies):.3f} ms; positives "
           f"{[int(m.sum()) for m in masks]}", flush=True)
     return latencies, masks, totals
+
+
+def _probe_first_frame(torch, port_knn, predictor, frame, label):
+    """The first frame of an approximate path, after the guard was reset:
+    ``Predictor`` keeps its warm-up out of the session recall guard, so the
+    guard probes this (seeded) frame, and the window it settles on is the
+    same in every process. Prints the window and the exact fallback."""
+    predictor.predict(frame)
+    torch.cuda.synchronize()
+    print(f"{label}: recall guard on the first frame: {predictor.model.recall_guard_result}; "
+          f"session window {port_knn.session_window_points()}, exact fallback "
+          f"{port_knn.session_exact_fallback()}", flush=True)
 
 
 def _card_vs_cpu(Model, archive, frame, label):
@@ -975,6 +1033,178 @@ def _live_card_vs_cpu(torch, Model, pipeline, LivePredictor, live, intr, depth):
           f"{int(mask_cpu.sum())} positives)", flush=True)
 
 
+def _write_app_dir(make_frame) -> None:
+    """The app's working directory: seeded mock frames in ``data/mock`` and
+    the bundled archive in ``models/``."""
+    from recognizer3d_tpu_torch.data.dataset import Dataset
+
+    if APP_DIR.exists():
+        shutil.rmtree(APP_DIR)
+    ds = Dataset(APP_DIR / "data" / "mock", only_annotated=False)
+    t0 = datetime(2026, 1, 1, 12, 0, 0)
+    for i in range(APP_CLOUDS):
+        ds[t0 + timedelta(seconds=i)] = make_frame(np.random.RandomState(900 + i), 0.45 * i,
+                                                   FRAME_POINTS)[0]
+    (APP_DIR / "models").mkdir()
+    shutil.copy(ARCHIVE, APP_DIR / "models" / APP_MODEL)
+
+
+def _app_entry_point(torch, build, Predictor, depth):
+    """``recognizer3d_tpu_torch.app.App`` on the card under the tkinter and
+    vispy stubs, from ``APP_DIR``: a mock camera over its frames (with
+    ``RECOGNIZER3D_MOCK_DEPTH=1`` for the depth branch), Predict toggled on
+    at the control bar, then APP_TICKS predicting ticks, each made due at
+    once, with every launch count set to 0 before each. Each tick must
+    launch the branch path's kernels (the app's tick prints an error and
+    goes on, so a tick that failed shows here as missing launches or an
+    unchanged prediction panel). The cloud branch's last tick runs after
+    ``np.random.seed(3)``: its mask must equal the CPU port's
+    ``Predictor`` on that frame and seed where the CPU's class-1
+    confidence lies more than 1e-4 from the threshold, and the card's
+    confidences must lie within 1e-4 of the CPU's. Returns the launches
+    summed over the ticks."""
+    import importlib
+
+    import pytest
+
+    from tests import _tk_stub, _vispy_stub
+
+    label = "app entry point, " + ("depth branch" if depth else "cloud branch")
+    per_tick = PER_FRAME_LIVE if depth else PER_FRAME
+    patch = pytest.MonkeyPatch()
+    try:
+        _vispy_stub.install(patch)
+        tk = _tk_stub.install(patch)
+        for name in ("recognizer3d_tpu_torch.app", "recognizer3d_tpu_torch.ui.scene",
+                     "recognizer3d_tpu_torch.ui.controls"):
+            patch.delitem(sys.modules, name, raising=False)
+        app_module = importlib.import_module("recognizer3d_tpu_torch.app")
+        camera_pkg = importlib.import_module("recognizer3d_tpu_torch.camera")
+        patch.setattr(camera_pkg, "MOCK_DATA_SEARCH_PATH", (str(APP_DIR / "data" / "mock"),))
+        if depth:
+            patch.setenv("RECOGNIZER3D_MOCK_DEPTH", "1")
+        else:
+            patch.delenv("RECOGNIZER3D_MOCK_DEPTH", raising=False)
+        patch.chdir(APP_DIR)
+        window = tk.Tk()
+        app = app_module.App(window)
+        app.controls.refresh_model_name()
+        _tk_stub.run_scheduled()  # the first tick: the live panel, no prediction
+        t0 = time.perf_counter()
+        app.controls._predict_button.invoke()  # Predict on: builds and warms the predictor
+        torch.cuda.synchronize()
+        predictor = app._live_predictor if depth else app._predictor
+        if predictor is None or app.controls._predict_button.config("relief")[-1] != "sunken":
+            raise RuntimeError(f"{label}: Predict was not toggled on")
+        print(f"{label}: App on {app.device} over {type(app.camera).__name__}, model "
+              f"{app.controls.model_name}, {type(predictor).__name__} ready in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        walls, totals, shown = [], {}, None
+        for tick in range(APP_TICKS):
+            app._next_prediction_due = 0.0
+            if tick == APP_TICKS - 1:
+                np.random.seed(3)
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t = time.perf_counter()
+            _tk_stub.run_scheduled()
+            walls.append((time.perf_counter() - t) * 1e3)
+            launches = dict(build.LAUNCHES)
+            mask = app.scene.prediction.get_overlay("prediction")
+            if launches != per_tick or mask is shown or app._next_prediction_due == 0.0:
+                raise RuntimeError(f"{label}: tick {tick}: launches {launches}, expected "
+                                   f"{per_tick}, or no new prediction")
+            shown = mask
+            for name, count in launches.items():
+                totals[name] = totals.get(name, 0) + count
+        cloud = app.scene.prediction.cloud
+        n = LIVE_DISPLAY if depth else FRAME_POINTS
+        if cloud.shape != (n, 3) or mask.shape != (n,) or mask.dtype != np.bool_:
+            raise RuntimeError(f"{label}: panel cloud {cloud.shape}, mask {mask.shape} {mask.dtype}")
+        if not 0 < mask.sum() < n:
+            raise RuntimeError(f"{label}: degenerate mask: {int(mask.sum())} positives")
+        print(f"{label}: {APP_TICKS} predicting ticks, launches {totals}; tick wall ms "
+              f"{[round(x, 3) for x in walls]}; p50 {statistics.median(walls):.3f} ms; "
+              f"positives of the last {int(mask.sum())} of {n}", flush=True)
+        if not depth:
+            _app_tick_vs_cpu(Predictor, app, cloud, mask, label)
+        try:
+            window.fire_event("<Escape>", None)
+        except SystemExit:
+            pass  # Escape exits the app
+        else:
+            raise RuntimeError(f"{label}: Escape did not exit the app")
+        if app.camera._running or not window.withdrawn:
+            raise RuntimeError(f"{label}: Escape left the camera running or the window shown")
+    finally:
+        patch.undo()
+        for name in ("recognizer3d_tpu_torch.app", "recognizer3d_tpu_torch.ui.scene",
+                     "recognizer3d_tpu_torch.ui.controls"):
+            sys.modules.pop(name, None)
+    return totals
+
+
+def _app_tick_vs_cpu(Predictor, app, frame, mask, label):
+    """The cloud branch's last tick (``np.random.seed(3)``) against the CPU
+    port's ``Predictor`` of the same archive on the same frame and seed."""
+    archive = APP_DIR / "models" / APP_MODEL
+    cpu = Predictor(archive, device="cpu", warmup_points=FRAME_POINTS)
+    np.random.seed(3)
+    conf_cpu = cpu.model.predict(frame)
+    np.random.seed(3)
+    conf_gpu = app._predictor.model.predict(frame)
+    near = np.abs(conf_cpu[1] - 0.5) <= 1e-4
+    conf_err = float(np.abs(conf_gpu - conf_cpu).max())
+    mask_diff = int((mask != (conf_cpu[1] > 0.5))[~near].sum())
+    if conf_err > 1e-4 or mask_diff:
+        raise RuntimeError(f"{label}: card vs CPU: max abs conf err {conf_err}, {mask_diff} mask "
+                           f"points of the tick differ")
+    print(f"{label}: the last tick's mask equals the CPU port's Predictor on its frame and seed "
+          f"({int(near.sum())} points within 1e-4 of the threshold); confidences max abs err "
+          f"{conf_err:.3g}", flush=True)
+
+
+def _kdtree_path(torch, build, Model, Predictor, frames):
+    """``knn="kdtree"``: the bundled weights loaded with it and saved under
+    ``build/``; ``Predictor`` of that archive answers KDTREE_FRAMES frames on
+    the card, launch counts checked per frame (B1 0: the host tree searches
+    the encoder levels and decoder upsamplings; B4 1: the final upsample
+    takes "naive"), and the host tree's calls and seconds counted per frame.
+    One frame on the card against the CPU port. Returns the launches."""
+    from recognizer3d_tpu_torch.ops import knn_cpp
+
+    Model.load(ARCHIVE, device="cuda", knn="kdtree").save(KDTREE_ARCHIVE)
+    predictor = Predictor(KDTREE_ARCHIVE, warmup_points=FRAME_POINTS)
+    host = []  # per frame, the seconds of each host tree call
+    tree = knn_cpp.knn_kdtree
+
+    def timed(*args):
+        t = time.perf_counter()
+        out = tree(*args)
+        host[-1].append(time.perf_counter() - t)
+        return out
+
+    def predict(frame):
+        host.append([])
+        return predictor.predict(frame)
+
+    knn_cpp.knn_kdtree = timed
+    try:
+        _, _, launches = _drive(torch, build, SimpleNamespace(predict=predict),
+                                frames[:KDTREE_FRAMES], PER_FRAME_KDTREE, "kdtree")
+    finally:
+        knn_cpp.knn_kdtree = tree
+    calls = [len(h) for h in host]
+    host_ms = [sum(h) * 1e3 for h in host]
+    if min(calls) < 1:
+        raise RuntimeError(f"kdtree: the host tree ran {calls} times a frame")
+    print(f"kdtree: host KD-tree calls a frame {calls}; their host time a frame (the copies to "
+          f"and from the card included) ms {[round(x, 3) for x in host_ms]}, p50 "
+          f"{statistics.median(host_ms):.3f}", flush=True)
+    _card_vs_cpu(Model, KDTREE_ARCHIVE, frames[1], "kdtree")
+    return launches
+
+
 def _torch_archive(torch, Model, model, frame):
     """The bundled weights re-saved as a reference-layout torch archive and
     loaded on the card: the same state and the same predictions."""
@@ -1286,8 +1516,8 @@ def main() -> None:
     settings = predictor64.model.settings
     print(f"approx64k: Predictor of {APPROX_ARCHIVE.relative_to(ROOT)} (knn={settings.knn}, "
           f"n_points={settings.n_points}, K={settings.n_neighbors}, layers "
-          f"{settings.layer_sizes}) ready in {time.perf_counter() - t0:.3f} s; recall guard "
-          f"on its warm-up cloud: {predictor64.model.recall_guard_result}", flush=True)
+          f"{settings.layer_sizes}) ready in {time.perf_counter() - t0:.3f} s", flush=True)
+    _probe_first_frame(torch, port_knn, predictor64, frames64[0], "approx64k")
     _, _, launches64 = _drive(torch, _build, predictor64, frames64, PER_FRAME_64K,
                               "approx64k")
     for name, count in launches64.items():
@@ -1319,6 +1549,8 @@ def main() -> None:
         s_bf = predictor_bf.model.settings
         print(f"{label}: Predictor of {archive.relative_to(ROOT)} (compute_dtype="
               f"{s_bf.compute_dtype}, knn={s_bf.knn}, n_points={s_bf.n_points})", flush=True)
+        if s_bf.knn == "approximate":
+            _probe_first_frame(torch, port_knn, predictor_bf, path_frames[0], label)
         _, _, launches_bf = _drive(torch, _build, predictor_bf, path_frames, per_frame, label)
         for name, count in launches_bf.items():
             launches[name] = launches.get(name, 0) + count
@@ -1332,6 +1564,16 @@ def main() -> None:
         torch, _build, Model, pipeline, LivePredictor, make_frame
     )
     for name, count in launches_live.items():
+        launches[name] = launches.get(name, 0) + count
+
+    # --- 5b. the app entry point: cloud and depth branches ---------------------
+    _write_app_dir(make_frame)
+    for depth in (False, True):
+        for name, count in _app_entry_point(torch, _build, Predictor, depth).items():
+            launches[name] = launches.get(name, 0) + count
+
+    # --- 5c. knn="kdtree" -------------------------------------------------------
+    for name, count in _kdtree_path(torch, _build, Model, Predictor, frames).items():
         launches[name] = launches.get(name, 0) + count
 
     # --- 6. B7's entry point ------------------------------------------------

@@ -2,6 +2,7 @@
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 profile_port.py [app|approx64k|live|train|app-bf16|approx64k-bf16 ...]
+                            [--expect-window W]
 
 For each path named (the first four by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
@@ -27,11 +28,20 @@ traced wall time, the device kernels and copies per frame, the host's
 ``cudaLaunchKernel`` calls per frame, and the operators and kernels with
 the most device time. The card's name and power
 limit come first.
+
+The session recall guard of ``knn="approximate"`` is process-global and
+only widens, so each approximate path (approx64k, approx64k-bf16) resets it
+before its first frame, which the guard then probes; the frames are seeded,
+so a path settles on the same window in every process. The script prints
+each such path's window and exact fallback, and fails if a path is
+profiled at another window than it settled on, or, with
+``--expect-window W``, at another window than W: an A/B of two trees runs
+both sides at one window.
 """
 
+import argparse
 import statistics
 import subprocess
-import sys
 import time
 
 import numpy as np
@@ -135,7 +145,14 @@ def main() -> None:
     from recognizer3d_tpu_torch.data import pipeline
     from recognizer3d_tpu_torch.models.live import LivePredictor
 
-    paths = sys.argv[1:] or ["app", "approx64k", "live", "train"]
+    from recognizer3d_tpu_torch.ops import knn as port_knn
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("paths", nargs="*", default=["app", "approx64k", "live", "train"])
+    parser.add_argument("--expect-window", type=int, default=None,
+                        help="fail unless every approximate path settles on this window")
+    args = parser.parse_args()
+    paths = args.paths
     print(f"gpu: {_gpu_line()}", flush=True)
     make_frame = _make_frame()
     runs = []
@@ -171,10 +188,23 @@ def main() -> None:
             runs.append((Predictor(archive, warmup_points=points).predict, clouds, path))
     # every untraced timing first: a profiler session slows the launches
     # that follow it in the process
-    for run in runs:
-        _time(torch, *run)
-    for run in runs:
-        _profile(torch, *run)
+    windows = {}
+    for predict, frames, path in runs:
+        if path.startswith("approx64k"):
+            port_knn.reset_window_guard()
+            predict(frames[0])  # the guard probes the first (seeded) frame
+            windows[path] = port_knn.session_window_points()
+            print(f"{path}: session window {windows[path]}, exact fallback "
+                  f"{port_knn.session_exact_fallback()} after the first frame", flush=True)
+            if args.expect_window is not None and windows[path] != args.expect_window:
+                raise SystemExit(f"profile_port: {path} settled on window {windows[path]}, "
+                                 f"expected {args.expect_window}")
+        _time(torch, predict, frames, path)
+    for predict, frames, path in runs:
+        if path in windows and port_knn.session_window_points() != windows[path]:
+            raise SystemExit(f"profile_port: {path} settled on window {windows[path]} but would "
+                             f"be profiled at {port_knn.session_window_points()}")
+        _profile(torch, predict, frames, path)
     subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
                     "--format=csv"], check=False, timeout=60)
 

@@ -253,8 +253,11 @@ class Model:
         (the JAX facade's, for the routes this package has)."""
         if self.settings.knn == "kdtree":
             logging.warning(
-                'knn="kdtree" is not ported to this package yet; predictions '
-                'will raise. Use knn="naive" (exact, kernel-backed).'
+                'knn="kdtree" runs the C++ KD-tree on the host inside the '
+                "forward: each of its neighbour searches (one at every encoder "
+                "level and decoder upsampling) copies the points to the host "
+                "and the result back. Use it as a correctness oracle; prefer "
+                'knn="naive" or "approximate" for latency.'
             )
         if self.settings.n_points > 20000:
             if self.settings.knn == "naive":

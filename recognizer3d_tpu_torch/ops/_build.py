@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels, and its host KD-tree.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into an
 object file, all sources at once in parallel, and the objects are linked
@@ -6,6 +6,12 @@ into one shared library with a plain C interface that ``ctypes`` loads. The
 library lands in ``build/torch_kernels/`` at the repository root under a
 name carrying a hash of the sources and flags, so an edit to any source rebuilds it on first use and an unchanged
 tree reuses it. Nothing is compiled when the package is imported.
+
+The host KD-tree of ``knn="kdtree"`` (``csrc/kdtree.cpp``) is built the same
+way by ``g++`` (:func:`build_kdtree`), for the machine that runs it
+(``-march=native``): its library's name carries a hash of the source, the
+flags and what ``-march=native`` means to the compiler there, so a library
+built for another machine or from another source is never loaded.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one at the
 place where it calls into the library, and nowhere else, so a caller can
@@ -42,6 +48,10 @@ def reset_launches() -> None:
 
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+KDTREE_SRC = CSRC / "kdtree.cpp"
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-fopenmp", "-Wall"]
 
 
 def _nvcc() -> str:
@@ -98,6 +108,38 @@ def build(csrc: Path = CSRC, out_dir: Path = BUILD_DIR) -> Path:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def _gxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the KD-tree cannot be built")
+    return cxx
+
+
+def build_kdtree(src: Path = KDTREE_SRC, out_dir: Path = BUILD_DIR) -> Path:
+    """Compile the host KD-tree with ``g++`` into ``out_dir`` if the
+    library for this source, these flags and the building machine is missing;
+    return its path. A failed build raises."""
+    cxx = _gxx()
+    # what -march=native selects here: the instruction set the library uses
+    target = subprocess.run([cxx, *CXX_FLAGS, "-Q", "--help=target"], check=True,
+                            capture_output=True, text=True).stdout
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    h.update(target.encode())
+    lib_path = out_dir / f"libr3d_kdtree_{h.hexdigest()[:16]}.so"
+    if lib_path.is_file():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / lib_path.name
+        cmd = [cxx, *CXX_FLAGS, "-shared", str(src), "-o", str(tmp_lib)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed:\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp_lib, lib_path)
     return lib_path
 

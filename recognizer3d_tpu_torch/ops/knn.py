@@ -32,6 +32,9 @@ set: the whole support, or the query block's window. So its recall is at
 least the TPU's, and on the CPU, where JAX's ``approx_min_k`` is an exact
 top-k, the two packages pick the same neighbours up to near-ties.
 
+``"kdtree"`` runs the host KD-tree (``ops/knn_cpp.knn_kdtree``) on every
+device, as the JAX package does through its host callback.
+
 The kernels' wrappers run their plain versions on CPU tensors, so the route
 is the same on every device. The exact kernels return the same neighbours
 for points in any order (B1's culling is only faster on Morton-sorted
@@ -443,7 +446,9 @@ def knn(
             )
         return result
     if approach == "kdtree":
-        raise NotImplementedError('knn="kdtree" is not ported yet (ROADMAP A10)')
+        from recognizer3d_tpu_torch.ops.knn_cpp import knn_kdtree
+
+        return knn_kdtree(support, query, k)
     raise ValueError(f"KNN approach {approach} not understood!")
 
 

@@ -9,11 +9,12 @@ from a fresh init with the app's training config and augmentation; the
 model saved to ``models/<timestamp>`` (an archive both packages load);
 per-epoch scalars under ``training_log/<timestamp>``. The run happens in a
 spawned process that reports its progress as int percentages over a queue
-(clamped to 99 while it lives, 100 once it has exited). Dataset paths are
-taken relative to the working directory.
+(clamped to 99 while it lives, 100 once it has exited), and that serves
+``training_log/`` with a TensorBoard server for as long as it trains, where
+the ``tensorboard`` package is installed. Dataset paths are taken relative
+to the working directory.
 
-Not ported yet: the TensorBoard server the JAX CLI starts (it waits for
-the UI, ROADMAP A10) and ``--compute-dtype bfloat16`` (training in bfloat16,
+Not ported yet: ``--compute-dtype bfloat16`` (training in bfloat16,
 ROADMAP A12).
 """
 
@@ -97,8 +98,50 @@ def run_training(
     return model_path, model, trainer
 
 
-def _run_training_job(dataset_dirs, progress_queue) -> None:
-    run_training(dataset_dirs, progress_queue)
+def _start_tensorboard_server(logdir: Path):
+    """Serve ``logdir`` with TensorBoard in a subprocess at the lowest CPU
+    priority, or return None where the ``tensorboard`` package is missing
+    or the process does not start. Returns the Popen, which the training
+    worker terminates when it ends."""
+    import importlib.util
+    import os
+    import subprocess
+    import sys
+
+    if importlib.util.find_spec("tensorboard") is None:
+        return None
+
+    def _demoted_child() -> None:
+        os.nice(19)
+        # die with the training worker even when it is killed (the app's
+        # Escape): a server that outlived it would hold the port
+        try:
+            import ctypes
+            import signal
+
+            pr_set_pdeathsig = 1
+            ctypes.CDLL("libc.so.6", use_errno=True).prctl(pr_set_pdeathsig, signal.SIGTERM)
+        except OSError:
+            pass  # no glibc: the worker's finally-block terminates it
+
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-m", "tensorboard", "--logdir", str(logdir)],
+            stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL,
+            preexec_fn=_demoted_child,
+        )
+    except OSError:
+        return None
+
+
+def _run_training_job(dataset_dirs, progress_queue, device) -> None:
+    tb_server = _start_tensorboard_server(LOG_ROOT)
+    try:
+        run_training(dataset_dirs, progress_queue, device=device)
+    finally:
+        if tb_server is not None:
+            tb_server.terminate()
 
 
 class TrainingJob:
@@ -115,11 +158,13 @@ class TrainingJob:
         self._latest = 1
 
     @classmethod
-    def launch(cls, dataset_dirs: List[Path]) -> "TrainingJob":
-        """Start training ``dataset_dirs`` in a fresh spawned process."""
+    def launch(cls, dataset_dirs: List[Path], device="cuda") -> "TrainingJob":
+        """Start training ``dataset_dirs`` on ``device`` in a fresh spawned
+        process."""
         ctx = get_context("spawn")
         progress_queue = ctx.Queue()
-        process = ctx.Process(target=_run_training_job, args=(dataset_dirs, progress_queue))
+        process = ctx.Process(target=_run_training_job,
+                              args=(dataset_dirs, progress_queue, device))
         process.start()
         return cls(process, progress_queue)
 

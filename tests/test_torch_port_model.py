@@ -297,10 +297,11 @@ def test_cuda_entry_points_raise_without_cuda():
         Predictor(ARCHIVE)
 
 
-def test_approximate_knn_raises_not_implemented():
+def test_approximate_knn_raises_not_implemented(tmp_path):
     """The default ``knn="approximate"`` predicts; below the window regime
     (2,048 points) every search it routes is exact, so it equals
-    ``knn="naive"``. The unported ``knn="kdtree"`` raises."""
+    ``knn="naive"``. ``knn="kdtree"`` predicts too, within 1e-4 of the JAX
+    package's model on the same archive."""
     settings = RandLANetSettings(n_classes=2, n_points=2048)
     assert settings.knn == "approximate"
     cloud = np.random.RandomState(0).rand(2100, 3).astype(np.float32)
@@ -312,8 +313,11 @@ def test_approximate_knn_raises_not_implemented():
     np.testing.assert_array_equal(conf, exact.predict(cloud))
     assert model.recall_guard_result is None  # nothing to guard at 2,048 points
     kdtree = Model(RandLANetSettings(n_classes=2, n_points=2048, knn="kdtree"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        kdtree.predict(cloud)
+    kdtree.save(tmp_path / "kdtree")
+    np.random.seed(3)
+    ref = JaxModel.load(tmp_path / "kdtree").predict(cloud)
+    np.random.seed(3)
+    np.testing.assert_allclose(kdtree.predict(cloud), ref, rtol=0, atol=1e-4)
 
 
 def test_cpu_predictor_runs_the_app_path():
@@ -325,11 +329,21 @@ def test_cpu_predictor_runs_the_app_path():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port imports without JAX, flax or the JAX
+    package. The UI modules and the app import vispy and tkinter, which
+    need not be installed: the in-memory stubs stand in for them."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import pytest\n"
+        "from tests import _tk_stub, _vispy_stub\n"
+        "patch = pytest.MonkeyPatch()\n"
+        "_vispy_stub.install(patch)\n"
+        "_tk_stub.install(patch)\n"
         "import recognizer3d_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {p.__name__ + '.app', p.__name__ + '.ui.scene'} <= set(names), names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'jaxlib')\n"
         "       or m.startswith(('jax.', 'flax.', 'recognizer3d_tpu.'))\n"
         "       or m == 'recognizer3d_tpu']\n"

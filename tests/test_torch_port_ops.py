@@ -14,6 +14,7 @@ import torch
 
 from recognizer3d_tpu.data import preprocessing as jax_pre
 from recognizer3d_tpu.ops import knn as jax_knn
+from recognizer3d_tpu.ops import knn_cpp as jax_knn_cpp
 from recognizer3d_tpu.ops import knn_pallas as jkp
 from recognizer3d_tpu.ops import upsample as jax_up
 from recognizer3d_tpu_torch.data import preprocessing as port_pre
@@ -174,12 +175,16 @@ def test_knn_routes_like_the_accelerator(monkeypatch, n, m, k, route):
 
 
 def test_knn_approximate_and_kdtree_raise():
-    """``"kdtree"`` is not ported and raises, as does an unknown approach;
-    ``"approximate"`` is ported and, below the window regime, runs the exact
-    KNN kernel (tests/test_torch_port_approx.py holds it against JAX)."""
+    """An unknown approach raises. ``"kdtree"`` runs the host KD-tree and
+    equals the JAX package's bit for bit
+    (tests/test_torch_port_kdtree.py holds it further); ``"approximate"``,
+    below the window regime, runs the exact KNN kernel
+    (tests/test_torch_port_approx.py holds it against JAX)."""
     s = _t(_cloud(0, 1, 100))
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_knn.knn(s, s, 16, "kdtree")
+    idx, d2 = port_knn.knn(s, s, 16, "kdtree")
+    ref_i, ref_d = jax_knn_cpp.knn_kdtree_host(s.numpy(), s.numpy(), 16)
+    np.testing.assert_array_equal(idx.numpy(), ref_i)
+    np.testing.assert_array_equal(d2.numpy(), ref_d)
     with pytest.raises(ValueError, match="not understood"):
         port_knn.knn(s, s, 16, "faiss")
     idx, d2 = port_knn.knn(s, s, 16, "approximate")
