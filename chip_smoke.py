@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``recognizer3d_tpu_torch/csrc`` into
    ``build/torch_kernels/`` and print the build seconds and the compiler's
    registers, shared memory and spills for the culled exact KNN kernel
-   (B1), the window kernel (B6), the 1-NN kernel and its ordering kernel
-   (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5),
+   (B1) and its box pass, the window kernel (B6), the 1-NN kernel and its
+   ordering kernel (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5),
    the bfloat16 forms of B2, B3 and B5 and the bitonic stage kernel (B7),
    and the count of HMMA (tensor-core) instructions in the SASS of each
    compiled bfloat16 LFA kernel, which fails the run where it is 0;
@@ -78,6 +78,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    "naive" route); the host tree's calls and host time a frame and the
    frame p50 are printed, and one frame on the card is held against the CPU
    port as in 3 (the same host tree on both sides);
+5d. batch serving (BASELINE.json config 2): seeded mock captures under
+   ``build/serve/`` (``make_frame``: 16 clouds of 60,000 points and 3 of
+   50,000, so two size groups and a partial batch), served by the port's CLI
+   (``recognizer3d_tpu_torch.serve.main``) with the bundled archive at batch
+   8 on the card, launch counts set to 0 before it: every batch (the warm-up
+   batches included) launches the app path's kernels once. One mask a
+   cloud; the card's masks and confidences (``--confidences``) held against
+   the CPU port's ``serve.main`` on the same directory and numpy seed:
+   confidences within 1e-4, masks equal where the CPU's class-1 confidence
+   lies more than 1e-4 from the threshold. Prints the CLI's
+   ``clouds_per_sec`` line;
+5e. the large-scene forward (BASELINE.json config 5): the first
+   ``0.2·randn(1, 1048576, 3)`` cloud of ``benchmarks/bench_large.py``
+   (seed 0) and its permutation, the bundled weights loaded at that
+   n_points with ``knn="naive"``, then ``knn="approximate"`` (the session
+   recall guard reset first, its window printed after the first call):
+   ``Model.predict(cloud, prepostprocess=False)``, the chunked forward
+   (``models/large.py``), with the launch counts set to 0 before each of 3
+   calls and held to ``PER_CALL_LARGE`` (no streaming kernel on either
+   route; the approximate route's guard must settle on window 16,384); wall
+   p50 and peak memory printed; the chunked forward against the in-model
+   forward on the card (atol 2e-4, rtol 1e-3); and the card against the CPU
+   port, chunk 4,096 (``forward_eval_large`` called directly), at 16,384
+   points on the exact route and at 32,768 on the approximate route, at
+   the session window of 16,384 points on both sides, the logits within
+   1e-4 of their largest magnitude;
 6. B7's entry point: the table of
    ``recognizer3d_tpu_torch.benchmarks.bench_roll_stages`` at
    (512, 128, 1024), with the launch counts set to 0 before it;
@@ -106,8 +132,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the card's distance from the float64 step within
    ``FP32_GRAD_MEDIAN_LIMIT`` (5e-4), which the same steps with TF32
    matmuls allowed, the control, must exceed;
-8. run one frame of each path, one train step and one validation forward
-   (batch 3) while recording the inputs it hands to each kernel wrapper,
+8. run one frame of each path, one call of each large path, one train
+   step and one validation forward (batch 3) while recording the inputs it
+   hands to each kernel wrapper,
    then hold every kernel against its plain PyTorch version on those
    inputs (B5, which no path runs, on the inputs of B3's level-0 calls; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
    the kernels line reporting S = 45), the LFA kernels' bfloat16 forms
@@ -116,7 +143,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    library call computing the same function (device time from
    torch.profiler). B1 must equal its plain version with the indices in
    order, as the window kernel must, and B4 the first entry of the stable
-   sort (``knn_topk_plain(support, query, 1)``), ties included; their
+   sort (``knn_topk_plain(support, query, 1)``), ties included; a call of
+   over 2^30 distances (the large paths' biggest) is held on 8,192 seeded
+   query rows (whole query blocks of the window search), its plain version
+   and library call timed on them and scaled to all rows (the kernels line
+   says so in the row's ``note``), and its work counted by the CPU model on
+   every eighth of them; B1's box pass (its global-memory form, above
+   2,048 support points) must write the boxes PyTorch's ``amin``/``amax``
+   compute, bit for bit; each LFA call is held, and the
+   first of each shape timed; their
    bounds count the distances their culled walks evaluate at those inputs
    (the CPU models in ``benchmarks/knn_cull.py`` and
    ``benchmarks/argmin_cull.py``), not every pair; the bfloat16 LFA forms'
@@ -126,7 +161,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    self-KNN of the approx64k frame's Morton-sorted 65,536-point level 0
    (the recall guard's exact fallback) on B1 and on the brute-force
    streaming kernel that B1 replaced, both held against the plain version;
-9. print the ``{"kernels": [...]}`` line, then the result line.
+   and B1 at the large-scene exact route's level 0 (1,048,576 points):
+   bit-equal to the streaming kernel on every row, the box pass, the walk
+   and the streaming kernel (once) timed;
+9. print the ``{"kernels": [...]}`` line, then the result line. The
+   ``knn_topk`` row is B1 (in its global-memory form, box pass and walk);
+   the ``knn_topk_boxes`` row is the global form's box pass alone, held
+   against ``amin``/``amax``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -151,9 +192,11 @@ ARCHIVE = ROOT / "pretrained" / "mock_fingertip"
 FRAME_POINTS = 60_000
 N_FRAMES = 5
 # launches of each kernel per live frame at the app config: the four
-# encoder self-KNNs, the fused LFA at encoder levels 0 and 1, and the final
+# encoder self-KNNs (the 2,500-point one in B1's global-memory form, after
+# its box pass), the fused LFA at encoder levels 0 and 1, and the final
 # 2,500 -> full-cloud 1-NN upsample
-PER_FRAME = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
+PER_FRAME = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2,
+             "argmin_1nn": 1}
 
 # the approximate path: bench.py's settings64a on the bundled weights, frames
 # of the size of a depth-camera capture (bucket 163,840)
@@ -162,12 +205,12 @@ APPROX_ARCHIVE = ROOT / "build" / "approx64k" / "mock_fingertip_approx64k"
 APPROX_FRAME_POINTS = 150_000
 # launches per frame: the Morton-window self-KNNs of levels 0 and 1 and the
 # window 1-NN of the final 65,536 -> 163,840 upsample; the exact self-KNNs
-# of levels 2 and 3; the fused LFA at levels 0 and 1; the 1-NN kernel for
+# of levels 2 and 3 (the 4,096-point one after a box pass); the fused LFA at levels 0 and 1; the 1-NN kernel for
 # the decoder's 4,096 -> 16,384 and 16,384 -> 65,536 upsamples, the latter
 # after the launch that orders its 16,384-point support into global memory
 PER_FRAME_64K = {
-    "knn_window_topk": 3, "knn_topk": 2, "lfa_round1": 2, "lfa_pool2_res": 2,
-    "argmin_1nn": 2, "argmin_1nn_order": 1,
+    "knn_window_topk": 3, "knn_topk": 2, "knn_topk_boxes": 1, "lfa_round1": 2,
+    "lfa_pool2_res": 2, "argmin_1nn": 2, "argmin_1nn_order": 1,
 }
 
 # the bfloat16 compute mode: the app archive and the approx64k settings
@@ -190,7 +233,8 @@ BF16_MASK_IOU_FLOOR = 0.99
 # of 60,000 points; per frame the four encoder self-KNNs, the fused LFA at
 # levels 0 and 1, and the 2,500 -> 16,384 1-NN upsample
 LIVE_DISPLAY = 16_384
-PER_FRAME_LIVE = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
+PER_FRAME_LIVE = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2,
+                  "argmin_1nn": 1}
 
 # B7 at the TPU benchmark's shape, and its entry point's launches: five runs
 # (the 1-stage base and S = 1, 5, 15, 45), each an untimed and a timed chain
@@ -217,6 +261,55 @@ KDTREE_ARCHIVE = ROOT / "build" / "kdtree" / "mock_fingertip_kdtree"
 KDTREE_FRAMES = 3
 PER_FRAME_KDTREE = {"lfa_round1": 2, "lfa_pool2_res": 2, "argmin_1nn": 1}
 
+# batch serving (BASELINE.json config 2): the port's serve CLI with the bundled
+# archive at batch 8 over seeded mock captures under SERVE_DIR, two size
+# groups and a partial batch; every batch (the warm-up batches included, one
+# per distinct (B, bucket)) launches the app path's kernels once
+SERVE_DIR = ROOT / "build" / "serve"
+SERVE_CLOUDS = ((16, 60_000), (3, 50_000))
+SERVE_BATCH = 8
+
+# the large-scene forward (BASELINE.json config 5): benchmarks/bench_large.py's
+# first 0.2·randn cloud of 1,048,576 points and its permutation, through
+# Model.predict(prepostprocess=False) with the bundled weights at that
+# n_points: the chunked forward (models/large.py), levels 1,048,576 / 262,144
+# / 65,536 / 16,384 / 4,096, chunk 65,536. Per call, exact route: B1 at the
+# four encoder levels and the 262,144 -> 1,048,576 1-NN at k = 1, each in
+# the global-memory form (a box pass and a walk); B4 for the supports of 4,096, 16,384 and 65,536 (the last
+# two ordered by a launch of their own); B2 and B3 on 16 chunks of level 0
+# and 4 of level 1; no streaming kernel. Approximate route, at the session
+# window the recall guard settles on for this cloud, LARGE_WINDOW (the run
+# fails on another): the window search at encoder levels 0-2 (k = 32) and for
+# the supports of 65,536 and 262,144 (k = 1); B1 at level 3, whose 16,384
+# points take knn_window's exact branch; B4 for 4,096 and 16,384; B2 and B3
+# as above
+LARGE_POINTS = 1_048_576
+LARGE_CALLS = 3
+LARGE_WINDOW = 16_384
+PER_CALL_LARGE = {
+    "naive": {"knn_topk": 5, "knn_topk_boxes": 5, "argmin_1nn": 3, "argmin_1nn_order": 2,
+              "lfa_round1": 20, "lfa_pool2_res": 20},
+    "approximate": {"knn_window_topk": 5, "knn_topk": 1, "knn_topk_boxes": 1, "argmin_1nn": 2,
+                    "argmin_1nn_order": 1, "lfa_round1": 20, "lfa_pool2_res": 20},
+}
+# the card against the CPU port at reduced size: forward_eval_large called
+# directly, chunk 4,096 (levels 0 and 1 fused, in 4 and 1 chunks at the
+# exact route's size; the levels below on the chunked branch), at 16,384
+# points on the exact route and at 32,768 on the approximate route, whose
+# level 0 then searches windows of LARGE_WINDOW points (at no more points it
+# would take the exact branch); logits held to within 1e-4 of the largest
+# |logit| (they reach about 70 there)
+LARGE_CPU_POINTS = {"naive": 16_384, "approximate": 32_768}
+LARGE_CPU_CHUNK = 4_096
+LARGE_CPU_REL_TOL = 1e-4
+# phase 8 holds a call with over this many (query, support) distances, or
+# (query, window point) distances, against the plain version on
+# LARGE_KNN_SAMPLE seeded query rows (whole query blocks of the window
+# search), its plain version and library call timed on them and scaled to
+# all rows, and its CPU work model run on every eighth of them
+LARGE_CHECK_DISTANCES = 1 << 30
+LARGE_KNN_SAMPLE = 8_192
+
 # the train path: the app's recipe (recognizer3d_tpu_torch.train.run_training)
 # on an annotated mock dataset, 2 epochs; 12 clouds split 9 / 3, so 3 steps
 # of batch 4 and 10 validation forwards (10 seeds, one batch) an epoch
@@ -228,8 +321,8 @@ TRAIN_EPOCHS = 2
 STEP_REPS = 20
 # launches per train step (B1 at each encoder level) and per validation
 # forward (eval mode under inference_mode, as predict)
-PER_STEP = {"knn_topk": 4}
-PER_VAL_FORWARD = {"knn_topk": 4, "lfa_round1": 2, "lfa_pool2_res": 2}
+PER_STEP = {"knn_topk": 4, "knn_topk_boxes": 1}
+PER_VAL_FORWARD = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2}
 # a float32 step's distance from the float64 step: per batch the median
 # over the gradient tensors of ``benchmarks/train_precision.grad_distances``,
 # then the smallest over PRECISION_BATCHES batches. On an H100 (80GB HBM3,
@@ -244,7 +337,7 @@ PRECISION_BATCHES = 3
 FP32_GRAD_MEDIAN_LIMIT = 5e-4
 
 # kernels whose registers, shared memory and spills the build report prints
-PTXAS_KERNELS = ("knn_cull_kernel", "knn_window_kernel", "argmin_cull_kernel",
+PTXAS_KERNELS = ("knn_cull_kernel", "knn_box_kernel", "knn_window_kernel", "argmin_cull_kernel",
                  "argmin_order_kernel", "lfa_round1_tile_kernel", "lfa_pool2_tile_kernel",
                  "lfa_round1_mma_kernel", "lfa_pool2_mma_kernel", "roll_stages_kernel")
 # the bfloat16 LFA kernels, whose dots run on the tensor cores: every compiled
@@ -255,6 +348,11 @@ MMA_KERNELS = ("lfa_round1_mma_kernel", "lfa_pool2_mma_kernel")
 KERNELS = {
     "knn_topk": ("recognizer3d_tpu_torch/csrc/knn.cu",
                  "recognizer3d_tpu/ops/knn_pallas.py:109"),
+    # B1's box pass, knn_box_kernel, counted on its own: the boxes of the TPU
+    # kernel's hbm=True form (knn_pallas.py:641), which B1's walk reads from
+    # global memory above 2,048 support points
+    "knn_topk_boxes": ("recognizer3d_tpu_torch/csrc/knn.cu",
+                       "recognizer3d_tpu/ops/knn_pallas.py:109"),
     "argmin_1nn": ("recognizer3d_tpu_torch/csrc/knn.cu",
                    "recognizer3d_tpu/ops/knn_pallas.py:402"),
     "lfa_round1": ("recognizer3d_tpu_torch/csrc/lfa.cu",
@@ -310,18 +408,24 @@ def _gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _device_ms(torch, fn, reps: int, kernel: str = "") -> float:
+def _device_ms(torch, fn, reps: int, kernel=""):
     """Device time per call of ``fn``: torch.profiler's CUDA activity over
     ``reps`` back-to-back calls after one warm-up call. With ``kernel``,
     only the kernels whose name contains it count (a wrapper's own small
     PyTorch operators and the host's launch gaps stay out); without, every
-    kernel and copy the calls ran. The card's profiler now and then drops a
-    session's device activity: a session with fewer device events than
-    calls is taken again, up to three sessions. If none records them, the
-    run fails: the recorded kernel is the only proof on the device's side
-    that the named kernel ran while it was timed."""
+    kernel and copy the calls ran; with a tuple of names of kernels that
+    ``fn`` launches once each, the time of each launch, the mean over the
+    launches the session recorded. The card's profiler now and then drops
+    a session's device activity: a session with fewer device events than
+    calls (with a tuple, with no event of a name) is taken again, up to
+    three sessions. If none records them, the run fails: the recorded
+    kernel is the only proof on the device's side that the named kernel
+    ran while it was timed. (Late in a long process, sessions kept 2 to 4
+    of 5 launches of B1's box pass, and none of one launch of the streaming
+    kernel; ``_event_ms`` times the long calls of the large paths.)"""
     from torch.profiler import ProfilerActivity, profile
 
+    names = kernel if isinstance(kernel, tuple) else (kernel,)
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -329,14 +433,47 @@ def _device_ms(torch, fn, reps: int, kernel: str = "") -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-        device_us = sum(e.self_device_time_total for e in events)
-        if device_us > 0 and sum(e.count for e in events) >= reps:
-            return device_us / 1e3 / reps
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {name: [e for e in device if name in e.key] for name in names}
+        us = {name: sum(e.self_device_time_total for e in ev) for name, ev in seen.items()}
+        counts = {name: sum(e.count for e in ev) for name, ev in seen.items()}
+        if isinstance(kernel, tuple):
+            if all(us[name] > 0 for name in names):
+                return tuple(us[name] / 1e3 / counts[name] for name in names)
+        elif us[kernel] > 0 and counts[kernel] >= reps:
+            return us[kernel] / 1e3 / reps
         time.sleep(1.0)
-    raise RuntimeError(f"the profiler recorded no device time for {kernel or fn} "
-                       f"in three sessions")
+    raise RuntimeError(f"the profiler recorded no device time for {kernel or fn} in three "
+                       f"sessions of {reps} calls (the last: events {counts}, us {us})")
+
+
+def _event_ms(torch, fn) -> float:
+    """Time of one call of ``fn`` between two CUDA events on the current
+    stream: for the plain versions and library calls of the sampled large
+    calls, thousands of kernels that keep the card busy for a second or
+    more, so the gaps between kernels are a small part of the time (a
+    profiler session of them, tens of thousands of events, was followed by
+    sessions that dropped launches)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _plain_library_ms(torch, plain, library, reps: int, scale: float):
+    """(ms of ``plain``, ms of ``library``) for a call: profiler device time
+    over ``reps`` calls; for a sampled call (``scale`` > 1, the rows' share
+    of the call), one call of each between CUDA events (``_event_ms``; the
+    library warmed by one call first), scaled to all rows."""
+    if scale == 1:
+        return _device_ms(torch, plain, reps), _device_ms(torch, library, reps)
+    library()
+    return _event_ms(torch, plain) * scale, _event_ms(torch, library) * scale
 
 
 def _bound(nbytes: float, nops: float, ops_per_s: float = PEAK_F32_OPS_PER_S):
@@ -368,34 +505,42 @@ def _knn_work(m: int, n: int, k: int):
     return 4 * 3 * (m + n) + 8 * m * k, 9 * m * n
 
 
-def _cull_work(support, query, k: int):
-    # B1 reads each input once and writes (idx, d2) once, and spends 9 lane
-    # instructions (as in _knn_work) on each distance the culled selection
-    # evaluates, counted by its CPU model (benchmarks/knn_cull.py) at these
-    # inputs with one query a warp, the launcher's choice for a launch of
-    # one wave, as every call of the served paths is
+def _cull_work(support, query, k: int, rows=None):
+    # B1 reads each input once and writes (idx, d2) once (its boxes are its
+    # own, neither input nor output), and spends 9 lane instructions (as in
+    # _knn_work) on each distance the culled selection evaluates, counted by
+    # its CPU model
+    # (benchmarks/knn_cull.py) at these inputs with one query a warp: the
+    # fewest the walk evaluates (two queries a warp visit a tile either
+    # needs). With ``rows`` (numpy), the model walks those query rows only,
+    # and their count is scaled to all rows
     from recognizer3d_tpu_torch.benchmarks import knn_cull
 
     b, m, n = query.shape[0], query.shape[1], support.shape[1]
     distances = sum(
-        int(knn_cull.select(s, q, k, 1)[2]["distances"].sum())
+        int(knn_cull.select(s, q, k, 1, rows=rows)[2]["distances"].sum())
         for s, q in zip(support.cpu().numpy(), query.cpu().numpy())
     )
-    return b * (4 * 3 * (m + n) + 8 * m * k), 9 * distances
+    scale = 1 if rows is None else m / len(rows)
+    return b * (4 * 3 * (m + n) + 8 * m * k), 9 * distances * scale
 
 
-def _argmin_work(support, query):
+def _argmin_work(support, query, rows=None):
     # B4 reads each input once and writes (idx, d2) once, and spends 9 lane
     # instructions (as in _knn_work) on each distance its walk evaluates,
     # counted by its CPU model (benchmarks/argmin_cull.py) at these inputs
+    # (with ``rows``, at those query rows, scaled to all rows: the walk of
+    # a query does not depend on the others)
     from recognizer3d_tpu_torch.benchmarks import argmin_cull
 
     b, m, n = query.shape[0], query.shape[1], support.shape[1]
+    q_np = query.cpu().numpy() if rows is None else query[:, rows].cpu().numpy()
     distances = sum(
         int(argmin_cull.select(s, q)[2]["distances"].sum())
-        for s, q in zip(support.cpu().numpy(), query.cpu().numpy())
+        for s, q in zip(support.cpu().numpy(), q_np)
     )
-    return b * (4 * 3 * (m + n) + 8 * m), 9 * distances
+    scale = 1 if rows is None else m / len(rows)
+    return b * (4 * 3 * (m + n) + 8 * m), 9 * distances * scale
 
 
 def _window_work(m: int, n: int, w: int, k: int):
@@ -596,9 +741,14 @@ def _bf16_mask_iou(Model, archive32, archive16, frames, label):
         raise RuntimeError(f"{label}: bfloat16 mask IoU {min(ious)} below {BF16_MASK_IOU_FLOOR}")
 
 
-def _lfa_error(torch, outs, refs, label):
+def _lfa_error(torch, outs, refs, label, refs64=None):
     """Max abs error of an LFA kernel's outputs against its plain version's.
-    float32: at most 1e-5 (the same arithmetic summed in another order).
+    float32: at most 1e-5 (the same arithmetic summed in another order);
+    where that is exceeded (the large paths' level 1, whose outputs reach
+    40-65, where one float32 ulp is 4-8e-6), ``refs64()``, the plain
+    version in float64, decides: the kernel's largest error against it at
+    most twice the float32 plain version's, plus 1e-6 (a fault of the
+    kernel is orders of magnitude beyond either).
     bfloat16 (rows of the last axis): at least 99.9% of the elements within
     one bfloat16 ulp, |Δ| ≤ 2⁻⁷·|ref| + 1e-6, and every element within one
     ulp of itself plus one ulp of its row's largest magnitude (where the two
@@ -607,9 +757,18 @@ def _lfa_error(torch, outs, refs, label):
     within one ulp and bit-identical)."""
     err = max((o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs))
     if outs[0].dtype == torch.float32:
-        if err > 1e-5:
+        if err <= 1e-5:
+            return err, ""
+        if refs64 is None:
             raise RuntimeError(f"{label}: max abs err {err}")
-        return err, ""
+        exact = refs64()
+        e_kernel = max((o.double() - r).abs().max().item() for o, r in zip(outs, exact))
+        e_plain = max((o.double() - r).abs().max().item() for o, r in zip(refs, exact))
+        if e_kernel > 2 * e_plain + 1e-6:
+            raise RuntimeError(f"{label}: max abs err {err}; against float64 the kernel "
+                               f"{e_kernel}, the float32 plain version {e_plain}")
+        return err, (f" (beyond 1e-5; against the plain version in float64: kernel "
+                     f"{e_kernel:.3g}, float32 plain version {e_plain:.3g})")
     n = within = same = 0
     for o, r in zip(outs, refs):
         d, ref = (o.float() - r.float()).abs(), r.float().abs()
@@ -623,6 +782,11 @@ def _lfa_error(torch, outs, refs, label):
         raise RuntimeError(f"{label}: {within / n:.6f} of the elements within one bfloat16 ulp")
     return err, (f" ({within / n:.6f} within one bfloat16 ulp, {n - within} of {n} beyond; "
                  f"{same / n:.6f} bit-identical)")
+
+
+def _f64(consts):
+    """An LFA plain version's constants in float64."""
+    return {key: v.double() for key, v in consts.items()}
 
 
 def _record_frame(run_frame, targets, per_frame, label):
@@ -660,100 +824,227 @@ class _Results:
         if library_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
 
+    def sampled(self, name):
+        self.rows[name]["note"] = (
+            f"plain_ms and library_ms of calls over {LARGE_CHECK_DISTANCES} distances timed on "
+            f"{LARGE_KNN_SAMPLE} sampled query rows and scaled to all rows")
+
+
+def _sample_rows(torch, m: int, span: int, block: int = 1):
+    """None where a call of ``m`` queries, ``span`` support (or window)
+    points each, has no more than LARGE_CHECK_DISTANCES distances; else
+    LARGE_KNN_SAMPLE seeded query rows, sorted, in whole blocks of ``block``
+    rows (the window search's full query blocks), on the card."""
+    if m * span <= LARGE_CHECK_DISTANCES:
+        return None
+    blocks = np.sort(np.random.RandomState(0).choice(m // block, LARGE_KNN_SAMPLE // block,
+                                                     replace=False))
+    return torch.from_numpy((blocks[:, None] * block + np.arange(block)).ravel()).cuda()
+
+
+def _boxes_plain(torch, support):
+    """B1's boxes in its scratch's layout, per cloud: tile boxes (6 rows of
+    nt: lo x, y, z, hi x, y, z), then super-tile boxes (6 rows of ns), from
+    PyTorch's min and max over tiles of 32 points and super tiles of 32
+    tiles (points past the support empty)."""
+    b, n, _ = support.shape
+    nt = -(-n // 32)
+    ns = -(-nt // 32)
+    pad = torch.full((b, ns * 1024 - n, 3), float("inf"), device=support.device)
+    lo = torch.cat([support, pad], 1).view(b, ns * 32, 32, 3).amin(2)
+    hi = torch.cat([support, -pad], 1).view(b, ns * 32, 32, 3).amax(2)
+    tiles = torch.cat([lo[:, :nt], hi[:, :nt]], 2).transpose(1, 2).reshape(b, 6 * nt)
+    supers = torch.cat([lo.view(b, ns, 32, 3).amin(2), hi.view(b, ns, 32, 3).amax(2)], 2)
+    return torch.cat([tiles, supers.transpose(1, 2).reshape(b, 6 * ns)], 1)
+
+
+def _boxes_card(torch, build, support):
+    """The boxes B1's box pass writes for ``support``: its C entry point
+    called with its own scratch (one query, k = 1, so that the walk after
+    it is short), the scratch read back; no launch is counted."""
+    b, n, _ = support.shape
+    lib = build.library()
+    scratch = torch.empty(lib.r3d_knn_topk_scratch_bytes(b, n) // 4, dtype=torch.float32,
+                          device=support.device)
+    q = support[:, :1].contiguous()
+    idx = torch.empty((b, 1, 1), dtype=torch.int32, device=support.device)
+    d2 = torch.empty((b, 1, 1), dtype=torch.float32, device=support.device)
+    status = lib.r3d_knn_topk(q.data_ptr(), support.data_ptr(), scratch.data_ptr(),
+                              idx.data_ptr(), d2.data_ptr(), b, 1, n, 1,
+                              build.stream_ptr(support.device))
+    build.check_status("r3d_knn_topk", status)
+    nt = -(-n // 32)
+    return scratch.view(b, -1)[:, : 6 * (nt + -(-nt // 32))]
+
 
 def _check_kernels(torch, calls, results, label, plain_reps):
     """Hold each recorded call's kernel against its plain version and time
-    both (and the library call where there is one)."""
-    from recognizer3d_tpu_torch.ops import knn_kernels, lfa_kernels
+    both (and the library call where there is one). A call with over
+    LARGE_CHECK_DISTANCES distances is held on sampled query rows
+    (``_sample_rows``); of the LFA kernels' calls, each is held, and the
+    first of each shape timed."""
+    from recognizer3d_tpu_torch.ops import _build, knn_kernels, lfa_kernels
 
-    # B1: exact self-KNN
+    # B1: exact k-NN; in its global-memory form (the wrapper's scratch
+    # query says where) its box pass (knn_box_kernel) and walk
+    # (knn_cull_kernel), the box pass held and timed on its own
     for (support, query, k), _ in calls.get("knn_topk", []):
-        m, n = query.shape[1], support.shape[1]
+        b, m, n = query.shape[0], query.shape[1], support.shape[1]
+        boxed = _build.library().r3d_knn_topk_scratch_bytes(b, n) > 0
+        rows = _sample_rows(torch, m, n)
+        q = query if rows is None else query[:, rows].contiguous()
+        scale = m / q.shape[1]
         idx, d2 = knn_kernels.knn_topk(support, query, k)
-        ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, k)
+        ref_i, ref_d = knn_kernels.knn_topk_plain(support, q, k)
+        if rows is not None:
+            idx, d2 = idx[:, rows], d2[:, rows]
         torch.cuda.synchronize()
         if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
             raise RuntimeError(
-                f"{label} knn_topk N={n}: indices equal {torch.equal(idx, ref_i)}, "
-                f"d2 equal {torch.equal(d2, ref_d)}"
+                f"{label} knn_topk M={m} N={n} k={k} on {q.shape[1]} rows: indices equal "
+                f"{torch.equal(idx, ref_i)}, d2 equal {torch.equal(d2, ref_d)}"
             )
-        ms = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), 50,
-                        "knn_cull_kernel")
-        plain = _device_ms(torch, lambda: knn_kernels.knn_topk_plain(support, query, k),
-                           plain_reps)
-        lib = _device_ms(
-            torch, lambda: torch.cdist(query, support).topk(k, -1, largest=False), plain_reps
-        )
-        bound = _bound(*_cull_work(support, query, k), PEAK_F32_INSTR_PER_S)
+        del idx, d2, ref_i, ref_d
+        if boxed:
+            boxes, ref_boxes = _boxes_card(torch, _build, support), _boxes_plain(torch, support)
+            torch.cuda.synchronize()
+            if not torch.equal(boxes, ref_boxes):
+                raise RuntimeError(f"{label} knn_topk_boxes N={n}: "
+                                   f"{int((boxes != ref_boxes).sum())} box components differ")
+            del boxes, ref_boxes
+        reps = 50 if rows is None else 5
+        times = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), reps,
+                           ("knn_box_kernel", "knn_cull_kernel") if boxed
+                           else ("knn_cull_kernel",))
+        box_ms, ms = (times[0], sum(times)) if boxed else (0.0, times[0])
+        step = max(1, (1 << 28) // n)  # cdist blocks of at most 1 GB
+
+        def library():
+            for lo in range(0, q.shape[1], step):
+                torch.cdist(q[:, lo:lo + step], support).topk(k, -1, largest=False)
+
+        plain, lib = _plain_library_ms(
+            torch, lambda: knn_kernels.knn_topk_plain(support, q, k), library, plain_reps, scale)
+        work_rows = None if rows is None else rows[::8].cpu().numpy()
+        bound = _bound(*_cull_work(support, query, k, work_rows), PEAK_F32_INSTR_PER_S)
         results.add("knn_topk", 0.0, ms, plain, bound, lib)
-        print(f"{label} knn_topk M={m} N={n} k={k}: indices (in order) and d2 equal; "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
-              f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+        if rows is not None:
+            results.sampled("knn_topk")
+        held = "all rows" if rows is None else f"{q.shape[1]} sampled rows, times scaled"
+        boxes_note = ""
+        if boxed:
+            box_plain = _device_ms(torch, lambda: _boxes_plain(torch, support), plain_reps)
+            nt = -(-n // 32)
+            # the box pass: the support read once, the boxes written once, a
+            # min and a max a coordinate
+            box_bound = _bound(b * (4 * 3 * n + 4 * 6 * (nt + -(-nt // 32))), b * 6 * n,
+                               PEAK_F32_INSTR_PER_S)
+            results.add("knn_topk_boxes", 0.0, box_ms, box_plain, box_bound, None)
+            boxes_note = (f"; global-memory form, boxes equal to amin/amax: box pass "
+                          f"{box_ms:.4f} ms of the kernel's, plain {box_plain:.4f} ms, bound "
+                          f"{box_bound[0]:.5f} ms")
+        print(f"{label} knn_topk M={m} N={n} k={k}: indices (in order) and d2 equal on "
+              f"{held}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]}){boxes_note}", flush=True)
 
     # B4: exact 1-NN upsample, held to the first entry of the stable sort,
     # ties included; timed with its ordering launch where it has one
     for (support, query), _ in calls.get("argmin_1nn", []):
         m, n = query.shape[1], support.shape[1]
+        rows = _sample_rows(torch, m, n)
+        q = query if rows is None else query[:, rows].contiguous()
+        scale = m / q.shape[1]
         idx, d2 = knn_kernels.argmin_1nn(support, query)
-        ref_i, ref_d = knn_kernels.knn_topk_plain(support, query, 1)
+        if rows is not None:
+            idx, d2 = idx[:, rows], d2[:, rows]
+        ref_i, ref_d = knn_kernels.knn_topk_plain(support, q, 1)
         torch.cuda.synchronize()
         if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
             raise RuntimeError(
                 f"{label} argmin_1nn M={m} N={n}: {int((idx != ref_i).sum())} indices and "
                 f"{int((d2 != ref_d).sum())} distances differ from the stable sort's first"
             )
-        ties = int((knn_kernels.knn_topk_plain(support, query, 2)[1].diff(dim=-1) == 0).sum())
-        ms = _device_ms(torch, lambda: knn_kernels.argmin_1nn(support, query), 50, "argmin_")
-        plain = _device_ms(torch, lambda: knn_kernels.argmin_1nn_plain(support, query),
-                           max(1, plain_reps // 2))
-        lib = _device_ms(torch, lambda: torch.cdist(query, support).argmin(-1),
-                         max(1, plain_reps // 2))
-        bound = _bound(*_argmin_work(support, query), PEAK_F32_INSTR_PER_S)
+        ties = int((knn_kernels.knn_topk_plain(support, q, 2)[1].diff(dim=-1) == 0).sum())
+        # the walk, after the launch that orders a support too large for a
+        # block's shared memory (the wrapper's scratch query says which)
+        ordered = _build.library().r3d_argmin_scratch_bytes(support.shape[0], n) > 0
+        ms = sum(_device_ms(torch, lambda: knn_kernels.argmin_1nn(support, query),
+                            50 if rows is None else 5,
+                            ("argmin_order_kernel", "argmin_cull_kernel") if ordered
+                            else ("argmin_cull_kernel",)))
+        plain, lib = _plain_library_ms(
+            torch, lambda: knn_kernels.argmin_1nn_plain(support, q),
+            lambda: torch.cdist(q, support).argmin(-1), max(1, plain_reps // 2), scale)
+        work_rows = None if rows is None else rows[::8]
+        bound = _bound(*_argmin_work(support, query, work_rows), PEAK_F32_INSTR_PER_S)
         brute = _knn_work(m, n, 1)[1] / PEAK_F32_INSTR_PER_S * 1e3
         results.add("argmin_1nn", 0.0, ms, plain, bound, lib)
-        print(f"{label} argmin_1nn M={m} N={n}: indices and d2 equal ({ties} queries with a "
-              f"tied second); kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+argmin "
+        if rows is not None:
+            results.sampled("argmin_1nn")
+        held = "" if rows is None else f" on {q.shape[1]} sampled rows, times scaled"
+        print(f"{label} argmin_1nn M={m} N={n}: indices and d2 equal{held} ({ties} queries "
+              f"with a tied second); kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+argmin "
               f"{lib:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); reference, not a bound: "
               f"9*M*N brute-force lane instructions take {brute:.5f} ms", flush=True)
 
     # B6: the Morton-window search (k = 32 self-KNN, k = 1 upsample)
     for (support, query, k, starts, w, qb), _ in calls.get("knn_window_topk", []):
         m, n = query.shape[1], support.shape[1]
+        rows = _sample_rows(torch, m, w, qb)
+        q, st = (query, starts) if rows is None else (query[:, rows].contiguous(),
+                                                      starts[rows[::qb] // qb].contiguous())
+        scale = m / q.shape[1]
         idx, d2 = knn_kernels.knn_window_topk(support, query, k, starts, w, qb)
-        ref_i, ref_d = knn_kernels.knn_window_topk_plain(support, query, k, starts, w, qb)
+        if rows is not None:
+            idx, d2 = idx[:, rows], d2[:, rows]
+        ref_i, ref_d = knn_kernels.knn_window_topk_plain(support, q, k, st, w, qb)
         torch.cuda.synchronize()
         if not (torch.equal(idx, ref_i) and torch.equal(d2, ref_d)):
             raise RuntimeError(
-                f"{label} knn_window_topk M={m} N={n} k={k}: indices equal "
+                f"{label} knn_window_topk M={m} N={n} w={w} k={k}: indices equal "
                 f"{torch.equal(idx, ref_i)}, d2 equal {torch.equal(d2, ref_d)}"
             )
-        n_blocks = starts.shape[0]
+        del idx, d2, ref_i, ref_d
+        n_blocks = st.shape[0]
         offsets = torch.arange(w, device=support.device)
 
         def library():
-            win = support[0, starts.long()[:, None] + offsets]  # (blocks, w, 3)
-            q = query[0]
-            pad = n_blocks * qb - m
+            win = support[0, st.long()[:, None] + offsets]  # (blocks, w, 3)
+            qq = q[0]
+            pad = n_blocks * qb - qq.shape[0]
             if pad:
-                q = torch.cat([q, q[-1:].expand(pad, 3)])
-            d = torch.cdist(q.reshape(n_blocks, qb, 3), win)
+                qq = torch.cat([qq, qq[-1:].expand(pad, 3)])
+            d = torch.cdist(qq.reshape(n_blocks, qb, 3), win)
             return d.argmin(-1) if k == 1 else d.topk(k, -1, largest=False)
 
-        ms = _device_ms(
+        ms, = _device_ms(
             torch, lambda: knn_kernels.knn_window_topk(support, query, k, starts, w, qb),
-            20, "argmin_kernel" if k == 1 else "knn_window_kernel",
+            20 if rows is None else 5, ("argmin_kernel" if k == 1 else "knn_window_kernel",),
         )
-        plain = _device_ms(
-            torch, lambda: knn_kernels.knn_window_topk_plain(support, query, k, starts, w, qb),
-            plain_reps,
-        )
-        lib = _device_ms(torch, library, plain_reps)
+        plain, lib = _plain_library_ms(
+            torch, lambda: knn_kernels.knn_window_topk_plain(support, q, k, st, w, qb), library,
+            plain_reps, scale)
         bound = _bound(*_window_work(m, n, w, k), PEAK_F32_INSTR_PER_S)
         results.add("knn_window_topk", 0.0, ms, plain, bound, lib)
+        if rows is not None:
+            results.sampled("knn_window_topk")
+        held = "" if rows is None else f" on {q.shape[1]} sampled rows, times scaled"
         print(f"{label} knn_window_topk M={m} N={n} w={w} qb={qb} k={k}: indices and "
-              f"d2 equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, window cdist+"
+              f"d2 equal{held}; kernel {ms:.4f} ms, plain {plain:.4f} ms, window cdist+"
               f"{'argmin' if k == 1 else 'topk'} {lib:.4f} ms, bound {bound[0]:.5f} ms "
               f"({bound[1]})", flush=True)
+
+    # the LFA kernels' calls of a shape timed already: (count, max abs err)
+    repeats = {}
+
+    def timed_before(name, shape, err):
+        if (name, shape) not in repeats:
+            repeats[(name, shape)] = [0, 0.0]
+            return False
+        repeats[(name, shape)][0] += 1
+        repeats[(name, shape)][1] = max(repeats[(name, shape)][1], err)
+        results.add(name, err, 0.0, 0.0, (0.0, "bytes"), None)
+        return True
 
     # B2: fused LFA round 1 at encoder levels 0 and 1, in either form
     for name in ("lfa_round1", "lfa_round1_bf16"):
@@ -765,11 +1056,19 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             consts = lfa_kernels.round1_constants(*args[3:], dtype=dt)
             ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
             torch.cuda.synchronize()
+            def round1_f64():
+                p64, r64 = lfa_kernels.lfa_round1_plain(gathered.double(), d2.double(),
+                                                        center.double(), _f64(consts))
+                return [p64, r64.reshape(b, rows, k, h)]
+
             err, note = _lfa_error(torch, [pooled, rpe2.reshape(b, rows, k, h)],
-                                   [ref_p, ref_r.reshape(b, rows, k, h)], f"{label} {name} h={h}")
-            ms = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
-                            "lfa_round1_mma_kernel" if dt == torch.bfloat16
-                            else "lfa_round1_tile_kernel")
+                                   [ref_p, ref_r.reshape(b, rows, k, h)], f"{label} {name} h={h}",
+                                   round1_f64)
+            if timed_before(name, tuple(gathered.shape), err):
+                continue
+            ms, = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
+                             ("lfa_round1_mma_kernel" if dt == torch.bfloat16
+                              else "lfa_round1_tile_kernel",))
             plain = _device_ms(
                 torch,
                 lambda: lfa_kernels.lfa_round1_plain(
@@ -799,23 +1098,29 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt)
             ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
             torch.cuda.synchronize()
-            err, note = _lfa_error(torch, [out], [ref], f"{label} {name} h={h}")
-            ms = _device_ms(
-                torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50, kernel
-            )
-            plain = _device_ms(
-                torch,
-                lambda: lfa_kernels.attentive_pool2_residual_plain(
-                    rpe2, g2, f_in,
-                    lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt), k,
-                ),
-                2 * plain_reps,
-            )
-            bound = _lfa_bound(*_pool2_work(b * rows, k, h, f, elem=elem), bf16)
-            results.add(name, err, ms, plain, bound, None)
-            print(f"{label} {name} B={b} N={rows} K={k} h={h} F={f}: max abs err {err:.3g}"
-                  f"{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.5f} ms "
-                  f"({bound[1]})", flush=True)
+            err, note = _lfa_error(
+                torch, [out], [ref], f"{label} {name} h={h}",
+                lambda: [lfa_kernels.attentive_pool2_residual_plain(
+                    rpe2.double(), g2.double(), f_in.double(), _f64(consts), k)])
+            shape = tuple(g2.shape) + (f,)
+            if not timed_before(name, shape, err):
+                ms, = _device_ms(
+                    torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
+                    (kernel,),
+                )
+                plain = _device_ms(
+                    torch,
+                    lambda: lfa_kernels.attentive_pool2_residual_plain(
+                        rpe2, g2, f_in,
+                        lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt), k,
+                    ),
+                    2 * plain_reps,
+                )
+                bound = _lfa_bound(*_pool2_work(b * rows, k, h, f, elem=elem), bf16)
+                results.add(name, err, ms, plain, bound, None)
+                print(f"{label} {name} B={b} N={rows} K={k} h={h} F={f}: max abs err "
+                      f"{err:.3g}{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                      f"{bound[0]:.5f} ms ({bound[1]})", flush=True)
             if h != 8:
                 continue
             b5 = "lfa_pool2_bf16" if bf16 else "lfa_pool2"
@@ -825,9 +1130,15 @@ def _check_kernels(torch, calls, results, label, plain_reps):
                 rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=dt), k
             )
             torch.cuda.synchronize()
-            err, note = _lfa_error(torch, [out], [ref], f"{label} {b5} h={h}")
-            ms = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
-                            50, kernel)
+            err, note = _lfa_error(
+                torch, [out], [ref], f"{label} {b5} h={h}",
+                lambda: [lfa_kernels.attentive_pool2_plain(
+                    rpe2.double(), g2.double(),
+                    _f64(lfa_kernels.pool2_constants(*head, dtype=dt)), k)])
+            if timed_before(b5, shape, err):
+                continue
+            ms, = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
+                             50, (kernel,))
             plain = _device_ms(
                 torch,
                 lambda: lfa_kernels.attentive_pool2_plain(
@@ -841,6 +1152,10 @@ def _check_kernels(torch, calls, results, label, plain_reps):
             print(f"{label} {b5} (B5, on B3's level-0 inputs) B={b} N={rows} K={k} h={h}: "
                   f"max abs err {err:.3g}{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    for (name, shape), (count, err) in repeats.items():
+        if count:
+            print(f"{label} {name} {shape}: {count} more calls of this shape held, max abs err "
+                  f"{err:.3g} (timed on the first)", flush=True)
 
 
 def _exact_64k(torch, morton, knn_kernels, cloud):
@@ -863,7 +1178,8 @@ def _exact_64k(torch, morton, knn_kernels, cloud):
             raise RuntimeError(f"exact 64k self-KNN on the {name} kernel: indices equal "
                                f"{torch.equal(idx, ref_i)}, d2 equal {torch.equal(d2, ref_d)}")
     del ref_i, ref_d
-    new_ms = _device_ms(torch, lambda: knn_kernels.knn_topk(x, x, k), 10, "knn_cull_kernel")
+    new_ms = sum(_device_ms(torch, lambda: knn_kernels.knn_topk(x, x, k), 10,
+                            ("knn_box_kernel", "knn_cull_kernel")))  # the global form
     old_ms = _device_ms(torch, lambda: knn_kernels.knn_window_topk(x, x, k, starts, n, n), 3,
                         "knn_topk_kernel")
     # the bound is the bytes (the culled selection's distance count is out
@@ -876,6 +1192,42 @@ def _exact_64k(torch, morton, knn_kernels, cloud):
           f"streaming kernel {old_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); reference, "
           f"not a bound: 9*M*N brute-force lane instructions take "
           f"{brute / PEAK_F32_INSTR_PER_S * 1e3:.5f} ms", flush=True)
+
+
+def _exact_1m(torch, knn_kernels, x):
+    """B1 at the large-scene exact route's level 0 (the support phase 8
+    recorded there: 1,048,576 Morton-sorted points, self-KNN at k = 32)
+    against the brute-force streaming kernel that would otherwise search it
+    (reached through the window route with the whole support as one
+    window): bit-equal, indices in order, on every row. B1's box pass and
+    walk timed apart; the streaming kernel, one launch of over a second,
+    timed once between CUDA events (``_event_ms``), on the call whose result
+    is compared. The bound is the bytes; the brute-force instruction count
+    is printed beside it as a reference."""
+    k = 32
+    n = x.shape[1]
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    idx, d2 = knn_kernels.knn_topk(x, x, k)
+    out = []
+    stream_ms = _event_ms(
+        torch, lambda: out.append(knn_kernels.knn_window_topk(x, x, k, starts, n, n)))
+    s_i, s_d = out[-1]
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, s_i) and torch.equal(d2, s_d)):
+        raise RuntimeError(f"exact 1M self-KNN, B1 vs the streaming kernel: "
+                           f"{int((idx != s_i).sum())} indices and {int((d2 != s_d).sum())} "
+                           f"distances differ")
+    del idx, d2, s_i, s_d, out
+    box_ms, walk_ms = _device_ms(torch, lambda: knn_kernels.knn_topk(x, x, k), 10,
+                                 ("knn_box_kernel", "knn_cull_kernel"))
+    nbytes, brute = _knn_work(n, n, k)
+    bound = _bound(nbytes, 0)
+    print(f"exact self-KNN M=N={n} k={k} (the large-scene exact route's level 0): B1 equal to "
+          f"the streaming kernel on all rows (indices in order, d2); box pass {box_ms:.4f} ms "
+          f"+ walk {walk_ms:.4f} ms = {box_ms + walk_ms:.4f} ms, streaming kernel "
+          f"{stream_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}); reference, not a bound: "
+          f"9*M*N brute-force lane instructions take {brute / PEAK_F32_INSTR_PER_S * 1e3:.3f} ms",
+          flush=True)
 
 
 def _check_roll_stages(torch, results):
@@ -1205,6 +1557,208 @@ def _kdtree_path(torch, build, Model, Predictor, frames):
     return launches
 
 
+def _write_serve_dir(make_frame) -> Path:
+    """Seeded mock captures (``<ts>_data.npy``) of SERVE_CLOUDS under
+    ``SERVE_DIR/captures``."""
+    captures = SERVE_DIR / "captures"
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    captures.mkdir(parents=True)
+    i = 0
+    for count, n in SERVE_CLOUDS:
+        for _ in range(count):
+            cloud = make_frame(np.random.RandomState(700 + i), 0.3 * i, n)[0]
+            np.save(captures / f"2026_01_01__12_00_{i:02d}_000000000_data.npy", cloud)
+            i += 1
+    return captures
+
+
+def _serve_path(torch, build, captures):
+    """Batch serving: the port's ``serve.main`` with the bundled archive at
+    batch 8 on the card, launch counts set to 0 before it: each batch, the
+    warm-up batches included, must launch the app path's kernels once. One
+    mask a cloud; the card's masks and confidences held against the CPU
+    port's ``serve.main`` (``--device cpu --confidences``) on the same
+    directory and numpy seed: confidences within 1e-4, masks equal where the
+    CPU's class-1 confidence lies more than 1e-4 from the threshold. Returns
+    the launches of the masks' run."""
+    import contextlib
+    import io
+
+    from recognizer3d_tpu_torch import serve
+    from recognizer3d_tpu_torch.models.facade import _bucket
+
+    tol = band = 1e-4
+
+    seconds = {}
+
+    def run(out, *flags):
+        np.random.seed(0)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["-m", str(ARCHIVE), "-d", str(captures), "-o", str(out),
+                             "--batch", str(SERVE_BATCH), *flags])
+        seconds[out.name] = round(time.perf_counter() - t, 1)
+        if rc != 0:
+            raise RuntimeError(f"serve {' '.join(flags)}: exit code {rc}")
+        return buf.getvalue().strip().splitlines()[-1]
+
+    shapes = serve.distinct_batch_shapes(captures, SERVE_BATCH)
+    n_batches = len({(b, _bucket(n)) for b, n in shapes}) + sum(
+        -(-count // SERVE_BATCH) for count, _ in SERVE_CLOUDS)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    line = run(SERVE_DIR / "masks")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    expected = {name: n_batches * count for name, count in PER_FRAME.items()}
+    if launches != expected:
+        raise RuntimeError(f"serve: launches {launches}, expected {expected} ({n_batches} "
+                           f"batches of {PER_FRAME})")
+    print(f"serve: {line}", flush=True)
+    print(f"serve: launches {launches} = {n_batches} batches (the warm-up ones included) of "
+          f"{PER_FRAME}", flush=True)
+    stems = sorted(f.name[: -len("_data.npy")] for f in captures.glob("*_data.npy"))
+    run(SERVE_DIR / "confidences", "--confidences")
+    run(SERVE_DIR / "cpu", "--confidences", "--device", "cpu")
+    worst, near = 0.0, 0
+    for stem in stems:
+        n = np.load(captures / f"{stem}_data.npy", mmap_mode="r").shape[0]
+        mask = np.load(SERVE_DIR / "masks" / f"{stem}_prediction.npy")
+        conf = np.load(SERVE_DIR / "confidences" / f"{stem}_confidences.npy")
+        ref = np.load(SERVE_DIR / "cpu" / f"{stem}_confidences.npy")
+        if mask.shape != (n,) or mask.dtype != np.bool_ or conf.shape != (2, n):
+            raise RuntimeError(f"serve {stem}: mask {mask.shape} {mask.dtype}, confidences "
+                               f"{conf.shape}")
+        away = np.abs(ref[1] - 0.5) > band
+        worst = max(worst, float(np.abs(conf - ref).max()))
+        near += int((~away).sum())
+        if worst > tol or (mask != (ref[1] > 0.5))[away].any():
+            raise RuntimeError(f"serve {stem}: card vs CPU: confidences max abs err {worst}, "
+                               f"{int((mask != (ref[1] > 0.5))[away].sum())} mask points differ")
+    if len(list((SERVE_DIR / "masks").glob("*_prediction.npy"))) != len(stems):
+        raise RuntimeError("serve: not one mask a cloud")
+    print(f"serve: {len(stems)} masks, one a cloud; card vs CPU confidences max abs err "
+          f"{worst:.3g}, masks equal ({near} points within {band} of the threshold); seconds "
+          f"of each serve.main run (warm-ups included) {seconds}", flush=True)
+    return launches
+
+
+def _large_path(torch, build, Model, port_knn, approach):
+    """The large-scene forward on one route: ``Model.predict(cloud,
+    prepostprocess=False)`` on bench_large.py's first 1,048,576-point cloud
+    with the bundled weights at that n_points. The first call (after the
+    session recall guard was reset; on the approximate route the guard
+    probes it and must settle on LARGE_WINDOW) is untimed; then LARGE_CALLS
+    calls, each with the launch counts set to 0 before it and held to
+    ``PER_CALL_LARGE``; wall p50 and peak memory printed. Then the chunked
+    forward against the in-model forward on the card, on the cloud and its
+    permutation (atol 2e-4, rtol 1e-3, as tests/test_large.py; on the
+    approximate route both at the session's window). Returns the model, the
+    cloud and the launches of the timed calls; the session window stays
+    for phase 8."""
+    from recognizer3d_tpu_torch.benchmarks import bench_large
+    from recognizer3d_tpu_torch.models.large import forward_eval_large
+
+    label = "large-exact" if approach == "naive" else "large-approx"
+    t0 = time.perf_counter()
+    _, clouds = bench_large.inputs(LARGE_POINTS)
+    cloud, perm = clouds["approximate"]
+    port_knn.reset_window_guard()
+    model = Model.load(ARCHIVE, device="cuda", n_points=LARGE_POINTS, knn=approach)
+    np.random.seed(0)
+    conf = model.predict(cloud, prepostprocess=False)
+    if conf.shape != (1, 2, LARGE_POINTS) or not np.isfinite(conf).all():
+        raise RuntimeError(f"{label}: confidences of shape {conf.shape}, or not finite")
+    if approach == "approximate":
+        window, fallback = port_knn.session_window_points(), port_knn.session_exact_fallback()
+        print(f"{label}: recall guard on the first cloud: {model.recall_guard_result}; session "
+              f"window {window}, exact fallback {fallback}", flush=True)
+        if window != LARGE_WINDOW or fallback:
+            raise RuntimeError(f"{label}: the guard settled on window {window} (exact fallback "
+                               f"{fallback}), expected {LARGE_WINDOW}")
+    per_call = PER_CALL_LARGE[approach]
+    walls, totals = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for _ in range(LARGE_CALLS):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        model.predict(cloud, prepostprocess=False)
+        walls.append((time.perf_counter() - t) * 1e3)
+        launches = dict(build.LAUNCHES)
+        if launches != per_call:
+            raise RuntimeError(f"{label}: launches {launches} in a call, expected {per_call}")
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t2 = time.perf_counter()
+    print(f"{label}: {LARGE_CALLS} calls of Model.predict(prepostprocess=False) on "
+          f"{LARGE_POINTS} points, launches a call {per_call} (the streaming "
+          f"kernel knn_topk_stream {launches.get('knn_topk_stream', 0)}); wall ms "
+          f"{[round(w, 3) for w in walls]}, p50 {statistics.median(walls):.3f}; peak memory "
+          f"{peak:.3f} GB", flush=True)
+    with torch.inference_mode():
+        x = torch.from_numpy(cloud).cuda()
+        p = torch.from_numpy(perm).cuda()
+        chunked = forward_eval_large(model.module, x, p)
+        torch.cuda.reset_peak_memory_stats()
+        in_model = model.module(x, p)
+        torch.cuda.synchronize()
+        in_model_peak = torch.cuda.max_memory_allocated() / 1e9
+        diff = (chunked - in_model).abs()
+        ok = bool((diff <= 2e-4 + 1e-3 * in_model.abs()).all()) and bool(chunked.isfinite().all())
+        err = float(diff.max())
+    if not ok:
+        raise RuntimeError(f"{label}: chunked forward vs in-model forward: max abs err {err}")
+    print(f"{label}: chunked forward against the in-model forward (peak memory "
+          f"{in_model_peak:.3f} GB) on the card: max abs err {err:.3g} (atol 2e-4, rtol 1e-3); "
+          f"seconds: load and first call {t1 - t0:.1f}, timed calls {t2 - t1:.1f}, in-model "
+          f"check {time.perf_counter() - t2:.1f}", flush=True)
+    return model, cloud, totals
+
+
+def _large_card_vs_cpu(torch, Model, port_knn, approach):
+    """The chunked forward called directly at LARGE_CPU_POINTS[approach]
+    points, chunk LARGE_CPU_CHUNK, on the card and on the CPU port
+    (bench_large.py's first cloud at that size, the bundled weights; the
+    approximate route at the session window, LARGE_WINDOW, on both sides):
+    the largest |Δ logit| within LARGE_CPU_REL_TOL of the largest |logit|
+    (the logits reach about 70, so an absolute 1e-4 would ask for less than
+    float32's rounding of them)."""
+    from recognizer3d_tpu_torch.benchmarks import bench_large
+    from recognizer3d_tpu_torch.models.large import forward_eval_large
+
+    label = "large-exact" if approach == "naive" else "large-approx"
+    n = LARGE_CPU_POINTS[approach]
+    if approach == "approximate" and port_knn.session_window_points() != LARGE_WINDOW:
+        raise RuntimeError(f"{label}: session window {port_knn.session_window_points()} before "
+                           f"the card-against-CPU check, expected {LARGE_WINDOW}")
+    _, clouds = bench_large.inputs(n)
+    cloud, perm = clouds["approximate"]
+    logits, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        model = Model.load(ARCHIVE, device=device, n_points=n, knn=approach)
+        t = time.perf_counter()
+        with torch.inference_mode():
+            logits[device] = forward_eval_large(
+                model.module, torch.from_numpy(cloud).to(device),
+                torch.from_numpy(perm).to(device), chunk=LARGE_CPU_CHUNK,
+            ).cpu()
+        seconds[device] = time.perf_counter() - t
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    if not bool(logits["cuda"].isfinite().all()) or err > LARGE_CPU_REL_TOL * scale:
+        raise RuntimeError(f"{label}: card vs CPU at {n} points: max abs err {err} against the "
+                           f"largest |logit| {scale}")
+    window = f", window {port_knn.session_window_points()}" if approach == "approximate" else ""
+    print(f"{label}: forward_eval_large at {n} points, chunk {LARGE_CPU_CHUNK}{window}, card vs "
+          f"CPU: logits max abs err {err:.3g}, {err / scale:.3g} of the largest |logit| "
+          f"{scale:.4g} (limit {LARGE_CPU_REL_TOL}); seconds: card {seconds['cuda']:.1f}, CPU "
+          f"{seconds['cpu']:.1f}", flush=True)
+
+
 def _torch_archive(torch, Model, model, frame):
     """The bundled weights re-saved as a reference-layout torch archive and
     loaded on the card: the same state and the same predictions."""
@@ -1475,6 +2029,13 @@ def main() -> None:
         flush=True,
     )
 
+    # seconds each phase took, printed as it ends
+    marks = [time.perf_counter()]
+
+    def phase_done(name):
+        marks.append(time.perf_counter())
+        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+
     # --- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -1494,12 +2055,14 @@ def main() -> None:
         make_frame(np.random.RandomState(100 + i), 0.45 * i, FRAME_POINTS)[0]
         for i in range(N_FRAMES)
     ]
+    phase_done("2")
 
     # --- 3. the app path --------------------------------------------------------
     predictor = Predictor(ARCHIVE, warmup_points=FRAME_POINTS)
     _, _, launches = _drive(torch, _build, predictor, frames, PER_FRAME, "app path")
     model = _card_vs_cpu(Model, ARCHIVE, frames[1], "app path")
     del predictor
+    phase_done("3")
 
     # --- 4. the approximate path at 64k points -------------------------------
     port_knn.reset_window_guard()
@@ -1534,6 +2097,7 @@ def main() -> None:
           f"search on frame 0: {recall:.4f}", flush=True)
     del predictor64
     model64 = _card_vs_cpu(Model, APPROX_ARCHIVE, frames64[1], "approx64k")
+    phase_done("4")
 
     # --- 4b. the bfloat16 compute mode: app-bf16 and approx64k-bf16 ----------
     models_bf16 = {}
@@ -1557,6 +2121,7 @@ def main() -> None:
         del predictor_bf
         models_bf16[label] = _bf16_card_vs_cpu(Model, archive32, archive, path_frames, label)
         _bf16_mask_iou(Model, archive32, archive, path_frames, label)
+    phase_done("4b")
 
     # --- 5. the live depth path -----------------------------------------------
     port_knn.reset_window_guard()
@@ -1565,16 +2130,37 @@ def main() -> None:
     )
     for name, count in launches_live.items():
         launches[name] = launches.get(name, 0) + count
+    phase_done("5")
 
     # --- 5b. the app entry point: cloud and depth branches ---------------------
     _write_app_dir(make_frame)
     for depth in (False, True):
         for name, count in _app_entry_point(torch, _build, Predictor, depth).items():
             launches[name] = launches.get(name, 0) + count
+    phase_done("5b")
 
     # --- 5c. knn="kdtree" -------------------------------------------------------
     for name, count in _kdtree_path(torch, _build, Model, Predictor, frames).items():
         launches[name] = launches.get(name, 0) + count
+    phase_done("5c")
+
+    # --- 5d. batch serving (BASELINE.json config 2) ---------------------------
+    captures = _write_serve_dir(make_frame)
+    for name, count in _serve_path(torch, _build, captures).items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("5d")
+
+    # --- 5e. the large-scene forward (BASELINE.json config 5) -----------------
+    # (the approximate route's session window stays for phase 8: no phase
+    # between runs the guard)
+    large = {}
+    for approach in ("naive", "approximate"):
+        model_l, cloud_l, totals = _large_path(torch, _build, Model, port_knn, approach)
+        large[approach] = (model_l, cloud_l)
+        for name, count in totals.items():
+            launches[name] = launches.get(name, 0) + count
+        _large_card_vs_cpu(torch, Model, port_knn, approach)
+    phase_done("5e")
 
     # --- 6. B7's entry point ------------------------------------------------
     _build.reset_launches()
@@ -1586,9 +2172,11 @@ def main() -> None:
     for stages, total_ms, per_block, per_stage in rows:
         print(f"bench_roll_stages {ROLL_SHAPE}: stages={stages:3d}  total {total_ms:.4f} ms  "
               f"per-block {per_block:.4f} us  marginal/stage {per_stage:.4f} us", flush=True)
+    phase_done("6")
 
     # --- 7. a reference torch archive -----------------------------------------
     _torch_archive(torch, Model, model, frames[1])
+    phase_done("7")
 
     # --- 7b. the train path ----------------------------------------------------
     trained, launches_train, val_batch = _train_path(torch, _build, Model, make_frame)
@@ -1598,6 +2186,7 @@ def main() -> None:
         torch, _build, Model, trained, val_batch
     )
     del trained
+    phase_done("7b")
 
     # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
@@ -1608,6 +2197,20 @@ def main() -> None:
         (lfa_kernels, "lfa_round1", "lfa_round1"),
         (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
     ]
+    # one call of each large path (the approximate route at the window its
+    # guard settled on in 5e), held last; then the guard back at its default
+    # for approx64k, whose guard settled there
+    calls_large = {}
+    for approach, label in (("naive", "large-exact"), ("approximate", "large-approx")):
+        if port_knn.session_window_points() != LARGE_WINDOW:
+            raise RuntimeError(f"{label}: session window {port_knn.session_window_points()}, "
+                               f"expected {LARGE_WINDOW}")
+        model_l, cloud_l = large.pop(approach)
+        calls_large[label] = _record_frame(
+            lambda: model_l.predict(cloud_l, prepostprocess=False), targets,
+            PER_CALL_LARGE[approach], label)
+        del model_l, cloud_l
+    port_knn.reset_window_guard()
     calls = _record_frame(lambda: model.predict(frames[0]), targets, PER_FRAME, "app path")
     calls64 = _record_frame(lambda: model64.predict(frames64[0]), targets, PER_FRAME_64K,
                             "approx64k")
@@ -1629,7 +2232,7 @@ def main() -> None:
         train_step(step_module, step_opt, step_criterion, *step_batch)
     torch.cuda.synchronize()
     calls_train = rec.calls
-    if {k: len(v) for k, v in calls_train.items() if v} != PER_STEP:
+    if any(len(v) != PER_STEP.get(k, 0) for k, v in calls_train.items()):
         raise RuntimeError(f"train step: recorded {[(k, len(v)) for k, v in calls_train.items()]}"
                            f", expected {PER_STEP}")
     step_module.eval()
@@ -1665,7 +2268,19 @@ def main() -> None:
             pipeline.DepthIntrinsics(),
         ))
         _exact_64k(torch, morton, knn_kernels, sample)
+        # the large paths' calls (their records hold GB each)
+        level0 = [s_ for (s_, q_, _), _ in calls_large["large-exact"]["knn_topk"]
+                  if s_.shape[1] == q_.shape[1] == LARGE_POINTS][0]
+        for label, calls_l in calls_large.items():
+            t = time.perf_counter()
+            _check_kernels(torch, calls_l, results, label, plain_reps=1)
+            calls_large[label] = None
+            print(f"{label}: kernels held on one call in {time.perf_counter() - t:.1f} s",
+                  flush=True)
+        del calls_l
+        _exact_1m(torch, knn_kernels, level0)
     del calls, calls64, calls_live, calls_train, calls_val, calls_bf16
+    phase_done("8")
 
     # --- 9. result lines ------------------------------------------------------
     kernels = []
@@ -1683,6 +2298,7 @@ def main() -> None:
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["t_bytes"] >= r["t_ops"] else "operations",
             "library_ms": r["library_ms"],
+            **({"note": r["note"]} if "note" in r else {}),
         })
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

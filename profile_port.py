@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [app|approx64k|live|train|app-bf16|approx64k-bf16 ...]
-                            [--expect-window W]
+    python3 profile_port.py [app|approx64k|live|train|app-bf16|approx64k-bf16|
+                             large-exact|large-approx ...] [--expect-window W]
 
 For each path named (the first four by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
@@ -18,7 +18,11 @@ made from mock frames of 60,000 points; train is one app-config train
 step (``training/trainer.train_step``: train-mode forward, dice loss,
 backward, Adam) of batch 4 × 2,500 points, batches assembled on the card
 from the annotated mock dataset ``chip_smoke.py``'s train phase writes
-under ``build/``, each step ending in a read of its loss.
+under ``build/``, each step ending in a read of its loss; large-exact and
+large-approx are the large-scene forward of ``chip_smoke.py``'s phase 5e
+(``Model.predict(cloud, prepostprocess=False)`` on the first 1,048,576-point
+cloud of ``benchmarks/bench_large.py``, the bundled weights at that
+n_points, ``knn="naive"`` or ``"approximate"``), 3 calls on that cloud.
 Each path's predictor is warmed up on 5 frames, then its frames (20 of the
 app and live paths, 10 of approx64k) are timed untraced, every path before
 any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
@@ -30,7 +34,8 @@ the most device time. The card's name and power
 limit come first.
 
 The session recall guard of ``knn="approximate"`` is process-global and
-only widens, so each approximate path (approx64k, approx64k-bf16) resets it
+only widens, so each approximate path (approx64k, approx64k-bf16,
+large-approx) resets it
 before its first frame, which the guard then probes; the frames are seeded,
 so a path settles on the same window in every process. The script prints
 each such path's window and exact fallback, and fails if a path is
@@ -54,6 +59,7 @@ from chip_smoke import (
     ARCHIVE,
     BF16_ARCHIVE,
     FRAME_POINTS,
+    LARGE_POINTS,
     LIVE_DISPLAY,
     _gpu_line,
     _make_frame,
@@ -62,6 +68,7 @@ from chip_smoke import (
 )
 
 FRAMES = 20
+LARGE_FRAMES = 3
 TOP = 25
 
 
@@ -160,6 +167,15 @@ def main() -> None:
         if path == "train":
             runs.append((_train_step_fn(torch), _train_data(torch, make_frame), path))
             continue
+        if path in ("large-exact", "large-approx"):
+            from recognizer3d_tpu_torch.benchmarks import bench_large
+
+            knn = "naive" if path == "large-exact" else "approximate"
+            model = Model.load(ARCHIVE, device="cuda", n_points=LARGE_POINTS, knn=knn)
+            cloud = bench_large.inputs(LARGE_POINTS)[1]["approximate"][0]
+            runs.append((lambda c, m=model: m.predict(c, prepostprocess=False),
+                         [cloud] * LARGE_FRAMES, path))
+            continue
         if path in ("app", "live"):
             archive, points, frames = ARCHIVE, FRAME_POINTS, FRAMES
         elif path == "approx64k":
@@ -190,7 +206,7 @@ def main() -> None:
     # that follow it in the process
     windows = {}
     for predict, frames, path in runs:
-        if path.startswith("approx64k"):
+        if path.startswith("approx64k") or path == "large-approx":
             port_knn.reset_window_guard()
             predict(frames[0])  # the guard probes the first (seeded) frame
             windows[path] = port_knn.session_window_points()

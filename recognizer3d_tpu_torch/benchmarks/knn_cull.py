@@ -38,6 +38,18 @@ repeats its last query):
    lexicographically, at the position after every entry lexicographically
    below it; the last entry drops and theta becomes the new k-th entry.
 
+Where the boxes come from: up to 2,048 support points each CUDA block
+builds them in its shared memory; above, one launch before the walk
+(``knn_box_kernel``) boxes each super tile straight from its 1,024 points,
+with its tiles' boxes on the way, into a global scratch (``box_pass``). Min
+and max are exact, so both give the walk the same boxes, and the same
+selection: the model builds them as the box pass does.
+
+``select(..., rows=...)`` walks only some query rows (with the other
+queries of their groups), each warm-started at its position in the whole
+launch, so that the work of a launch too large for the model can be
+sampled.
+
 The flags ``strict_cull=False`` (cull on ``bound >= theta``) and
 ``lexicographic=False`` (filter and place by distance alone, as a scan in
 increasing index may) exist to show, in the tests, that either change
@@ -68,6 +80,21 @@ def tile_boxes(support: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
             hi.reshape(nt, TILE, 3).max(1).astype(np.float32))
 
 
+def box_pass(support: np.ndarray):
+    """The box pass (``knn_box_kernel``): (lo, hi, slo, shi), each super
+    tile's box reduced straight from its points, as the warp's running min
+    and max over its tiles."""
+    n = support.shape[0]
+    lo, hi = tile_boxes(support)
+    span = TILE * TILE
+    ns = -(-n // span)
+    pad = ns * span - n
+    plo = np.concatenate([support, np.full((pad, 3), np.inf, np.float32)])
+    phi = np.concatenate([support, np.full((pad, 3), -np.inf, np.float32)])
+    return (lo, hi, plo.reshape(ns, span, 3).min(1).astype(np.float32),
+            phi.reshape(ns, span, 3).max(1).astype(np.float32))
+
+
 def box_bound(query: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     """Lower bound of the rounded squared distance of (..., 3) queries to
     any point of the (..., 3) boxes, in float32 with one rounding per
@@ -88,23 +115,35 @@ def _lex_less(ad, ai, bd, bi):
     return (ad < bd) | ((ad == bd) & (ai < bi))
 
 
-def select(support, query, k, group, strict_cull=True, lexicographic=True):
+def query_rows(m: int, group: int, rows=None) -> np.ndarray:
+    """The sorted query rows ``select`` walks: all ``m``, or ``rows`` with
+    the other queries of their groups of ``group``."""
+    if rows is None:
+        return np.arange(m)
+    heads = np.unique(np.asarray(rows) // group * group)
+    walked = np.unique((heads[:, None] + np.arange(group)).ravel())
+    return walked[walked < m]
+
+
+def select(support, query, k, group, strict_cull=True, lexicographic=True, rows=None):
     """The kernel's selection for a batch-free support (N, 3) and query
-    (M, 3) in any order, ``group`` (1 or 2) queries a warp: (idx (M, k),
-    d2 (M, k), counts) where counts holds
-    per query the distances evaluated (``"distances"``, the warm start's
-    included), the tiles visited after the warm start (``"tiles"``) and the
-    insertions after the warm start (``"insertions"``)."""
+    (M, 3) in any order, ``group`` (1 or 2) queries a warp: (idx (L, k),
+    d2 (L, k), counts) for the L rows of ``query_rows(M, group, rows)``,
+    where counts holds per row the distances evaluated (``"distances"``,
+    the warm start's included), the tiles visited after the warm start
+    (``"tiles"``) and the insertions after the warm start
+    (``"insertions"``)."""
     support = np.asarray(support, np.float32)
     query = np.asarray(query, np.float32)
     n, m = support.shape[0], query.shape[0]
     r, nt = list_registers(k), -(-n // TILE)
     e, cap = 2 * r, 32 * r
-    lo, hi = tile_boxes(support)
-    rows = np.arange(m)
+    lo, hi, slo, shi = box_pass(support)
+    rows = query_rows(m, group, rows)
     g0 = rows - rows % group
     nq = np.minimum(group, m - g0)
     tw0 = np.array([warm_tile(c, nt, k) for c in (g0 + nq // 2) * n // m])
+    query = query[rows]
 
     # warm start: 32·E points sorted by (distance, index), 32·R kept
     wi = tw0[:, None] * TILE + np.arange(e * TILE)
@@ -116,21 +155,17 @@ def select(support, query, k, group, strict_cull=True, lexicographic=True):
     best_i = np.take_along_axis(wi, srt, -1).astype(np.int64)
     counts = {
         "distances": valid.sum(-1),
-        "tiles": np.zeros(m, np.int64),
-        "insertions": np.zeros(m, np.int64),
+        "tiles": np.zeros(rows.size, np.int64),
+        "insertions": np.zeros(rows.size, np.int64),
     }
 
     # the walk: super-tile batches in increasing index; in a batch, the
     # alive super tile of least bound next, and in it the alive tile of
     # least bound next, until none is alive (bounds fixed, thetas of the
     # moment)
-    ga = np.arange(0, m, group)
-    gb = np.minimum(ga + group - 1, m - 1)  # the group's other query, or itself
-    n_groups, ns = ga.size, -(-nt // TILE)
-    slo = np.full((ns * TILE, 3), np.inf, np.float32)
-    shi = np.full((ns * TILE, 3), -np.inf, np.float32)
-    slo[:nt], shi[:nt] = lo, hi
-    slo, shi = slo.reshape(ns, TILE, 3).min(1), shi.reshape(ns, TILE, 3).max(1)
+    ga = np.flatnonzero(rows == g0)  # each group's first row
+    gb = ga + nq[ga] - 1  # the group's other query, or itself
+    n_groups, ns = ga.size, slo.shape[0]
     lb_t = box_bound(query[:, None], lo[None], hi[None])  # (M, nt)
     lb_s = box_bound(query[:, None], slo[None], shi[None])  # (M, ns)
     tiles = np.arange(nt)

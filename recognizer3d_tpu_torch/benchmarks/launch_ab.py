@@ -10,6 +10,10 @@ launcher or one constant changed, built under
 * ``group1``, ``group2``: ``knn.cu``'s ``cull_group`` gives every launch of
   the exact KNN kernel (B1) one, or two, queries a warp (as built: two where
   a launch holds more than 64 queries an SM, else one);
+* ``cull_global_all``, ``cull_shared_most``: B1 takes its global-memory
+  form (the boxes computed by a launch of their own before the walk) at
+  every size, or only where the boxes do not fit in a block's shared
+  memory (as built: above 2,048 support points);
 * ``r1_full_tile``: the round-1 kernel (B2) at h = 8 takes pool 2's tile of
   rows (as built: half of it, in blocks of half the threads);
 * ``argmin_order``: the 1-NN kernel (B4) has every support ordered into
@@ -38,9 +42,11 @@ launcher or one constant changed, built under
 
 B1 runs the k = 32 self-KNN of Morton-sorted mock levels at the served
 paths' sizes, the recall guard's 256-query re-search of the 65,536-point
-level and that level's exact self-KNN; B2 runs the served levels' shapes
-(K = 32); B4 the served paths' upsamples (``benchmarks/argmin_cull.
-served_cases``), timed with the ordering launch where there is one; B7 the
+level and that level's exact self-KNN, and the large-scene forward's calls
+(held to the plain version on 4,096 seeded rows where a call has over 2^32
+distances), each timed with its box pass where it has one; B2 runs the
+served levels' shapes (K = 32); B4 the served paths' upsamples
+(``benchmarks/argmin_cull.served_cases``), timed with the ordering launch where there is one; B7 the
 TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45;
 B2-bf16, B3-bf16 and B5-bf16 the bfloat16 paths' shapes (K = 32; h = 8 at
 2,500 and 65,536 rows, h = 32 at 625 and 16,384; F = 8 and 32). Every variant is held
@@ -70,6 +76,10 @@ VARIANTS = {
                "return 1;"),
     "group2": ("knn.cu", "return queries > CULL_ONE_WAVE_QUERIES_PER_SM * sms ? 2 : 1;",
                "return 2;"),
+    "cull_global_all": ("knn.cu", "constexpr int CULL_GLOBAL_MIN_POINTS = 2048;",
+                        "constexpr int CULL_GLOBAL_MIN_POINTS = 0;"),
+    "cull_shared_most": ("knn.cu", "constexpr int CULL_GLOBAL_MIN_POINTS = 2048;",
+                         "constexpr int CULL_GLOBAL_MIN_POINTS = 1 << 30;"),
     "r1_full_tile": ("lfa.cu", "const int tr = H == 8 ? tile_rows(K, H) / 2 : tile_rows(K, H);",
                      "const int tr = tile_rows(K, H);"),
     "argmin_order": ("knn.cu",
@@ -99,7 +109,7 @@ VARIANTS = {
 
 #: the variants each section times beside the built kernels
 SECTIONS = {
-    "B1": ("group1", "group2"),
+    "B1": ("group1", "group2", "cull_global_all", "cull_shared_most"),
     "B2": ("r1_full_tile",),
     "B4": ("argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256", "nn_threads1024"),
     "B7": ("roll_e32", "roll_e64", "roll_threads64"),
@@ -154,14 +164,29 @@ def _ms(fn, reps: int, kernel: str) -> float:
 
 
 def _knn_cases(dev):
-    """(label, support, query) of B1's k = 32 calls."""
+    """(label, support, query, k) of B1's calls: the k = 32 self-KNNs of the
+    served paths' mock levels and the guard's re-search, then the large-scene
+    forward's (bench_large.py's first 0.2·randn cloud of 1,048,576 points,
+    permuted, its levels Morton-sorted): the self-KNNs of 16,384 to 262,144
+    points and the 262,144 -> 1,048,576 1-NN at k = 1."""
+    from recognizer3d_tpu_torch.benchmarks import bench_large
+    from recognizer3d_tpu_torch.ops import morton
+
     cases = []
     for n, frame in ((2500, 60_000), (625, 60_000), (156, 60_000), (39, 60_000),
                      (4096, 150_000), (1024, 150_000), (65_536, 150_000)):
         x = torch.from_numpy(_mock_level0(n, frame))[None].to(dev)
-        cases.append((f"self-KNN N={n}", x, x))
+        cases.append((f"self-KNN N={n}", x, x, 32))
     q = x[:, torch.from_numpy(np.linspace(0, 65_535, 256).astype(np.int64)).to(dev)]
-    cases.append(("guard re-search M=256 N=65536", x, q.contiguous()))
+    cases.append(("guard re-search M=256 N=65536", x, q.contiguous(), 32))
+    _, clouds = bench_large.inputs(1 << 20)
+    cloud, perm = clouds["approximate"]
+    x = torch.from_numpy(cloud).to(dev)[:, torch.from_numpy(perm).to(dev)]
+    levels = {n: morton.sort_rows(x[:, :n], morton.morton_order(x[:, :n])).contiguous()
+              for n in (1 << 20, 1 << 18, 1 << 16, 1 << 14)}
+    for n in (1 << 14, 1 << 16, 1 << 18):
+        cases.append((f"large self-KNN N={n}", levels[n], levels[n], 32))
+    cases.append(("large 1-NN M=1048576 N=262144", levels[1 << 18], levels[1 << 20], 1))
     return cases
 
 
@@ -236,22 +261,27 @@ def main() -> None:
         libs.update(zip(names, pool.map(_build_variant, names)))
 
     if "B1" in opts.sections:
-        k = 32
         knn_variants = ("built", *SECTIONS["B1"])
-        for label, s, q in _knn_cases(dev):
-            ref = knn_kernels.knn_topk_plain(s, q, k)
+        for label, s, q, k in _knn_cases(dev):
+            m, n = q.shape[1], s.shape[1]
+            rows = torch.arange(m, device=dev)
+            if m * n > 1 << 32:  # the plain version on 4,096 seeded rows
+                rows = torch.from_numpy(np.sort(
+                    np.random.RandomState(0).choice(m, 4096, replace=False))).to(dev)
+            ref = knn_kernels.knn_topk_plain(s, q[:, rows].contiguous(), k)
             for name in knn_variants:
                 with _using(libs[name]):
                     idx, d2 = knn_kernels.knn_topk(s, q, k)
-                if not (torch.equal(idx, ref[0]) and torch.equal(d2, ref[1])):
+                if not (torch.equal(idx[:, rows], ref[0]) and torch.equal(d2[:, rows], ref[1])):
                     raise RuntimeError(f"B1 {label} on {name}: not equal to the plain version")
-            del ref
+            del ref, idx, d2
 
-            def timed(name, reps, s=s, q=q):
+            def timed(name, reps, s=s, q=q, k=k):
+                # "knn_": the walk and, in the global-memory form, its box pass
                 with _using(libs[name]):
-                    return _ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_cull_kernel")
+                    return _ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_")
 
-            _line(f"B1 {label} k={k}", knn_variants, timed, 5 if s.shape[1] > 10_000 else 50)
+            _line(f"B1 {label} k={k}", knn_variants, timed, 5 if n > 10_000 else 50)
 
     if "B2" in opts.sections:
         r1_variants = ("built", *SECTIONS["B2"])

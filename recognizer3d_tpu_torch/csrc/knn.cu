@@ -64,11 +64,12 @@
 // skips a tile whose box no query can reach. This kernel computes what that
 // machinery is for, in a form that suits a warp:
 // - the support is cut into tiles of 32 points (one warp step), and
-//   super tiles of 32 tiles; each block computes the boxes of all of them
-//   into shared memory (a warp reduction a tile), and stages the support
-//   itself there when support and boxes fit in CULL_STAGE_BYTES (the main
-//   path's levels: up to 4,096 points); above that, visited tiles are read
-//   from global memory, which L2 holds (65,536 points are 786 KB);
+//   super tiles of 32 tiles; up to CULL_GLOBAL_MIN_POINTS support points
+//   each block computes the boxes of all of them into shared memory (a
+//   warp reduction a tile) and stages the support itself there (it fits
+//   in CULL_STAGE_BYTES); above, the global-memory form below computes the
+//   boxes once, and visited tiles are read from global memory, which L2
+//   holds (65,536 points are 786 KB);
 // - a warp serves a group of 1 or 2 consecutive queries: 2 where the
 //   launch fills the card several times over (one point load then feeds
 //   two distances), 1 where the whole launch is one wave, since a launch
@@ -103,12 +104,24 @@
 // - the best list sits in registers across the lanes (entry p = 32 * r +
 //   lane, r < R, 32R >= k); an insertion is one warp-wide step (position by
 //   ballot + popcount, shift by shuffles), as in the window kernel.
-// Supports whose tile boxes do not fit in shared memory (over about
-// 300,000 points; only a million-point 1-NN routed here would) take the
-// streaming knn_topk_kernel.
+// The global-memory form: the TPU kernel keeps supports over 4 MB in HBM
+// (hbm=True) and copies in only the tiles it does not cull. Here, above
+// CULL_GLOBAL_MIN_POINTS support points, one launch before the walk,
+// knn_box_kernel, computes every tile box and super-tile box once into a
+// global scratch (a warp a super tile; one set of boxes a cloud). The walk
+// is the same kernel: it copies the super-tile boxes (24 KB at 1,048,576
+// points) into shared memory and reads a tile's box from global memory,
+// which L2 holds (786 KB at that size), only when the tile's super tile is
+// alive, so every block no longer rereads the support to box it; the
+// boxes of over about 300,000 points would not fit in shared memory at
+// all. The boxes are the same values in both forms (min and max are
+// exact), so the selection is too. Which form is faster depends on the
+// support's size: the box pass is a launch of its own, about 5 us at any
+// size, which small supports do not win back (benchmarks/launch_ab.py B1
+// times both at the served sizes, PERF.md).
 //
 // knn_topk_kernel (the window route's kernel for windows wider than shared
-// memory holds, and the exact route's above). One warp owns one query; the
+// memory holds). One warp owns one query; the
 // block's warps share support tiles staged in shared memory; each step the
 // 32 lanes evaluate 32 support points, a ballot collects those closer than
 // the current k-th best, and each is inserted by the whole warp.
@@ -201,6 +214,7 @@ constexpr int CULL_BOX_UNROLL = 4; // tiles a warp boxes at once,
 constexpr int CULL_STAGE_UNROLL = 4;  // support loads in flight a thread,
 constexpr int CULL_ONE_WAVE_QUERIES_PER_SM = 64;  // see cull_group
 constexpr int CULL_STAGE_BYTES = 100 * 1024;  // support + boxes staged up to
+constexpr int CULL_GLOBAL_MIN_POINTS = 2048;  // the global-memory form above
 
 __device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
                                          float sx, float sy, float sz) {
@@ -671,48 +685,41 @@ __device__ __forceinline__ int nearest_lane(bool alive, float key) {
   return __ffs(__ballot_sync(FULL, bits == least)) - 1;
 }
 
-// Exact k-NN with box culling, k <= 32 * R (see the design note at the
-// top). Block blockIdx.x owns queries [qpb * blockIdx.x, +qpb) of batch
-// blockIdx.y. Dynamic shared memory: tile boxes (6 rows of nt: lo xyz | hi
-// xyz) | super-tile boxes (6 rows of ns) | the support (3N, staged only).
-template <int R, int Q>
-__global__ void __launch_bounds__(CULL_WARPS * 32, 2)
-knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ support,
-                int* __restrict__ idx_out, float* __restrict__ d2_out, int M, int N,
-                int k, int qpb, int staged) {
-  constexpr int E = 2 * R;  // warm start: E tiles, 32 * R points kept
-  extern __shared__ float cull_sm[];
-  const int nt = (N + 31) / 32, ns = (nt + 31) / 32;
-  float* tbox = cull_sm;
-  float* sbox = tbox + 6 * nt;
-  float* spts = sbox + 6 * ns;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* sg = support + static_cast<size_t>(b) * N * 3;
-  if (staged) {  // CULL_STAGE_UNROLL loads in flight a thread
-    for (int t0 = threadIdx.x; t0 < 3 * N; t0 += CULL_STAGE_UNROLL * blockDim.x) {
-      float v[CULL_STAGE_UNROLL];
-#pragma unroll
-      for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
-        const int t = t0 + u * blockDim.x;
-        v[u] = t < 3 * N ? sg[t] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
-        const int t = t0 + u * blockDim.x;
-        if (t < 3 * N) spts[t] = v[u];
-      }
-    }
-    __syncthreads();
-  }
-  const float* pts = staged ? spts : sg;  // points as x, y, z triples
+// Floats of one cloud's boxes in the global-memory form's scratch: tile
+// boxes (6 rows of nt: lo xyz | hi xyz), then super-tile boxes (6 rows of
+// ns), rounded up to 16 bytes.
+inline size_t cull_box_stride(int N) {
+  const size_t nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  return (6 * (nt + ns) + 3) / 4 * 4;
+}
 
-  // tile boxes, CULL_BOX_UNROLL tiles a warp at a time (their loads overlap)
-  for (int t0 = warp; t0 < nt; t0 += CULL_WARPS * CULL_BOX_UNROLL) {
+// The global-memory form's box pass: warp s of the launch boxes super tile
+// s of cloud blockIdx.y, its 32 tiles CULL_BOX_UNROLL at a time (their
+// loads overlap), into the layout of cull_box_stride at scratch + b *
+// stride. Tiles past the support contribute empty boxes (+inf, -inf), as
+// knn_cull_kernel's super-tile pass reads them.
+__global__ void __launch_bounds__(CULL_WARPS * 32)
+knn_box_kernel(const float* __restrict__ support, float* __restrict__ scratch, int N,
+               size_t stride) {
+  const int nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * CULL_WARPS + (threadIdx.x >> 5);
+  if (s >= ns) return;  // uniform across the warp
+  const int b = blockIdx.y;
+  const float* pts = support + static_cast<size_t>(b) * N * 3;
+  float* tbox = scratch + b * stride;
+  float* sbox = tbox + 6 * static_cast<size_t>(nt);
+  float slo[3], shi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    slo[a] = CUDART_INF_F;
+    shi[a] = -CUDART_INF_F;
+  }
+  for (int u0 = 0; u0 < 32; u0 += CULL_BOX_UNROLL) {
     float lo[CULL_BOX_UNROLL][3], hi[CULL_BOX_UNROLL][3];
 #pragma unroll
     for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
-      const int j = 32 * (t0 + u * CULL_WARPS) + lane;
+      const long long j = 32LL * (32LL * s + u0 + u) + lane;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const float v = j < N ? pts[3 * j + a] : CUDART_INF_F;
@@ -723,23 +730,105 @@ knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ suppo
 #pragma unroll
     for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
       warp_box(lo[u], hi[u]);
-      const int t = t0 + u * CULL_WARPS;
-      if (lane < 6 && t < nt) tbox[lane * nt + t] = box_component(lo[u], hi[u], lane);
-    }
-  }
-  __syncthreads();
-  for (int s = warp; s < ns; s += CULL_WARPS) {
-    const int t = 32 * s + lane;
-    float lo[3], hi[3];
+      const int t = 32 * s + u0 + u;
+      if (lane < 6 && t < nt) tbox[static_cast<size_t>(lane) * nt + t] =
+          box_component(lo[u], hi[u], lane);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      lo[a] = t < nt ? tbox[a * nt + t] : CUDART_INF_F;
-      hi[a] = t < nt ? tbox[(3 + a) * nt + t] : -CUDART_INF_F;
+      for (int a = 0; a < 3; ++a) {
+        slo[a] = fminf(slo[a], lo[u][a]);
+        shi[a] = fmaxf(shi[a], hi[u][a]);
+      }
     }
-    warp_box(lo, hi);
-    if (lane < 6) sbox[lane * ns + s] = box_component(lo, hi, lane);
   }
-  __syncthreads();
+  if (lane < 6) sbox[lane * ns + s] = box_component(slo, shi, lane);
+}
+
+// Exact k-NN with box culling, k <= 32 * R (see the design note at the
+// top). Block blockIdx.x owns queries [qpb * blockIdx.x, +qpb) of batch
+// blockIdx.y. Shared-memory form (boxes == null): dynamic shared memory holds
+// tile boxes (6 rows of nt: lo xyz | hi xyz) | super-tile boxes (6 rows of
+// ns) | the support (3N, staged only), built by the block. Global-memory
+// form: cloud b's boxes lie at boxes + b * stride (knn_box_kernel), and
+// shared memory holds a copy of its super-tile boxes.
+template <int R, int Q>
+__global__ void __launch_bounds__(CULL_WARPS * 32, 2)
+knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ support,
+                const float* __restrict__ boxes, int* __restrict__ idx_out,
+                float* __restrict__ d2_out, int M, int N, int k, int qpb, int staged,
+                size_t stride) {
+  constexpr int E = 2 * R;  // warm start: E tiles, 32 * R points kept
+  extern __shared__ float cull_sm[];
+  const int nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* sg = support + static_cast<size_t>(b) * N * 3;
+  const float* pts = sg;  // points as x, y, z triples
+  const float* tbox;      // the boxes the walk reads
+  const float* sbox;
+  if (boxes != nullptr) {
+    tbox = boxes + b * stride;
+    const float* gs = tbox + 6 * static_cast<size_t>(nt);
+    for (int t = threadIdx.x; t < 6 * ns; t += blockDim.x) cull_sm[t] = gs[t];
+    sbox = cull_sm;
+    __syncthreads();
+  } else {
+    float* stbox = cull_sm;
+    float* ssbox = stbox + 6 * nt;
+    float* spts = ssbox + 6 * ns;
+    if (staged) {  // CULL_STAGE_UNROLL loads in flight a thread
+      for (int t0 = threadIdx.x; t0 < 3 * N; t0 += CULL_STAGE_UNROLL * blockDim.x) {
+        float v[CULL_STAGE_UNROLL];
+#pragma unroll
+        for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
+          const int t = t0 + u * blockDim.x;
+          v[u] = t < 3 * N ? sg[t] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < CULL_STAGE_UNROLL; ++u) {
+          const int t = t0 + u * blockDim.x;
+          if (t < 3 * N) spts[t] = v[u];
+        }
+      }
+      __syncthreads();
+      pts = spts;
+    }
+
+    // tile boxes, CULL_BOX_UNROLL tiles a warp at a time (their loads overlap)
+    for (int t0 = warp; t0 < nt; t0 += CULL_WARPS * CULL_BOX_UNROLL) {
+      float lo[CULL_BOX_UNROLL][3], hi[CULL_BOX_UNROLL][3];
+#pragma unroll
+      for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
+        const int j = 32 * (t0 + u * CULL_WARPS) + lane;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float v = j < N ? pts[3 * j + a] : CUDART_INF_F;
+          lo[u][a] = v;
+          hi[u][a] = j < N ? v : -CUDART_INF_F;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
+        warp_box(lo[u], hi[u]);
+        const int t = t0 + u * CULL_WARPS;
+        if (lane < 6 && t < nt) stbox[lane * nt + t] = box_component(lo[u], hi[u], lane);
+      }
+    }
+    __syncthreads();
+    for (int s = warp; s < ns; s += CULL_WARPS) {
+      const int t = 32 * s + lane;
+      float lo[3], hi[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = t < nt ? stbox[a * nt + t] : CUDART_INF_F;
+        hi[a] = t < nt ? stbox[(3 + a) * nt + t] : -CUDART_INF_F;
+      }
+      warp_box(lo, hi);
+      if (lane < 6) ssbox[lane * ns + s] = box_component(lo, hi, lane);
+    }
+    __syncthreads();
+    tbox = stbox;
+    sbox = ssbox;
+  }
 
   const int q_hi = min(blockIdx.x * qpb + qpb, M);
   for (int g0 = blockIdx.x * qpb + warp * Q; g0 < q_hi; g0 += CULL_WARPS * Q) {
@@ -861,30 +950,35 @@ knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ suppo
   }
 }
 
+// The launch arguments shared by the culled route's launchers.
+struct CullLaunch {
+  const float* query;
+  const float* support;
+  const float* boxes;  // the global-memory form's boxes, else null
+  int* idx;
+  float* d2;
+  int B, M, N, k, group, qpb, staged;
+  size_t stride, smem;
+  cudaStream_t stream;
+};
+
 template <int R, int Q>
-int launch_cull_rq(const float* query, const float* support, int* idx, float* d2,
-                   int B, int M, int N, int k, int qpb, int staged, size_t smem,
-                   cudaStream_t stream) {
-  if (smem > 48 * 1024) {
+int launch_cull_rq(const CullLaunch& a) {
+  if (a.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         knn_cull_kernel<R, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(a.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((M + qpb - 1) / qpb, B);
-  knn_cull_kernel<R, Q><<<grid, CULL_WARPS * 32, smem, stream>>>(
-      query, support, idx, d2, M, N, k, qpb, staged);
+  const dim3 grid((a.M + a.qpb - 1) / a.qpb, a.B);
+  knn_cull_kernel<R, Q><<<grid, CULL_WARPS * 32, a.smem, a.stream>>>(
+      a.query, a.support, a.boxes, a.idx, a.d2, a.M, a.N, a.k, a.qpb, a.staged, a.stride);
   return 0;
 }
 
 template <int R>
-int launch_cull_r(const float* query, const float* support, int* idx, float* d2,
-                  int B, int M, int N, int k, int group, int qpb, int staged,
-                  size_t smem, cudaStream_t stream) {
-  if (group == 1) {
-    return launch_cull_rq<R, 1>(query, support, idx, d2, B, M, N, k, qpb, staged, smem, stream);
-  }
-  return launch_cull_rq<R, 2>(query, support, idx, d2, B, M, N, k, qpb, staged, smem, stream);
+int launch_cull_r(const CullLaunch& a) {
+  return a.group == 1 ? launch_cull_rq<R, 1>(a) : launch_cull_rq<R, 2>(a);
 }
 
 // Queries a warp serves: 2 (one point load feeds two distances) where the
@@ -897,25 +991,50 @@ int cull_group(int queries, int sms) {
   return queries > CULL_ONE_WAVE_QUERIES_PER_SM * sms ? 2 : 1;
 }
 
-// The exact k-NN route: knn_cull_kernel with the support staged in shared
-// memory up to CULL_STAGE_BYTES, read from global memory (L2) above; the
-// streaming knn_topk_kernel when even the tile boxes do not fit in shared
-// memory (over about 300,000 support points).
-int launch_exact(const float* query, const float* support, int* idx, float* d2,
-                 int B, int M, int N, int k, cudaStream_t stream) {
+// Bytes of the tile and super-tile boxes of a support of N points.
+inline size_t cull_box_bytes(int N) {
   const size_t nt = (N + 31) / 32, ns = (nt + 31) / 32;
-  const size_t box_bytes = 6 * (nt + ns) * sizeof(float);
+  return 6 * (nt + ns) * sizeof(float);
+}
+
+// Whether the exact route takes the global-memory form: above
+// CULL_GLOBAL_MIN_POINTS support points, where it measured faster (on an
+// H100 80GB HBM3 at 700 W, box pass included: 2,500 points 0.0249 ->
+// 0.0243 ms, 4,096 points 0.0363 -> 0.0294 ms, 262,144 points 4.720 ->
+// 1.350 ms; at 1,024 points 0.0180 against the shared-memory form's
+// 0.0124 ms, at 39 points 0.0084 against 0.0037), and wherever the boxes
+// do not fit in shared memory.
+inline bool cull_global(int N) {
+  return N > CULL_GLOBAL_MIN_POINTS || cull_box_bytes(N) > static_cast<size_t>(MAX_SMEM);
+}
+
+// The exact k-NN route: knn_cull_kernel with the support staged in shared
+// memory up to CULL_STAGE_BYTES; above CULL_GLOBAL_MIN_POINTS points, the
+// global-memory form:
+// knn_box_kernel into the scratch (B sets of cull_box_stride(N) floats),
+// then the walk on the same stream. The global form's walk holds the
+// super-tile boxes in shared memory, which bounds it at about 317 million
+// points (a larger support is refused).
+int launch_exact(const float* query, const float* support, float* scratch, int* idx,
+                 float* d2, int B, int M, int N, int k, cudaStream_t stream) {
+  const size_t nt = (N + 31) / 32, ns = (nt + 31) / 32;
+  const bool global = cull_global(N);
   const size_t stage_bytes = 3 * static_cast<size_t>(N) * sizeof(float);
-  if (box_bytes > MAX_SMEM) {
-    launch_knn(query, support, nullptr, idx, d2, B, M, N, N, 1, k, stream);
-    return 0;
+  const int staged = !global && cull_box_bytes(N) + stage_bytes <= CULL_STAGE_BYTES;
+  const size_t smem = global ? 6 * ns * sizeof(float)
+                             : cull_box_bytes(N) + (staged ? stage_bytes : 0);
+  if (smem > static_cast<size_t>(MAX_SMEM) || (global && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int staged = box_bytes + stage_bytes <= CULL_STAGE_BYTES;
-  const size_t smem = box_bytes + (staged ? stage_bytes : 0);
   int device = 0, sms = 0, err;
   if ((err = cudaGetDevice(&device)) ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) {
     return err;
+  }
+  const size_t stride = global ? cull_box_stride(N) : 0;
+  if (global) {
+    const dim3 grid((static_cast<unsigned>(ns) + CULL_WARPS - 1) / CULL_WARPS, B);
+    knn_box_kernel<<<grid, CULL_WARPS * 32, 0, stream>>>(support, scratch, N, stride);
   }
   const int group = cull_group(B * M, sms);
   // one wave: a query group a warp; else about two blocks an SM, 16 to 256
@@ -923,12 +1042,11 @@ int launch_exact(const float* query, const float* support, int* idx, float* d2,
   // among more queries
   const int per_block = (M + 2 * sms - 1) / (2 * sms);
   const int qpb = group == 1 ? CULL_WARPS : min(max((per_block + 15) / 16 * 16, 16), 256);
-  if (k <= 32) {
-    return launch_cull_r<1>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
-  } else if (k <= 64) {
-    return launch_cull_r<2>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
-  }
-  return launch_cull_r<4>(query, support, idx, d2, B, M, N, k, group, qpb, staged, smem, stream);
+  const CullLaunch a{query, support, global ? scratch : nullptr, idx, d2, B, M, N, k,
+                     group, qpb, staged, stride, smem, stream};
+  if (k <= 32) return launch_cull_r<1>(a);
+  if (k <= 64) return launch_cull_r<2>(a);
+  return launch_cull_r<4>(a);
 }
 
 // --- argmin_cull_kernel: exact 1-NN over a grid of cells --------------------
@@ -1329,14 +1447,23 @@ int launch_argmin(const float* query, const float* support, float* scratch, int*
 
 }  // namespace
 
-// query (B, M, 3), support (B, N, 3) float32; idx (B, M, k) int32 and
-// d2 (B, M, k) float32 out, nearest first. Returns cudaGetLastError().
-extern "C" int r3d_knn_topk(const float* query, const float* support,
+// Bytes of scratch that r3d_knn_topk needs for B supports of N points: 0
+// where the block builds the boxes in shared memory, else the
+// global-memory form's boxes (cull_global).
+extern "C" long long r3d_knn_topk_scratch_bytes(int B, int N) {
+  return cull_global(N) ? 4LL * B * static_cast<long long>(cull_box_stride(N)) : 0;
+}
+
+// query (B, M, 3), support (B, N, 3) float32; scratch of
+// r3d_knn_topk_scratch_bytes(B, N) bytes (null where that is 0); idx (B, M,
+// k) int32 and d2 (B, M, k) float32 out, nearest first. Returns
+// cudaGetLastError().
+extern "C" int r3d_knn_topk(const float* query, const float* support, float* scratch,
                             int* idx, float* d2, int B, int M, int N, int k,
                             void* stream) {
   if (B == 0 || M == 0) return 0;
   if (k < 1 || k > 128 || k > N) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_exact(query, support, idx, d2, B, M, N, k,
+  const int err = launch_exact(query, support, scratch, idx, d2, B, M, N, k,
                                static_cast<cudaStream_t>(stream));
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
@@ -1360,6 +1487,12 @@ extern "C" int r3d_argmin(const float* query, const float* support, float* scrat
                                 static_cast<cudaStream_t>(stream));
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether r3d_knn_window at k >= 2 scans windows of w points with the
+// streaming knn_topk_kernel (windows wider than shared memory holds).
+extern "C" int r3d_knn_window_streams(int w) {
+  return static_cast<size_t>(w) * 3 * sizeof(float) > static_cast<size_t>(MAX_SMEM);
 }
 
 // query (B, M, 3) and support (B, N, 3) float32, both Morton-sorted; starts
@@ -1387,7 +1520,7 @@ extern "C" int r3d_knn_window(const float* query, const float* support,
     if (qb % KNN_WARPS != 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = static_cast<size_t>(w) * 3 * sizeof(float);
     int err = 0;
-    if (smem > MAX_SMEM) {
+    if (r3d_knn_window_streams(w)) {
       launch_knn(query, support, starts, idx, d2, B, M, N, w, qb, k, s);
     } else if (k <= 32) {
       err = launch_window<1>(query, support, starts, idx, d2, B, M, N, w, qb, k, smem, s);

@@ -26,7 +26,10 @@ on that cloud, as the JAX facade does.
 augmented, randomly sampled training loader and a consistent, unshuffled
 validation loader.
 
-Not ported yet: the million-point forward (ROADMAP A8).
+Eval forwards of clouds of ``LARGE_FORWARD_MIN_POINTS`` points or more
+(``Model.predict(..., prepostprocess=False)``, or ``upsampling="none"``)
+run the chunked million-point forward (``models/large.py``), as the JAX
+facade routes them.
 """
 
 import json
@@ -44,6 +47,7 @@ import torch
 from recognizer3d_tpu_torch.data.augmentation import AugmentationSettings
 from recognizer3d_tpu_torch.data.loader import get_data_loader
 from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
+from recognizer3d_tpu_torch.models.large import LARGE_FORWARD_MIN_POINTS, forward_eval_large
 from recognizer3d_tpu_torch.models.randlanet import RandLANet
 from recognizer3d_tpu_torch.models.settings import RandLANetSettings
 from recognizer3d_tpu_torch.models.torch_compat import load_reference_weights
@@ -57,8 +61,9 @@ from recognizer3d_tpu_torch.utils import msgpack_lite
 from recognizer3d_tpu_torch.utils.device import resolve_device
 
 _BUCKET = 4096  # minimum full-cloud padding granularity
-# eval forwards at / beyond this cloud size need the chunked forward
-_LARGE_FORWARD_MIN = 300_000
+# eval forwards at / beyond this cloud size stream the LFA neighbour
+# pipeline in chunks (models/large.py)
+_LARGE_FORWARD_MIN = LARGE_FORWARD_MIN_POINTS
 # batched eval forwards with more total points than this run per cloud
 _BATCHED_PER_CLOUD_MIN = 131072
 
@@ -194,10 +199,7 @@ class Model:
 
     def _forward(self, inputs: torch.Tensor, permutation: torch.Tensor) -> torch.Tensor:
         if inputs.shape[1] >= _LARGE_FORWARD_MIN:
-            raise NotImplementedError(
-                f"clouds of {inputs.shape[1]} >= {_LARGE_FORWARD_MIN} points "
-                "need the chunked million-point forward (ROADMAP A8)"
-            )
+            return forward_eval_large(self._module, inputs, permutation)
         if inputs.shape[0] > 1 and inputs.shape[0] * inputs.shape[1] > _BATCHED_PER_CLOUD_MIN:
             # eval BN reads running stats, so clouds are independent: one
             # forward per cloud is numerically identical and keeps each

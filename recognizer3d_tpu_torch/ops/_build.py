@@ -183,8 +183,8 @@ def sass_counts(names, opcode: str) -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # (query, support, idx_out, d2_out, B, M, N, k, stream)
-    "r3d_knn_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (query, support, scratch, idx_out, d2_out, B, M, N, k, stream)
+    "r3d_knn_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (query, support, scratch, idx_out, d2_out, B, M, N, stream)
     "r3d_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (query, support, starts, idx_out, d2_out, B, M, N, w, qb, k, stream)
@@ -212,9 +212,14 @@ def load(path: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    # (B, N) -> bytes of scratch r3d_argmin needs
-    lib.r3d_argmin_scratch_bytes.argtypes = [_I, _I]
-    lib.r3d_argmin_scratch_bytes.restype = ctypes.c_longlong
+    # (B, N) -> bytes of scratch r3d_argmin / r3d_knn_topk need
+    for name in ("r3d_argmin_scratch_bytes", "r3d_knn_topk_scratch_bytes"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_I, _I]
+        fn.restype = ctypes.c_longlong
+    # window points -> whether r3d_knn_window scans them with the streaming kernel
+    lib.r3d_knn_window_streams.argtypes = [_I]
+    lib.r3d_knn_window_streams.restype = ctypes.c_int
     return lib
 
 

@@ -1,7 +1,10 @@
 """Exact KNN and 1-NN kernels (``csrc/knn.cu``) with their plain versions.
 
 * :func:`knn_topk` replaces ``recognizer3d_tpu/ops/knn_pallas.py::_knn_kernel``
-  (exact k-NN, k <= 128): the encoder self-KNNs of the main path.
+  (exact k-NN, k <= 128): the encoder self-KNNs of the main path. Supports
+  of over 2,048 points take the kernel's global-memory form, the
+  counterpart of the TPU kernel's ``hbm=True``: one more launch computes
+  the boxes into a scratch (counted as ``knn_topk_boxes``).
 * :func:`argmin_1nn` replaces ``::_argmin_kernel`` (exact 1-NN with tile
   culling) with a kernel that culls over a grid of cells it builds itself:
   the final upsample onto the full cloud, and approx64k's decoder
@@ -117,10 +120,17 @@ def knn_topk(
     idx = torch.empty((B, m, k), dtype=torch.int32, device=support.device)
     d2 = torch.empty((B, m, k), dtype=torch.float32, device=support.device)
     lib = _build.library()
+    # supports over the kernel's size threshold take the global-memory
+    # form: a box pass of its own into this scratch, then the walk
+    scratch_bytes = lib.r3d_knn_topk_scratch_bytes(B, n)
+    scratch = None
+    if scratch_bytes:
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=support.device)
+        _build.LAUNCHES["knn_topk_boxes"] += 1
     _build.LAUNCHES["knn_topk"] += 1
     status = lib.r3d_knn_topk(
-        query.data_ptr(), support.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-        B, m, n, k, _build.stream_ptr(support.device),
+        query.data_ptr(), support.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        idx.data_ptr(), d2.data_ptr(), B, m, n, k, _build.stream_ptr(support.device),
     )
     _build.check_status("r3d_knn_topk", status)
     return idx, d2
@@ -232,7 +242,10 @@ def knn_window_topk(
     idx = torch.empty((B, m, k), dtype=torch.int32, device=support.device)
     d2 = torch.empty((B, m, k), dtype=torch.float32, device=support.device)
     lib = _build.library()
-    _build.LAUNCHES["knn_window_topk"] += 1
+    # windows wider than shared memory holds are scanned by the streaming
+    # kernel (k >= 2), counted under a name of its own
+    streams = k >= 2 and lib.r3d_knn_window_streams(w)
+    _build.LAUNCHES["knn_topk_stream" if streams else "knn_window_topk"] += 1
     status = lib.r3d_knn_window(
         query.data_ptr(), support.data_ptr(), starts.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), B, m, n, w, qb, k, _build.stream_ptr(support.device),

@@ -5,8 +5,11 @@ main path does not reach (``chip_smoke.py`` holds the main path's): every
 best-list width of the KNN kernel up to k = 128, ragged support tiles,
 batches, Morton-sorted self-searches at every level size of the served
 paths, tie-heavy grids, unsorted queries and supports, both of the exact
-route's support layouts (staged in shared memory, read from global memory)
-and its streaming kernel for the largest supports, the round-1 kernel on
+route's forms (the boxes built in shared memory by each block up to 2,048
+support points, by a launch of their own above) and supports past 300,000
+points, whose boxes a block's shared memory could not hold (against the
+streaming kernel, on clustered clouds with duplicates and batches), the
+round-1 kernel on
 ragged row tiles at every neighbour count it takes, the window kernel on
 Morton-sorted clouds at every window of the recall guard's ladder, the
 pool-2 kernels on ragged row tiles and other neighbour counts, the bfloat16
@@ -92,14 +95,14 @@ def _sorted(x):
         (1, 20000, 256, 32, None, "guard"),   # the guard's evenly spaced re-search
         (1, 65536, 256, 32, 20, "guard"),
         (1, 4000, 500, 32, 10, "sorted_support"),  # unsorted queries, sorted support
-        (2, 9000, 300, 64, None, "sorted_support"),  # support read from global memory
+        (2, 9000, 300, 64, None, "sorted_support"),
         # launches of more than one wave (over 64 queries an SM): two queries
         # a warp, the short last group of an odd M repeating its last query
-        (1, 4000, 9001, 128, 8, "sorted_support"),  # staged support, widest list
-        (1, 12000, None, 64, 10, "self"),     # support read from global memory
+        (1, 4000, 9001, 128, 8, "sorted_support"),  # the widest list
+        (1, 12000, None, 64, 10, "self"),
         (2, 5000, None, 32, None, "self"),    # one wave a batch item, not for the batch
         (3, 3001, None, 100, 20, "self"),     # a batch of odd M, ties
-        (1, 320000, 64, 8, None, "unsorted"),  # boxes over shared memory: streaming kernel
+        (1, 320000, 64, 8, None, "unsorted"),  # boxes over a block's shared memory
     ],
 )
 def test_knn_topk_kernel_matches_plain(dev, b, n, m, k, grid, layout):
@@ -122,11 +125,59 @@ def test_knn_topk_kernel_matches_plain(dev, b, n, m, k, grid, layout):
             q = _cloud(m + 7, b, m, dev, grid)
     _build.reset_launches()
     idx, d2 = knn_kernels.knn_topk(s, q, k)
-    assert _build.LAUNCHES == {"knn_topk": 1}
+    expected = {"knn_topk": 1}
+    if _build.library().r3d_knn_topk_scratch_bytes(b, n):  # the global form's box pass
+        expected["knn_topk_boxes"] = 1
+    assert _build.LAUNCHES == expected
     ref_i, ref_d = knn_kernels.knn_topk_plain(s, q, k)
     torch.cuda.synchronize()
     assert torch.equal(d2, ref_d)
     assert torch.equal(idx, ref_i)
+
+
+def _clustered(seed, b, n, dev, grid=None):
+    """Gaussian blobs of differing spread, Morton-sorted, every fifth point
+    duplicated in place of its neighbour: dense and empty tiles side by side,
+    and exact ties."""
+    rng = np.random.RandomState(seed)
+    centres = rng.rand(b, 24, 1, 3)
+    spread = 10.0 ** rng.uniform(-3, -1, size=(b, 24, 1, 1))
+    x = (centres + spread * rng.randn(b, 24, -(-n // 24), 3)).reshape(b, -1, 3)[:, :n]
+    if grid:
+        x = np.round(x * grid) / grid
+    x[:, 1::5] = x[:, 0:-1:5][:, : x[:, 1::5].shape[1]]
+    return _sorted(torch.tensor(x, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize(
+    "b,n,grid",
+    [
+        (2, 310_000, None),  # just past a block's shared memory, a batch
+        (1, 400_000, 60),    # heavy ties
+        (2, 400_000, None),
+    ],
+)
+def test_knn_topk_past_300000_points_matches_streaming(dev, b, n, grid):
+    """Supports whose boxes a block's shared memory could not hold: on
+    clustered self-searches with duplicate points, every row bit-equal to the
+    streaming kernel (the window route with the whole support as one window),
+    indices in order, and sampled rows to the plain version's stable sort."""
+    k = 32
+    s = _clustered(n + b, b, n, dev, grid)
+    _build.reset_launches()
+    idx, d2 = knn_kernels.knn_topk(s, s, k)
+    assert _build.LAUNCHES == {"knn_topk": 1, "knn_topk_boxes": 1}
+    starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.reset_launches()
+    ref_i, ref_d = knn_kernels.knn_window_topk(s, s, k, starts, n, n)
+    assert _build.LAUNCHES == {"knn_topk_stream": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(d2, ref_d)
+    assert torch.equal(idx, ref_i)
+    rows = torch.from_numpy(np.random.RandomState(b).choice(n, 2048, replace=False)).to(dev)
+    plain_i, plain_d = knn_kernels.knn_topk_plain(s, s[:, rows].contiguous(), k)
+    assert torch.equal(d2[:, rows], plain_d)
+    assert torch.equal(idx[:, rows], plain_i)
 
 
 @pytest.mark.parametrize(

@@ -105,3 +105,70 @@ def test_culling_cuts_distances_and_insertions():
     assert counts["distances"].mean() * 3 < n
     assert counts["insertions"].mean() * 4 < old.mean()
     assert counts["tiles"].mean() * 3 < -(-n // model.TILE)
+
+
+def _with_duplicates(x):
+    """Every seventh point repeated in place of its neighbour: exact ties
+    at distance 0 and between equal points."""
+    x = x.clone()
+    idx = np.arange(0, x.shape[1] - 1, 7)
+    x[:, idx + 1] = x[:, idx]
+    return x
+
+
+@pytest.mark.parametrize(
+    "b,n,k,grid,dups,group",
+    [
+        (1, 20_000, 32, None, False, 2),  # the encoder's self-KNN shape
+        (1, 20_000, 16, 40, False, 2),    # heavy ties
+        (1, 19_999, 1, 30, True, 1),      # k = 1, a ragged last tile, duplicates
+        (2, 19_000, 32, 25, True, 2),     # a batch: one set of boxes a cloud
+    ],
+)
+def test_selection_at_20000_points_equals_stable_sort(b, n, k, grid, dups, group):
+    """At about 20,000 points (many super tiles, boxes from the box pass) the
+    walk returns the first k of the stable sort, indices in order, on every
+    cloud of a batch; queries are every ninth point of the Morton-sorted
+    support, so the walk sees a self-search's geometry at a tenth of the
+    plain version's cost."""
+    for c in range(b):
+        s = _cloud(n + c, n, grid)
+        if dups:
+            s = _with_duplicates(s)
+        q = s[:, ::9].contiguous()
+        same, _ = _check(s, q, k, group=group)
+        assert same
+
+
+def test_box_pass_equals_boxes_reduced_from_tiles():
+    """The box pass reduces each super tile's box straight from its points;
+    reduced from its tiles' boxes instead, it is the same: min and max are
+    exact. On a ragged support with duplicates and ties."""
+    s = _with_duplicates(_cloud(5, 33 * 1024 + 17, grid=12, sort=False))[0].numpy()
+    lo, hi, slo, shi = model.box_pass(s)
+    ref_lo, ref_hi = model.tile_boxes(s)
+    nt, ns = ref_lo.shape[0], slo.shape[0]
+    pad = np.full((ns * model.TILE - nt, 3), np.inf, np.float32)
+    ref_slo = np.concatenate([ref_lo, pad]).reshape(ns, model.TILE, 3).min(1)
+    ref_shi = np.concatenate([ref_hi, -pad]).reshape(ns, model.TILE, 3).max(1)
+    for got, ref in ((lo, ref_lo), (hi, ref_hi), (slo, ref_slo), (shi, ref_shi)):
+        np.testing.assert_array_equal(got, ref)
+    assert slo.shape == (34, 3)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_sampled_rows_walk_as_in_the_whole_launch(group):
+    """``select(rows=...)`` walks the sampled rows (and the other queries of
+    their groups) warm-started at their positions in the whole launch: the
+    same lists and the same counts as those rows of the whole walk."""
+    n, k = 3000, 32
+    s = _cloud(11, n, grid=40)[0].numpy()
+    idx, d2, counts = model.select(s, s, k, group)
+    rows = np.random.RandomState(group).choice(n, 60, replace=False)
+    walked = model.query_rows(n, group, rows)
+    assert set(rows) <= set(walked) and len(walked) <= group * len(rows)
+    s_idx, s_d2, s_counts = model.select(s, s, k, group, rows=rows)
+    np.testing.assert_array_equal(s_idx, idx[walked])
+    np.testing.assert_array_equal(s_d2, d2[walked])
+    for key in ("distances", "tiles", "insertions"):
+        np.testing.assert_array_equal(s_counts[key], counts[key][walked])
