@@ -132,9 +132,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the card's distance from the float64 step within
    ``FP32_GRAD_MEDIAN_LIMIT`` (5e-4), which the same steps with TF32
    matmuls allowed, the control, must exceed;
+7c. the bfloat16 train path: ``run_training(compute_dtype="bfloat16")`` on
+   7b's dataset for 2 epochs, launch counts as in 7b but for the
+   validation forwards' bfloat16 LFA forms (B1 4 a step; B1 4, B2-bf16 2,
+   B3-bf16 2 a validation forward; the float32 LFA forms 0). Every loss
+   finite; every parameter and running statistic float32 and moved; the
+   archive reloaded in bfloat16 and in float32, each answering a frame.
+   Then, on the trained weights: every parameter's gradient float32, the
+   launches of one step and of one validation forward, the wall p50 over 20
+   bfloat16 steps beside 20 float32 steps (in turns, same weights and
+   batches), and one bfloat16 step on each of 3 batches on the card against
+   the CPU port under ``benchmarks/train_precision.bf16_steps_agree`` (every
+   loss within ``BF16_LOSS_ULPS`` bfloat16 ulps; the middle of the 3
+   batches' medians over the gradient tensors of the mean distance within
+   ``BF16_GRAD_MEDIAN``), which the card's float32 steps from the same
+   weights and batches, the control, must miss;
+7d. checkpoints and resume: ``Model.train`` at the app config on 7b's
+   dataset for 2 epochs with ``checkpoint_every=1`` under ``build/``; the
+   ``latest`` marker must read 2, and the blob, decoded by
+   ``utils/msgpack_lite``, must have flax's layout of the JAX trainer's
+   state (``params``, ``batch_stats``, ``opt_state`` ``{count, mu, nu}``
+   shaped like ``params``, ``epoch``, ``step``). A fresh model (seed 1) with
+   ``resume=True, epochs=3`` must run only epoch 3, from a restored state
+   (weights, running statistics, Adam's count, mu and nu, step) equal to
+   the checkpoint bit for bit;
 8. run one frame of each path, one call of each large path, one train
-   step and one validation forward (batch 3) while recording the inputs it
-   hands to each kernel wrapper,
+   step and one validation forward (batch 3) in each dtype while recording
+   the inputs it hands to each kernel wrapper,
    then hold every kernel against its plain PyTorch version on those
    inputs (B5, which no path runs, on the inputs of B3's level-0 calls; B7 bit-exact at (512, 128, 1024) for S in 1, 5, 15, 45,
    the kernels line reporting S = 45), the LFA kernels' bfloat16 forms
@@ -323,6 +347,14 @@ STEP_REPS = 20
 # forward (eval mode under inference_mode, as predict)
 PER_STEP = {"knn_topk": 4, "knn_topk_boxes": 1}
 PER_VAL_FORWARD = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2}
+# the bfloat16 train path (phase 7c): run_training(compute_dtype="bfloat16")
+# on the same dataset. A step launches what the float32 step launches (the
+# train forward is unfused in both dtypes, its geometry float32); a
+# validation forward the LFA kernels' bfloat16 forms in place of the float32
+TRAIN_OUT_BF16 = ROOT / "build" / "train_run_bf16"
+PER_VAL_FORWARD_BF16 = {_TO_BF16.get(k, k): v for k, v in PER_VAL_FORWARD.items()}
+# checkpoints and resume (phase 7d): Model.train's log_dir
+CKPT_RUN = ROOT / "build" / "train_ckpt"
 # a float32 step's distance from the float64 step: per batch the median
 # over the gradient tensors of ``benchmarks/train_precision.grad_distances``,
 # then the smallest over PRECISION_BATCHES batches. On an H100 (80GB HBM3,
@@ -1801,27 +1833,33 @@ def _write_train_dataset(make_frame) -> None:
         ds.set_annotation(t0 + timedelta(seconds=i), annotation)
 
 
-def _train_path(torch, build, Model, make_frame):
-    """The port's run_training at the app config for TRAIN_EPOCHS on the
-    card; returns the trained Model, the launches of the run and one
-    validation batch (inputs, permutation)."""
+def _train_path(torch, build, Model, make_frame, compute_dtype="float32"):
+    """The port's run_training at the app config in ``compute_dtype`` for
+    TRAIN_EPOCHS on the card (the dataset written first in float32); returns
+    the trained Model, the launches of the run and one validation batch
+    (inputs, permutation)."""
     from recognizer3d_tpu_torch.train import app_model_config, app_training_config, run_training
     from recognizer3d_tpu_torch.training.trainer import Trainer
 
-    _write_train_dataset(make_frame)
+    label = "train" if compute_dtype == "float32" else "train-bf16"
+    out = TRAIN_OUT if compute_dtype == "float32" else TRAIN_OUT_BF16
+    per_val = PER_VAL_FORWARD if compute_dtype == "float32" else PER_VAL_FORWARD_BF16
+    if compute_dtype == "float32":
+        _write_train_dataset(make_frame)
     training = app_training_config()
     training.epochs = TRAIN_EPOCHS
     # run_training's fresh model: Model's default seed 0
-    init = {k: v.clone() for k, v in Model(app_model_config()).module.state_dict().items()}
-    if TRAIN_OUT.exists():
-        shutil.rmtree(TRAIN_OUT)
+    init = {k: v.clone()
+            for k, v in Model(app_model_config(compute_dtype)).module.state_dict().items()}
+    if out.exists():
+        shutil.rmtree(out)
     np.random.seed(0)
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
     path, model, trainer = run_training([TRAIN_DIR], training=training,
-                                        models_dir=TRAIN_OUT / "models",
-                                        log_root=TRAIN_OUT / "log")
+                                        models_dir=out / "models", log_root=out / "log",
+                                        compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -1830,40 +1868,46 @@ def _train_path(torch, build, Model, make_frame):
     steps = sum(h["steps"] for h in trainer.history)
     expected = {
         name: steps * PER_STEP.get(name, 0) + TRAIN_EPOCHS * val_forwards * count
-        for name, count in PER_VAL_FORWARD.items()
+        for name, count in per_val.items()
     }
     if len(trainer.history) != TRAIN_EPOCHS or launches != expected:
-        raise RuntimeError(f"train: {len(trainer.history)} epochs, launches {launches}, "
+        raise RuntimeError(f"{label}: {len(trainer.history)} epochs, launches {launches}, "
                            f"expected {expected} ({steps} steps, {val_forwards} validation "
                            f"forwards an epoch)")
     for h in trainer.history:
         bad = [k for k, v in h["metrics"].items() if not math.isfinite(float(v))]
         if bad:
-            raise RuntimeError(f"train: epoch {h['epoch']}: not finite: {bad}")
+            raise RuntimeError(f"{label}: epoch {h['epoch']}: not finite: {bad}")
         m = h["metrics"]
-        print(f"train: epoch {h['epoch']}: {h['steps']} steps in {h['train_s'] * 1e3:.1f} ms, "
+        print(f"{label}: epoch {h['epoch']}: {h['steps']} steps in {h['train_s'] * 1e3:.1f} ms, "
               f"validation ({val_forwards} forwards) {h['validate_s'] * 1e3:.1f} ms; loss "
               f"{m['loss']:.4f}, val_loss {m['val_loss']:.4f}, mIoU {m['mIoU']:.4f}, "
               f"val_mIoU {m['val_mIoU']:.4f}", flush=True)
     state = model.module.state_dict()
     still = [k for k, v in state.items() if torch.equal(v, init[k])]
     if still:
-        raise RuntimeError(f"train: tensors that did not move from the init: {still}")
-    print(f"train: run_training at the app config, {TRAIN_EPOCHS} epochs on {TRAIN_CLOUDS} "
-          f"clouds of {TRAIN_POINTS} points, {wall:.3f} s end to end (dataset load, "
-          f"broadened annotations and device cache included); launches {launches}; all "
-          f"{len(state)} parameters and running statistics moved", flush=True)
-    loaded = Model.load(path, device="cuda", transfer_dtype="float32")
-    other = loaded.module.state_dict()
-    if not all(torch.equal(state[k], other[k]) for k in state):
-        raise RuntimeError("train: the saved archive's state differs from the trained model's")
+        raise RuntimeError(f"{label}: tensors that did not move from the init: {still}")
+    wide = [k for k, v in state.items() if v.dtype != torch.float32]
+    if wide:
+        raise RuntimeError(f"{label}: parameters or statistics not float32: {wide}")
+    print(f"{label}: run_training at the app config (compute_dtype={compute_dtype}), "
+          f"{TRAIN_EPOCHS} epochs on {TRAIN_CLOUDS} clouds of {TRAIN_POINTS} points, {wall:.3f} s "
+          f"end to end (dataset load, broadened annotations and device cache included); "
+          f"launches {launches}; all {len(state)} parameters and running statistics float32 "
+          f"and moved", flush=True)
     frame = make_frame(np.random.RandomState(800), 0.2, FRAME_POINTS)[0]
-    conf = loaded.predict(frame)
-    if conf.shape != (2, FRAME_POINTS) or not np.isfinite(conf).all():
-        raise RuntimeError(f"train: reloaded model answered {conf.shape}, or not finite")
-    print(f"train: {path.relative_to(ROOT)} reloaded on the card: same state; one "
-          f"{FRAME_POINTS}-point frame answered ({int((conf[1] > 0.5).sum())} positives)",
-          flush=True)
+    for dtype in dict.fromkeys((compute_dtype, "float32")):
+        loaded = Model.load(path, device="cuda", transfer_dtype="float32", compute_dtype=dtype)
+        other = loaded.module.state_dict()
+        if not all(torch.equal(state[k], other[k]) for k in state):
+            raise RuntimeError(f"{label}: the saved archive's state differs from the trained "
+                               f"model's")
+        conf = loaded.predict(frame)
+        if conf.shape != (2, FRAME_POINTS) or not np.isfinite(conf).all():
+            raise RuntimeError(f"{label}: reloaded model answered {conf.shape}, or not finite")
+        print(f"{label}: {path.relative_to(ROOT)} reloaded on the card in {dtype}: same state; "
+              f"one {FRAME_POINTS}-point frame answered ({int((conf[1] > 0.5).sum())} "
+              f"positives)", flush=True)
     # the validation sweep's batch and its seed-0 permutation, as the
     # trainer kept them on the card
     inputs, _, perms = Trainer._device_eval_batches(trainer._validation_dataloader, 10,
@@ -2006,6 +2050,171 @@ def _train_step_checks(torch, build, Model, model, val_batch):
           f"(batch {val_batch[0].shape[0]}) {PER_VAL_FORWARD}", flush=True)
     module.train()
     return module, opt, criterion, batches[0]
+
+
+def _train_bf16_step_checks(torch, build, Model, model, val_batch):
+    """On the bfloat16-trained weights: launches of a bfloat16 step and of
+    a bfloat16 validation forward, the step's wall p50 beside the float32
+    step's (the same weights and batches, in turns), and a bfloat16 step on
+    each of ``BF16_STEPS`` batches on the card against the CPU under
+    ``train_precision.bf16_steps_agree``, which the card's float32 steps, the
+    control, must miss. Returns a bfloat16 step's module, optimizer,
+    criterion and batch for the kernel checks."""
+    from recognizer3d_tpu_torch.benchmarks.train_precision import (
+        BF16_GRAD_MEDIAN,
+        BF16_STEPS,
+        bf16_step_readings,
+        bf16_steps_agree,
+        describe_bf16,
+    )
+    from recognizer3d_tpu_torch.train import app_model_config
+    from recognizer3d_tpu_torch.training import losses
+    from recognizer3d_tpu_torch.training.trainer import make_optimizer, train_step
+
+    criterion = losses.get_loss("dice")
+    batches = _train_batches(torch, STEP_REPS + 1)
+    weights = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+    steppers = {}
+    for dtype in ("bfloat16", "float32"):
+        module = Model(app_model_config(dtype), weights=weights, device="cuda").module
+        module.train()
+        steppers[dtype] = (module, make_optimizer(module, 1e-2))
+    walls = {dtype: [] for dtype in steppers}
+    for i, (inputs, labels, perm, keep) in enumerate(batches):
+        for dtype, (module, opt) in steppers.items():
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t = time.perf_counter()
+            loss, _ = train_step(module, opt, criterion, inputs, labels, perm, keep)
+            torch.cuda.synchronize()
+            walls[dtype].append((time.perf_counter() - t) * 1e3)
+            if dict(build.LAUNCHES) != PER_STEP or not math.isfinite(float(loss)):
+                raise RuntimeError(f"train step in {dtype}: launches {dict(build.LAUNCHES)}, "
+                                   f"expected {PER_STEP}; loss {float(loss)}")
+    module, opt = steppers["bfloat16"]
+    grads = [n for n, p in module.named_parameters() if p.grad is None
+             or p.grad.dtype != torch.float32 or p.dtype != torch.float32]
+    if grads:
+        raise RuntimeError(f"train-bf16: parameters without a float32 gradient: {grads}")
+    module.eval()
+    with torch.inference_mode():
+        build.reset_launches()
+        module(*val_batch)
+        torch.cuda.synchronize()
+    if dict(build.LAUNCHES) != PER_VAL_FORWARD_BF16:
+        raise RuntimeError(f"bf16 validation forward: launches {dict(build.LAUNCHES)}, "
+                           f"expected {PER_VAL_FORWARD_BF16}")
+    module.train()
+    p50 = {dtype: statistics.median(w[1:]) for dtype, w in walls.items()}
+    print(f"train step (batch 4 x 2500 points, app config, synchronised, the two dtypes in "
+          f"turns on the same weights and batches): wall ms over {STEP_REPS} steps, bfloat16 "
+          f"p50 {p50['bfloat16']:.3f} (min {min(walls['bfloat16'][1:]):.3f}, max "
+          f"{max(walls['bfloat16'][1:]):.3f}), float32 p50 {p50['float32']:.3f} (min "
+          f"{min(walls['float32'][1:]):.3f}, max {max(walls['float32'][1:]):.3f}); launches a "
+          f"bfloat16 step {PER_STEP}, a bfloat16 validation forward (batch "
+          f"{val_batch[0].shape[0]}) {PER_VAL_FORWARD_BF16}", flush=True)
+    readings = [bf16_step_readings(app_model_config(), weights, tuple(t.cpu() for t in batch))
+                for batch in batches[:BF16_STEPS]]
+    for i, (card, control) in enumerate(readings):
+        print(f"train step in bfloat16, card vs CPU, batch {i} of 4 x 2500 points: "
+              f"{describe_bf16(card)}; control (the card's float32 step): "
+              f"{describe_bf16(control)}", flush=True)
+    ok, middle = bf16_steps_agree([r[0] for r in readings])
+    control_ok, control_middle = bf16_steps_agree([r[1] for r in readings])
+    print(f"train step in bfloat16, card vs CPU over {BF16_STEPS} batches: middle median "
+          f"{middle:.3g}, control {control_middle:.3g}, limit {BF16_GRAD_MEDIAN}", flush=True)
+    if not ok or control_ok:
+        raise RuntimeError(f"train step in bfloat16: the card {'meets' if ok else 'misses'} "
+                           f"the rule and the float32 control {'meets' if control_ok else 'misses'}"
+                           f" it")
+    return module, opt, criterion, batches[0]
+
+
+def _checkpoint_resume(torch, build, Model):
+    """Phase 7d: ``Model.train`` with ``checkpoint_every=1`` for
+    TRAIN_EPOCHS, then a fresh model (seed 1) resuming with one more epoch;
+    returns the launches of both runs."""
+    from recognizer3d_tpu_torch.data.dataset import Dataset, DatasetMerged
+    from recognizer3d_tpu_torch.train import CLASS_NAMES, app_augmentation, app_model_config
+    from recognizer3d_tpu_torch.train import app_training_config
+    from recognizer3d_tpu_torch.training import checkpoint as ckpt
+    from recognizer3d_tpu_torch.utils import msgpack_lite
+
+    if CKPT_RUN.exists():
+        shutil.rmtree(CKPT_RUN)
+    np.random.seed(0)
+    train, val = DatasetMerged([Dataset(TRAIN_DIR, broaden_annotations=True)]).split()
+    settings = app_training_config()
+    settings.epochs, settings.checkpoint_every = TRAIN_EPOCHS, 1
+    totals = {}
+
+    def run(model, settings, callbacks=()):
+        build.reset_launches()
+        model.train(train, val, settings, app_augmentation(), CKPT_RUN, CLASS_NAMES,
+                    callbacks=list(callbacks))
+        torch.cuda.synchronize()
+        for name, count in build.LAUNCHES.items():
+            totals[name] = totals.get(name, 0) + count
+
+    run(Model(app_model_config()), settings)
+    ckpt_dir = CKPT_RUN / "checkpoints"
+    latest = ckpt.latest_checkpoint(ckpt_dir)
+    if latest != TRAIN_EPOCHS:
+        raise RuntimeError(f"checkpoints: latest {latest}, expected {TRAIN_EPOCHS}")
+    blob = (ckpt_dir / f"ckpt_{latest:05d}.msgpack").read_bytes()
+    saved = msgpack_lite.msgpack_restore(blob)
+    params = _flat_tree(saved["params"])
+    layout = (sorted(saved) == ["batch_stats", "epoch", "opt_state", "params", "step"]
+              and sorted(saved["opt_state"]) == ["count", "mu", "nu"]
+              and all({k: v.shape for k, v in _flat_tree(saved["opt_state"][f]).items()}
+                      == {k: v.shape for k, v in params.items()} for f in ("mu", "nu"))
+              and saved["opt_state"]["count"].shape == () and saved["epoch"] == latest
+              and int(saved["opt_state"]["count"]) == saved["step"] > 0
+              and all(v.dtype == np.float32 for v in params.values()))
+    if not layout:
+        raise RuntimeError("checkpoints: the blob has not flax's layout of the JAX trainer's "
+                           "state")
+
+    restored, epochs_seen = {}, []
+    load = ckpt.load_training_state
+
+    def spy(state, module, optimizer):
+        out = load(state, module, optimizer)
+        restored["state"] = ckpt.training_state(module, optimizer, *out)
+        return out
+
+    ckpt.load_training_state = spy
+    try:
+        resume = app_training_config()
+        resume.epochs, resume.checkpoint_every, resume.resume = TRAIN_EPOCHS + 1, 1, True
+        run(Model(app_model_config(), seed=1), resume,
+            [lambda epoch, metrics: epochs_seen.append(epoch)])
+    finally:
+        ckpt.load_training_state = load
+    got, ref = _flat_tree(restored.get("state", {})), _flat_tree(saved)
+    equal = sorted(got) == sorted(ref) and all(
+        np.array_equal(np.asarray(got[k]), np.asarray(v)) for k, v in ref.items())
+    if epochs_seen != [TRAIN_EPOCHS + 1] or not equal:
+        raise RuntimeError(f"resume: epochs {epochs_seen}, expected [{TRAIN_EPOCHS + 1}]; "
+                           f"restored state equal to the checkpoint: {equal}")
+    after = ckpt.restore_checkpoint(ckpt_dir)
+    print(f"checkpoints: {TRAIN_EPOCHS} epochs with checkpoint_every=1 under "
+          f"{ckpt_dir.relative_to(ROOT)}: latest {latest}, blob of {len(blob)} bytes in flax's "
+          f"layout (params, batch_stats, opt_state {{count, mu, nu}}, epoch, step {saved['step']}); "
+          f"a seed-1 model with resume=True, epochs={TRAIN_EPOCHS + 1} ran epochs {epochs_seen} "
+          f"from the restored state, equal to the checkpoint bit for bit ({len(ref)} leaves: "
+          f"weights, running statistics, Adam's count, mu and nu, epoch, step); latest now "
+          f"{ckpt.latest_checkpoint(ckpt_dir)} at step {after['step']}; launches {totals}",
+          flush=True)
+    return totals
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out.update(_flat_tree(value, path) if isinstance(value, dict) else {path: value})
+    return out
 
 
 def main() -> None:
@@ -2188,6 +2397,22 @@ def main() -> None:
     del trained
     phase_done("7b")
 
+    # --- 7c. the bfloat16 train path ----------------------------------------------
+    trained, launches_train, val_batch_bf16 = _train_path(torch, _build, Model, make_frame,
+                                                          "bfloat16")
+    for name, count in launches_train.items():
+        launches[name] = launches.get(name, 0) + count
+    bf16_module, bf16_opt, _, bf16_batch = _train_bf16_step_checks(
+        torch, _build, Model, trained, val_batch_bf16
+    )
+    del trained
+    phase_done("7c")
+
+    # --- 7d. checkpoints and resume ---------------------------------------------
+    for name, count in _checkpoint_resume(torch, _build, Model).items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("7d")
+
     # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
     targets = [
@@ -2239,6 +2464,21 @@ def main() -> None:
     calls_val = _record_frame(lambda: step_module(*val_batch), targets, PER_VAL_FORWARD,
                               "train validation")
     del step_module, step_opt
+    # the same for the bfloat16 train path: B1 on its float32 geometry, the
+    # validation forward's bfloat16 LFA forms
+    with _Recorder(targets) as rec:
+        train_step(bf16_module, bf16_opt, step_criterion, *bf16_batch)
+    torch.cuda.synchronize()
+    calls_train_bf16 = rec.calls
+    if any(len(v) != PER_STEP.get(k, 0) for k, v in calls_train_bf16.items()):
+        raise RuntimeError(f"bf16 train step: recorded "
+                           f"{[(k, len(v)) for k, v in calls_train_bf16.items()]}, expected "
+                           f"{PER_STEP}")
+    bf16_module.eval()
+    calls_val_bf16 = _record_frame(lambda: bf16_module(*val_batch_bf16),
+                                   targets[:1] + targets_bf16, PER_VAL_FORWARD_BF16,
+                                   "train-bf16 validation")
+    del bf16_module, bf16_opt
 
     # the gaussian probe bench.py reports, at the tuned default window
     port_knn.reset_window_guard()
@@ -2259,6 +2499,8 @@ def main() -> None:
         _check_kernels(torch, calls_live, results, "live", plain_reps=10)
         _check_kernels(torch, calls_train, results, "train step", plain_reps=10)
         _check_kernels(torch, calls_val, results, "train validation", plain_reps=10)
+        _check_kernels(torch, calls_train_bf16, results, "train-bf16 step", plain_reps=10)
+        _check_kernels(torch, calls_val_bf16, results, "train-bf16 validation", plain_reps=10)
         _check_kernels(torch, calls_bf16["app-bf16"], results, "app-bf16", plain_reps=10)
         _check_kernels(torch, calls_bf16["approx64k-bf16"], results, "approx64k-bf16",
                        plain_reps=3)
@@ -2280,6 +2522,7 @@ def main() -> None:
         del calls_l
         _exact_1m(torch, knn_kernels, level0)
     del calls, calls64, calls_live, calls_train, calls_val, calls_bf16
+    del calls_train_bf16, calls_val_bf16
     phase_done("8")
 
     # --- 9. result lines ------------------------------------------------------

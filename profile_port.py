@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_port.py [app|approx64k|live|train|app-bf16|approx64k-bf16|
-                             large-exact|large-approx ...] [--expect-window W]
+    python3 profile_port.py [app|approx64k|live|train|train-bf16|app-bf16|
+                             approx64k-bf16|large-exact|large-approx ...]
+                            [--expect-window W]
 
 For each path named (the first four by default): the app path is
 ``Predictor(pretrained/mock_fingertip)`` on mock frames of 60,000 points;
@@ -18,7 +19,8 @@ made from mock frames of 60,000 points; train is one app-config train
 step (``training/trainer.train_step``: train-mode forward, dice loss,
 backward, Adam) of batch 4 × 2,500 points, batches assembled on the card
 from the annotated mock dataset ``chip_smoke.py``'s train phase writes
-under ``build/``, each step ending in a read of its loss; large-exact and
+under ``build/``, each step ending in a read of its loss; train-bf16 is the
+same step with ``compute_dtype="bfloat16"``; large-exact and
 large-approx are the large-scene forward of ``chip_smoke.py``'s phase 5e
 (``Model.predict(cloud, prepostprocess=False)`` on the first 1,048,576-point
 cloud of ``benchmarks/bench_large.py``, the bundled weights at that
@@ -128,15 +130,15 @@ def _train_data(torch, make_frame):
     return _train_batches(torch, FRAMES)
 
 
-def _train_step_fn(torch):
-    """One app-config train step on a fresh seed-0 model, ending in a read
-    of its loss (as a frame ends in its mask)."""
+def _train_step_fn(torch, compute_dtype="float32"):
+    """One app-config train step in ``compute_dtype`` on a fresh seed-0
+    model, ending in a read of its loss (as a frame ends in its mask)."""
     from recognizer3d_tpu_torch import Model
     from recognizer3d_tpu_torch.train import app_model_config
     from recognizer3d_tpu_torch.training import losses
     from recognizer3d_tpu_torch.training.trainer import make_optimizer, train_step
 
-    module = Model(app_model_config()).module
+    module = Model(app_model_config(compute_dtype)).module
     module.train()
     opt = make_optimizer(module, 1e-2)
     criterion = losses.get_loss("dice")
@@ -164,8 +166,9 @@ def main() -> None:
     make_frame = _make_frame()
     runs = []
     for path in paths:
-        if path == "train":
-            runs.append((_train_step_fn(torch), _train_data(torch, make_frame), path))
+        if path in ("train", "train-bf16"):
+            dtype = "bfloat16" if path == "train-bf16" else "float32"
+            runs.append((_train_step_fn(torch, dtype), _train_data(torch, make_frame), path))
             continue
         if path in ("large-exact", "large-approx"):
             from recognizer3d_tpu_torch.benchmarks import bench_large

@@ -3,6 +3,7 @@ in float64, on the card and on the CPU, and which operations make the
 difference:
 
     python -m recognizer3d_tpu_torch.benchmarks.train_precision [--batches 6] [--out PATH]
+    python -m recognizer3d_tpu_torch.benchmarks.train_precision --bf16 [--batches 6]
 
 Data: ``bin/make_mock_data 12 20000 build/precision12 --annotate``,
 broadened annotations, batches of 4 × 2,500 points assembled on the card
@@ -30,12 +31,24 @@ device against float64 from the same rounded inputs:
   largest value), which carries what the layers before it rounded.
 
 It prints one line per batch and the five worst layers of each kind, and
-writes the whole record to ``--out`` as JSON. The card's name and power
-limit come first. It runs on the card and fails without one.
+writes the whole record to ``--out`` as JSON.
+
+With ``--bf16`` it reads the bfloat16 step rule instead
+(:func:`bf16_steps_agree`): per batch, one step of the app config in
+``compute_dtype="bfloat16"`` on the card and on the CPU from the same
+weights (the float32 warm-up's), batch, permutation and mask, and, the
+control, the card's float32 step from the same weights and batch against
+the CPU's bfloat16 step; then the rule on each run of ``BF16_STEPS``
+batches. It fails if the card misses the rule or the control meets it.
+
+The card's name and power limit come first. It runs on the card and fails
+without one.
 """
 
 import argparse
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,6 +63,22 @@ ROOT = Path(__file__).resolve().parents[2]
 DATASET = ROOT / "build" / "precision12"
 WARM_STEPS = 6
 
+#: the bfloat16 step on the card against the same step of the CPU port, on
+#: ``BF16_STEPS`` batches (``bf16_steps_agree``): every loss within
+#: ``BF16_LOSS_ULPS`` bfloat16 ulps of the CPU's, and the middle over the
+#: batches of the median over the gradient tensors of
+#: ``grad_mean_distances`` within ``BF16_GRAD_MEDIAN``. Fixed from 20
+#: readings of ``--bf16`` at the app config on an H100 80GB HBM3 at 700 W
+#: (PERF.md; 8 of them of the largest-entry distance): a batch's median read
+#: 0.0051 to 0.0161 for the card's bfloat16 step, 0.0155 to 0.0640 for the
+#: card's float32 step, the control; the middle of any 3 of the 12
+#: mean-distance readings at most 0.0125 and at least 0.0212. The limit sits
+#: between the two. The loss cannot tell them apart (at most 0.02 and 0.05
+#: ulps): it only bounds the step.
+BF16_STEPS = 3
+BF16_LOSS_ULPS = 1.0
+BF16_GRAD_MEDIAN = 0.016
+
 
 def grad_distances(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]):
     """Per tensor, max |g − ref| over the largest |ref| of the tensor, or
@@ -63,6 +92,20 @@ def grad_distances(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor])
     }
 
 
+def grad_mean_distances(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]):
+    """Per tensor, mean |g − ref| over the mean |ref| of the tensor (a Dense
+    bias before a BatchNorm: of its weight). Where two bfloat16 steps differ
+    in a few roundings, a flipped rounding near a tensor's largest entry
+    moves :func:`grad_distances` by a bfloat16 ulp of it; the mean moves by
+    the share of elements that differ."""
+    absorbed = bn_absorbed_biases(ref)
+    return {
+        name: float((grads[name].double() - r.double()).abs().mean())
+        / float(ref[absorbed.get(name, name)].double().abs().mean())
+        for name, r in ref.items()
+    }
+
+
 def grad_distance(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]):
     """``(max, median, tensor of the max)`` of :func:`grad_distances`."""
     d = grad_distances(grads, ref)
@@ -70,12 +113,51 @@ def grad_distance(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]):
     return d[worst], statistics.median(d.values()), worst
 
 
+def bf16_step_reading(loss: float, grads, ref_loss: float, ref_grads) -> dict:
+    """One bfloat16 train step (``loss``, ``grads``) against the same step
+    elsewhere (``ref_loss``, ``ref_grads``): the loss's distance in bfloat16
+    ulps of ``ref_loss`` (an ulp of x is 2^(⌊log2 x⌋ − 7)), the median over
+    the tensors of :func:`grad_mean_distances`, and for the record the
+    median and the largest of :func:`grad_distances`."""
+    if not math.isfinite(loss) or ref_loss <= 0:
+        raise ValueError(f"loss {loss} against {ref_loss}")
+    ulp = 2.0 ** (math.floor(math.log2(ref_loss)) - 7)
+    d = grad_distances(grads, ref_grads)
+    worst = max(d, key=d.get)
+    return {"loss_ulps": abs(loss - ref_loss) / ulp,
+            "grad_median": statistics.median(grad_mean_distances(grads, ref_grads).values()),
+            "grad_max_median": statistics.median(d.values()), "grad_max": d[worst],
+            "grad_max_at": worst}
+
+
+def bf16_steps_agree(readings):
+    """Whether ``BF16_STEPS`` step readings (:func:`bf16_step_reading`,
+    one batch each) agree as two bfloat16 implementations that sum in
+    other orders do: every loss within ``BF16_LOSS_ULPS`` ulps, and the
+    middle of the readings' gradient medians within ``BF16_GRAD_MEDIAN``.
+    One batch's median is spread too widely to tell bfloat16 from float32
+    alone (the constants' comment). Returns (ok, the middle median)."""
+    if len(readings) != BF16_STEPS:
+        raise ValueError(f"{len(readings)} readings, the rule takes {BF16_STEPS}")
+    middle = statistics.median(r["grad_median"] for r in readings)
+    loss_ok = all(r["loss_ulps"] <= BF16_LOSS_ULPS for r in readings)
+    return loss_ok and middle <= BF16_GRAD_MEDIAN, middle
+
+
+def describe_bf16(reading: dict) -> str:
+    return (f"loss {reading['loss_ulps']:.3g} bf16 ulps, gradients' mean distance median "
+            f"{reading['grad_median']:.3g}; largest-entry distance median "
+            f"{reading['grad_max_median']:.3g}, max {reading['grad_max']:.3g} at "
+            f"{reading['grad_max_at']}")
+
+
 def step_gradients(settings, weights, batch, device, dtype=torch.float32, tf32=False,
-                   bn_outputs=None, captures=None):
+                   bn_outputs=None, captures=None, with_loss=False):
     """One train step's gradients ``{name: float64 CPU tensor}`` from
     ``weights``; ``batch`` = (inputs, labels, permutation, keep mask).
     ``bn_outputs`` (a dict) receives each BatchNorm's output, ``captures``
-    each BatchNorm's input and each Dense's input and output gradient."""
+    each BatchNorm's input and each Dense's input and output gradient; with
+    ``with_loss``, returns (loss, gradients)."""
     from recognizer3d_tpu_torch import Model
     from recognizer3d_tpu_torch.training import losses
 
@@ -100,12 +182,14 @@ def step_gradients(settings, weights, batch, device, dtype=torch.float32, tf32=F
     try:
         inputs, labels, perm, keep = (t.to(device) for t in batch)
         logits = module(inputs.to(dtype), perm, keep)
-        losses.get_loss("dice")(logits, labels).backward()
+        loss = losses.get_loss("dice")(logits, labels)
+        loss.backward()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
         for h in handles:
             h.remove()
-    return {n: p.grad.detach().cpu().double() for n, p in module.named_parameters()}
+    grads = {n: p.grad.detach().cpu().double() for n, p in module.named_parameters()}
+    return (float(loss.detach()), grads) if with_loss else grads
 
 
 def bn_statistics_errors(captures, device):
@@ -156,10 +240,49 @@ def _gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def bf16_step_readings(settings, weights, batch):
+    """(the card's bfloat16 step, the card's float32 step, the control) each
+    against the CPU's bfloat16 step from the same weights on one batch:
+    two :func:`bf16_step_reading`."""
+    bf16 = dataclasses.replace(settings, compute_dtype="bfloat16")
+    ref = step_gradients(bf16, weights, batch, "cpu", with_loss=True)
+    card = step_gradients(bf16, weights, batch, "cuda", with_loss=True)
+    control = step_gradients(settings, weights, batch, "cuda", with_loss=True)
+    return bf16_step_reading(*card, *ref), bf16_step_reading(*control, *ref)
+
+
+def _bf16_readings(settings, weights, batches) -> None:
+    """Reads every batch, then applies the rule to each run of
+    ``BF16_STEPS`` consecutive batches; fails where the card misses it or
+    the control meets it."""
+    readings = []
+    for b, data in enumerate(batches):
+        card, control = bf16_step_readings(settings, weights, data)
+        readings.append((card, control))
+        print(f"batch {b}: bfloat16 card vs CPU: {describe_bf16(card)}; control (the card in "
+              f"float32): {describe_bf16(control)}", flush=True)
+    failed = []
+    for i in range(0, len(readings) - BF16_STEPS + 1, BF16_STEPS):
+        group = readings[i:i + BF16_STEPS]
+        ok, middle = bf16_steps_agree([g[0] for g in group])
+        control_ok, control_middle = bf16_steps_agree([g[1] for g in group])
+        print(f"batches {i}-{i + BF16_STEPS - 1}: middle median {middle:.3g}, control "
+              f"{control_middle:.3g} (limit {BF16_GRAD_MEDIAN:g}): the card "
+              f"{'meets' if ok else 'MISSES'} the rule, the control "
+              f"{'MEETS' if control_ok else 'misses'} it", flush=True)
+        if not ok or control_ok:
+            failed.append(i)
+    if failed:
+        raise SystemExit(f"train_precision: the bfloat16 step rule failed on the batches from "
+                         f"{failed}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batches", type=int, default=6)
     parser.add_argument("--out", type=Path, default=ROOT / "build" / "train_precision.json")
+    parser.add_argument("--bf16", action="store_true",
+                        help="read the bfloat16 step rule on the card against the CPU")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -195,6 +318,10 @@ def main() -> None:
     for _ in range(WARM_STEPS):
         train_step(model.module, opt, criterion, *batch())
     weights = {k: v.detach().cpu().clone() for k, v in model.module.state_dict().items()}
+    if args.bf16:
+        _bf16_readings(settings, weights, [tuple(t.cpu() for t in batch())
+                                           for _ in range(args.batches)])
+        return
 
     record = {"batches": [], "first_batch": {}}
     for b in range(args.batches):

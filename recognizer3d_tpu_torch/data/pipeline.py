@@ -30,9 +30,10 @@ Numerics, held against the JAX package in the tests:
 :class:`DeviceDatasetCache` keeps a training set on the device and
 assembles each batch there (selection, duplicates for short clouds,
 augmentation); its draws come from a ``torch.Generator`` or, through
-:meth:`DeviceDatasetCache.assemble`, from the caller. The JAX package's
-``normalize_cloud_device`` is not ported: nothing calls it (the trainer
-takes the host loader when the clouds are normalized).
+:meth:`DeviceDatasetCache.assemble`, from the caller.
+:func:`normalize_cloud_device` is ``data/preprocessing.normalize_cloud``
+batched on tensors (the trainer itself takes the host loader when the
+clouds are normalized, as the JAX trainer does).
 """
 
 import functools
@@ -101,6 +102,26 @@ def cloud_to_depth(cloud: np.ndarray, intr: DepthIntrinsics) -> np.ndarray:
     zbuf[~np.isfinite(zbuf)] = 0.0
     z16 = np.round(zbuf / intr.depth_scale).clip(0, 65535).astype(np.uint16)
     return z16.reshape(intr.height, intr.width)
+
+
+def normalize_cloud_device(xyz: torch.Tensor, normalization: Optional[str]) -> torch.Tensor:
+    """Center and radius normalization of (..., N, 3) clouds, each cloud on
+    its own: ``normalization`` in {None, "mean", "max", "stdev"} (the
+    population standard deviation of the radii); any other string centers
+    without scaling."""
+    if normalization is None:
+        return xyz
+    xyz = xyz - xyz.mean(dim=-2, keepdim=True)
+    norms = torch.linalg.vector_norm(xyz, dim=-1)
+    if normalization == "mean":
+        radius = norms.mean(dim=-1)
+    elif normalization == "max":
+        radius = norms.amax(dim=-1)
+    elif normalization == "stdev":
+        radius = norms.std(dim=-1, correction=0)
+    else:
+        radius = torch.ones(norms.shape[:-1], dtype=xyz.dtype, device=xyz.device)
+    return xyz / radius[..., None, None]
 
 
 def subsample_order(

@@ -31,8 +31,18 @@ bfloat16; BatchNorm computes in float32 from its bfloat16 input and rounds
 its output; activations, attentive pooling and its softmax run in bfloat16,
 their sums in float32; the geometry, the neighbour search, the RPE
 projections and the gather table stay float32, and the fused levels run the
-LFA kernels' bfloat16 forms. The logits leave as float32. Training in
-bfloat16 is ROADMAP A12.
+LFA kernels' bfloat16 forms. The logits leave as float32.
+
+Training in bfloat16 keeps those roundings and differentiates through
+them as JAX does: each Dense's weight and bias are cast inside the autograd
+graph on every forward (the cast's backward returns a float32 gradient to
+the float32 master weight, as the transpose of ``convert_element_type``
+does); train-mode BatchNorm takes float32 batch statistics of the upcast
+input (reduced in float64 and rounded), normalises in float32 and rounds
+its output once (flax's ``force_float32_reductions``); the softmax over the
+neighbours has JAX's backward, operation by operation in bfloat16
+(:class:`_SoftmaxBF16`); the neighbour gathers sum their cotangents in
+float32 (``ops/knn.gather_neighbors``).
 
 Initialisation follows the JAX package's torch-style U(±1/√fan) draws,
 including the decoders' fan of ``n_out_ch`` (the reference's
@@ -79,10 +89,16 @@ def _dense(linear: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     """``linear(x)``; in bfloat16, flax's ``nn.Dense(dtype=bfloat16)``:
     input, weight and bias cast to bfloat16, the product rounded to
     bfloat16 (cuBLAS sums in float32: the model turns off its reduced
-    precision reductions), then the bias added in bfloat16."""
+    precision reductions), then the bias added in bfloat16. In train mode,
+    or wherever autograd records, the weights are cast afresh inside the
+    graph; otherwise the cached copies serve."""
     if dtype != torch.bfloat16:
         return linear(x)
-    weight, bias = _bf16_params(linear)
+    if linear.training or torch.is_grad_enabled():
+        weight = linear.weight.to(dtype)
+        bias = None if linear.bias is None else linear.bias.to(dtype)
+    else:
+        weight, bias = _bf16_params(linear)
     y = F.linear(x.to(dtype), weight)
     return y if bias is None else y + bias
 
@@ -91,7 +107,8 @@ def _bf16_params(linear: nn.Linear):
     """The Dense's weight and bias cast to bfloat16, kept on the module and
     cast again only when a parameter's storage, device or version changes (a
     load, a move, an in-place update): the served forward reads the same
-    copies every frame instead of casting each Dense's twice a frame."""
+    copies every frame instead of casting each Dense's twice a frame. For
+    inference only: the copies carry no gradient."""
     params = (linear.weight, linear.bias)
     key = tuple(None if p is None else (p.device, p.data_ptr(), p._version) for p in params)
     cached = linear.__dict__.get("_bf16_params")
@@ -111,7 +128,14 @@ class BatchNorm(nn.Module):
     axis but the last, takes the variance as ``max(0, E[x²] − E[x]²)``
     (flax's ``use_fast_variance``), and updates the running statistics in
     place as ``ra = 0.01·ra + 0.99·batch`` with the biased batch variance
-    (torch's own BatchNorm keeps 0.9 and stores the unbiased one)."""
+    (torch's own BatchNorm keeps 0.9 and stores the unbiased one).
+
+    A bfloat16 input is normalised in float32 and the output rounded back,
+    in both modes; in train mode the batch statistics are float32 values of
+    the upcast input too (flax's ``force_float32_reductions``), here reduced
+    in float64 and rounded, with ``rsqrt(var + eps)``. flax upcasts the
+    input twice, once for the statistics and once where the normalisation
+    promotes it, so the backward sums two bfloat16 cotangents: here too."""
 
     momentum = 0.01
 
@@ -129,15 +153,24 @@ class BatchNorm(nn.Module):
             # flax's BatchNorm(dtype=bfloat16) does
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
             return ((x - self.running_mean) * mul + self.bias).to(x.dtype)
+        wide = torch.promote_types(x.dtype, torch.float32)
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        # under bfloat16 the statistics and rsqrt(var + eps) are taken in
+        # float64 and rounded to float32, the correctly rounded values of
+        # flax's float32 operations: a float32 error there would flip a share
+        # of the output's bfloat16 roundings, and which ones would depend on
+        # the device's summation order
+        exact = torch.float64 if x.dtype == torch.bfloat16 else wide
+        xs = x.to(exact)
+        mean = xs.mean(axes)
+        var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+        mean, var = mean.to(wide), var.to(wide)
+        inv = torch.rsqrt((var + self.eps).to(exact)).to(wide)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x.to(wide) - mean) * (inv * self.weight) + self.bias).to(x.dtype)
 
     def eval_affine(self):
         """Exact per-channel ``(s, o)`` with ``BN(x) = s·x + o``, read from
@@ -225,12 +258,39 @@ class FusedRPEMLP(nn.Module):
         return torch.relu(self.batch_norm(out))
 
 
+class _SoftmaxBF16(torch.autograd.Function):
+    """``jax.nn.softmax`` over dim −2 of a bfloat16 tensor, forward and
+    backward. Forward: ``u = exp(x − max)`` and ``u / Σu``, each operation
+    rounded to bfloat16, the sum accumulated in float32 and rounded once
+    (``jnp.sum`` upcasts). Backward: what JAX's autodiff of that program
+    computes (no custom JVP; the max is a ``stop_gradient``), each
+    operation rounded to bfloat16: ``c = 1/(s·s)``, ``t = −(g·c)·u``,
+    ``ū = g/s + Σt``, ``x̄ = ū·u``. The sum Σt is the transpose of a
+    broadcast, a bfloat16 reduction in XLA; here it accumulates in float32
+    and rounds once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        u = torch.exp(x - x.amax(dim=-2, keepdim=True))
+        s = u.float().sum(dim=-2, keepdim=True).to(u.dtype)
+        ctx.save_for_backward(u, s)
+        return u / s
+
+    @staticmethod
+    def backward(ctx, g):
+        u, s = ctx.saved_tensors
+        c = 1.0 / (s * s)
+        t = -((g * c) * u)
+        u_bar = g / s + t.float().sum(dim=-2, keepdim=True).to(t.dtype)
+        return u_bar * u
+
+
 class AttentivePooling(nn.Module):
     """Attention over the K neighbours: (B, N, K, C) -> (B, N, n_out).
 
-    In bfloat16 the softmax is ``jax.nn.softmax``'s: each operation rounds
-    to bfloat16, the sums (its normaliser and the pooled sum) accumulate in
-    float32 and round once."""
+    In bfloat16 the softmax is ``jax.nn.softmax``'s (:class:`_SoftmaxBF16`):
+    each operation rounds to bfloat16, the sums (its normaliser and the
+    pooled sum) accumulate in float32 and round once."""
 
     def __init__(self, n_in: int, n_out: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -243,9 +303,8 @@ class AttentivePooling(nn.Module):
         if self.compute_dtype != torch.bfloat16:
             scores = torch.softmax(scores, dim=-2)  # softmax over K
             return self.mlp((scores * x).sum(dim=-2))
-        e = torch.exp(scores - scores.amax(dim=-2, keepdim=True))
-        scores = e / e.float().sum(dim=-2, keepdim=True).to(e.dtype)
-        return self.mlp((scores * x.to(e.dtype)).float().sum(dim=-2).to(e.dtype))
+        scores = _SoftmaxBF16.apply(scores)
+        return self.mlp((scores * x.to(scores.dtype)).float().sum(dim=-2).to(scores.dtype))
 
     def score_kernel(self) -> torch.Tensor:
         return self.score_fn.weight.t()
@@ -358,7 +417,8 @@ class RandLANet(nn.Module):
     order. ``dropout_mask`` is the train-mode keep mask (B, N, 32) bool
     (flax's ``Dropout(0.5)``: kept features doubled, the rest zeroed);
     without one, train mode draws it from torch's global generator. Eval
-    mode ignores it. A module in double (``.double()``) computes in
+    mode ignores it. In bfloat16 the kept features are doubled in bfloat16
+    (exact). A module in double (``.double()``) computes in
     float64 but for the geometry and the neighbour search, which stay
     float32: the reference a float32 step is held against."""
 
@@ -409,11 +469,6 @@ class RandLANet(nn.Module):
         assert N >= s.min_n_points, (
             f"Input point cloud should have at least {s.min_n_points} points!"
         )
-        if self.training and self.compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f'training in compute_dtype="{s.compute_dtype}" is not ported yet '
-                "(ROADMAP A12)"
-            )
         permutation = permutation.long()
         xyz = inputs[..., :3].float()
         # fc_start casts all of its input, xyz included, to the compute dtype

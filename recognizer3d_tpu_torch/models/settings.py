@@ -19,7 +19,8 @@ The same dataclass, field defaults and validation as the JAX package, so a
   the card selects exactly within the same candidates. The session recall
   guard widens the window or falls back to the exact route as in the JAX
   package (``ops/knn.ensure_window_recall``).
-* ``kdtree`` — not ported yet (ROADMAP A10).
+* ``kdtree`` — the host C++ KD-tree (``ops/knn_cpp.py``), as in the JAX
+  package.
 """
 
 from dataclasses import dataclass, field
@@ -50,7 +51,7 @@ class RandLANetSettings:
     upsampling: str = "nni"
     #: Activation dtype of the dense/attention chain: "float32" or
     #: "bfloat16" (parameters, BatchNorm statistics and geometry stay
-    #: float32; training runs in float32 only so far, ROADMAP A12).
+    #: float32, in serving and in training).
     compute_dtype: str = "float32"
 
     def __post_init__(self):

@@ -468,7 +468,15 @@ def knn_presorted(
 
 
 def gather_neighbors(features: torch.Tensor, neighbors: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) features, (B, M, K) indices into N -> (B, M, K, C)."""
+    """(B, N, C) features, (B, M, K) indices into N -> (B, M, K, C).
+
+    bfloat16 features that autograd records are gathered as float32 and
+    rounded back (the same values), so that the backward sums each row's
+    cotangents in float32 and rounds once: a bfloat16 scatter-add would
+    round at every one of a row's K additions, in an order that differs
+    from device to device (atomics on the card)."""
+    if features.dtype == torch.bfloat16 and features.requires_grad:
+        return gather_neighbors(features.float(), neighbors).to(torch.bfloat16)
     B, n, c = features.shape
     _, m, k = neighbors.shape
     if B == 1:

@@ -1,7 +1,8 @@
 """Training entry point of the port (counterpart of the repository's
 ``train.py``): the app's training recipe on the GPU.
 
-    python -m recognizer3d_tpu_torch.train -d data/dataset1 [data/dataset2 ...]
+    python -m recognizer3d_tpu_torch.train -d data/dataset1 [data/dataset2 ...] \
+        [--compute-dtype {float32,bfloat16}]
 
 The recipe: every dataset directory loaded with broadened annotations,
 merged, split 80/20 under numpy seed 3; the app's model config trained
@@ -12,12 +13,12 @@ spawned process that reports its progress as int percentages over a queue
 (clamped to 99 while it lives, 100 once it has exited), and that serves
 ``training_log/`` with a TensorBoard server for as long as it trains, where
 the ``tensorboard`` package is installed. Dataset paths are taken relative
-to the working directory.
-
-Not ported yet: ``--compute-dtype bfloat16`` (training in bfloat16,
-ROADMAP A12).
+to the working directory. ``--compute-dtype bfloat16`` trains with a
+bfloat16 activation chain and float32 master weights, as the JAX
+package's flag does.
 """
 
+import dataclasses
 import queue as queue_mod
 from datetime import datetime
 from multiprocessing import get_context
@@ -29,13 +30,14 @@ MODELS_DIR = Path("models")
 LOG_ROOT = Path("training_log")
 
 
-def app_model_config():
+def app_model_config(compute_dtype: str = "float32"):
     """The app's model config: 2 classes, ``knn="naive"``, 2,500 points,
-    K = 32, decimation 4, the default layer sizes."""
+    K = 32, decimation 4, the default layer sizes, in ``compute_dtype``."""
     from recognizer3d_tpu_torch.models.settings import RandLANetSettings
 
     return RandLANetSettings(
         n_classes=2, n_features=0, knn="naive", n_points=2500, n_neighbors=32, decimation=4,
+        compute_dtype=compute_dtype,
     )
 
 
@@ -65,11 +67,13 @@ def run_training(
     models_dir: Path = MODELS_DIR,
     log_root: Path = LOG_ROOT,
     device="cuda",
+    compute_dtype: str = "float32",
 ):
     """The app's training recipe; returns (saved model path, Model, Trainer).
 
     :param training: TrainingSettings in place of :func:`app_training_config`.
     :param device: "cuda" (the default) or "cpu".
+    :param compute_dtype: the model's compute dtype, "float32" or "bfloat16".
     """
     from recognizer3d_tpu_torch.data.dataset import Dataset, DatasetMerged
     from recognizer3d_tpu_torch.models.facade import Model
@@ -89,7 +93,8 @@ def run_training(
         if progress_queue is not None:
             progress_queue.put(int(100 * epoch / training.epochs))
 
-    model = Model(app_model_config(), device=device)
+    settings = dataclasses.replace(app_model_config(), compute_dtype=compute_dtype)
+    model = Model(settings, device=device)
     trainer = model.train(train_split, val_split, training, augmentation, log_dir, CLASS_NAMES,
                           callbacks=[report_progress])
     model_path = Path(models_dir) / run_name
@@ -135,10 +140,10 @@ def _start_tensorboard_server(logdir: Path):
         return None
 
 
-def _run_training_job(dataset_dirs, progress_queue, device) -> None:
+def _run_training_job(dataset_dirs, progress_queue, device, compute_dtype="float32") -> None:
     tb_server = _start_tensorboard_server(LOG_ROOT)
     try:
-        run_training(dataset_dirs, progress_queue, device=device)
+        run_training(dataset_dirs, progress_queue, device=device, compute_dtype=compute_dtype)
     finally:
         if tb_server is not None:
             tb_server.terminate()
@@ -158,13 +163,14 @@ class TrainingJob:
         self._latest = 1
 
     @classmethod
-    def launch(cls, dataset_dirs: List[Path], device="cuda") -> "TrainingJob":
-        """Start training ``dataset_dirs`` on ``device`` in a fresh spawned
-        process."""
+    def launch(cls, dataset_dirs: List[Path], device="cuda",
+               compute_dtype: str = "float32") -> "TrainingJob":
+        """Start training ``dataset_dirs`` on ``device`` in ``compute_dtype``
+        in a fresh spawned process."""
         ctx = get_context("spawn")
         progress_queue = ctx.Queue()
         process = ctx.Process(target=_run_training_job,
-                              args=(dataset_dirs, progress_queue, device))
+                              args=(dataset_dirs, progress_queue, device, compute_dtype))
         process.start()
         return cls(process, progress_queue)
 
@@ -208,9 +214,13 @@ def _cli() -> None:
     )
     parser.add_argument("-d", "--dataset", nargs="+", required=True,
                         help="One or more dataset directories to train on.")
+    parser.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
+                        help="Activation dtype of the model's dense and attention chain; "
+                        "bfloat16 trains with float32 master weights.")
     args = parser.parse_args()
     started = time()
-    job = TrainingJob.launch([Path(d).absolute() for d in args.dataset])
+    job = TrainingJob.launch([Path(d).absolute() for d in args.dataset],
+                             compute_dtype=args.compute_dtype)
     while True:
         percent = job.poll()
         print(percent, flush=True)

@@ -2,9 +2,8 @@
 ``recognizer3d_tpu/training/settings.py``): the same dataclass, fields and
 defaults, so a recipe reads the same in both packages.
 
-This package trains on one device. ``data_parallel_devices > 1`` (ROADMAP
-A9) and the checkpoint fields ``checkpoint_every`` and ``resume`` (queued
-behind the training slice) raise in ``Trainer.train``.
+This package trains on one device: ``data_parallel_devices > 1`` (ROADMAP
+A9) raises in ``Trainer.train``.
 """
 
 from dataclasses import dataclass
@@ -29,9 +28,9 @@ class TrainingSettings:
     early_stopping_patience: int = 20
     #: Number of data-parallel devices (only 1 is ported; ROADMAP A9)
     data_parallel_devices: int = 1
-    #: Save a training-state checkpoint every N epochs (0: never; not ported)
+    #: Save a training-state checkpoint every N epochs (0: never); needs a log_dir
     checkpoint_every: int = 0
-    #: Resume from the latest checkpoint (not ported)
+    #: Resume from the latest checkpoint under the log_dir
     resume: bool = False
     #: Keep the training set on the device and assemble every batch there
     #: (subsample and augmentation; ``data/pipeline.DeviceDatasetCache``),

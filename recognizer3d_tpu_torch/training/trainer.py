@@ -28,9 +28,21 @@ device (``data/pipeline.DeviceDatasetCache``) and each step assembles its
 batch there, with no host preprocessing. The JAX package runs that epoch
 as one ``lax.scan``; here it is a loop of steps.
 
-Not ported: data-parallel training (ROADMAP A9), checkpoints and resume
-(queued behind this slice), training in the bfloat16 compute mode (A12);
-:meth:`Trainer.evaluate` runs in it, its forward being the served one.
+In the bfloat16 compute mode the step runs the model's bfloat16 train
+forward (``models/randlanet.py``) and its backward; the parameters, their
+gradients, Adam's state and the running statistics stay float32, as in the
+JAX package (float32 master weights).
+
+Checkpoints (``TrainingSettings.checkpoint_every``, ``resume``) are the JAX
+trainer's (``training/checkpoint.py``): with a ``log_dir``, the state is
+written to ``<log_dir>/checkpoints`` after every ``checkpoint_every``-th
+epoch's callbacks; ``resume`` loads the newest one (weights, running
+statistics, Adam's state, the step counter) and goes on at the epoch after
+it, with that epoch's learning rate. Neither package restores the early
+stopper or the random generators, so a resumed run draws other batches
+than an uninterrupted one.
+
+Not ported: data-parallel training (ROADMAP A9).
 """
 
 import logging
@@ -42,6 +54,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from recognizer3d_tpu_torch.training import checkpoint as ckpt
 from recognizer3d_tpu_torch.training.early_stopper import EarlyStopper
 from recognizer3d_tpu_torch.training.losses import get_loss
 from recognizer3d_tpu_torch.training.metrics import (
@@ -100,20 +113,6 @@ def _drain(pending) -> List[tuple]:
         return []
     columns = [torch.stack(col).cpu().numpy() for col in zip(*pending)]
     return list(zip(*columns))
-
-
-def _check_supported(settings: TrainingSettings, model) -> None:
-    if settings.data_parallel_devices > 1:
-        raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9)")
-    if settings.checkpoint_every > 0 or settings.resume:
-        raise NotImplementedError(
-            "training checkpoints and resume are not ported yet (ROADMAP A6c)"
-        )
-    if model.settings.compute_dtype != "float32":
-        raise NotImplementedError(
-            f'training in compute_dtype="{model.settings.compute_dtype}" is not ported yet '
-            "(ROADMAP A12); evaluation and serving run in it"
-        )
 
 
 class Trainer:
@@ -190,7 +189,8 @@ class Trainer:
     ):
         """Train the given facade Model in place; returns it with the best
         (``val_mIoU``) weights loaded."""
-        _check_supported(settings, model)
+        if settings.data_parallel_devices > 1:
+            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9)")
         module = model.module
         device = model.device
         criterion = get_loss(settings.loss_function)
@@ -209,8 +209,19 @@ class Trainer:
         generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
         device_cache = self._device_cache(device) if settings.device_pipeline else None
 
+        ckpt_dir, start_epoch, step_counter = None, 1, 0
+        if self._log_dir is not None and (settings.checkpoint_every > 0 or settings.resume):
+            ckpt_dir = Path(self._log_dir) / "checkpoints"
+            latest = ckpt.latest_checkpoint(ckpt_dir) if settings.resume else None
+            if latest is not None:
+                epoch, step_counter = ckpt.load_training_state(
+                    ckpt.restore_checkpoint(ckpt_dir, latest), module, optimizer
+                )
+                start_epoch = epoch + 1
+                logger.info(f"Resumed from checkpoint epoch {latest} in {ckpt_dir}")
+
         try:
-            for epoch in range(1, settings.epochs + 1):
+            for epoch in range(start_epoch, settings.epochs + 1):
                 t_epoch = time.monotonic()
                 lr = step_lr(settings, epoch)
                 for group in optimizer.param_groups:
@@ -225,6 +236,7 @@ class Trainer:
                         dropout_mask(generator, inputs),
                     )
                     pending.append((loss,) + _metrics_arrays(logits, labels))
+                step_counter += len(pending)
                 train_metrics = MetricCollector(self._class_names)
                 for row in _drain(pending):  # one read per epoch
                     train_metrics.push(*row)
@@ -247,6 +259,11 @@ class Trainer:
                           validation_metrics.as_dict(include_stdev=True), writer)
                 for callback in callbacks:
                     callback(epoch, metrics)
+                if (ckpt_dir is not None and settings.checkpoint_every > 0
+                        and epoch % settings.checkpoint_every == 0):
+                    ckpt.save_checkpoint(
+                        ckpt_dir, epoch, ckpt.training_state(module, optimizer, epoch, step_counter)
+                    )
                 if not continue_training:
                     break
         finally:

@@ -170,8 +170,8 @@ def _pack(obj: Any, out: list) -> None:
     elif obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
-        payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        # (not np.ascontiguousarray: it makes a 0-d array 1-d)
+        payload = packb([list(obj.shape), obj.dtype.name, obj.tobytes("C")])
         out.append(_pack_ext(_EXT_NDARRAY, payload))
     elif isinstance(obj, np.generic):
         payload = packb([[], obj.dtype.name, np.asarray(obj).tobytes("C")])

@@ -5,7 +5,7 @@ kernels compiled with ``io = bfloat16`` in interpret mode, LFA blocks (fused
 and unfused) and the whole RandLA-Net in bfloat16 against the JAX package's
 bfloat16 forward, the rule that holds the card's bfloat16 logits against
 the CPU's (``bf16_card_vs_cpu.logits_agree``), the archive round trip, and
-what bfloat16 leaves alone (the neighbour search, training). Blocks and the
+what bfloat16 leaves alone (the neighbour search). Blocks and the
 model are held nearer JAX's bfloat16 forward than its float32 one; the
 port's float32 forward, the control, is not.
 
@@ -374,7 +374,7 @@ def test_knn_indices_equal_under_both_dtypes(monkeypatch):
         assert torch.equal(a, b)
 
 
-# --- archives, serving and training -----------------------------------------------
+# --- archives and serving -----------------------------------------------
 
 
 def test_bf16_archive_round_trips_and_serves(tmp_path):
@@ -429,17 +429,3 @@ def test_evaluate_runs_in_bf16():
     assert 0.5 < metrics["float32"]["mIoU"] <= 1.0
     for key, value in metrics["float32"].items():
         assert abs(metrics["bfloat16"][key] - value) <= 0.02, key
-
-
-def test_training_in_bf16_raises():
-    """Serving only: Model.train / Trainer.train and a train-mode forward in
-    bfloat16 raise, pointing at ROADMAP A12."""
-    model = Model(RandLANetSettings(n_classes=2, n_points=2048, compute_dtype="bfloat16"),
-                  device="cpu")
-    cloud = np.random.RandomState(0).rand(2100, 3).astype(np.float32)
-    data = [(cloud, np.zeros((2100, 0)), np.zeros(2100, np.uint8))]
-    with pytest.raises(NotImplementedError, match="A12"):
-        model.train(data, data, class_names=["background", "fingerpoint"])
-    model.module.train()
-    with pytest.raises(NotImplementedError, match="A12"):
-        model.module(torch.from_numpy(cloud[None]), torch.arange(2100))

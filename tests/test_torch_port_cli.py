@@ -182,8 +182,8 @@ def test_training_worker_serves_its_log_while_it_trains(monkeypatch, fails):
         def terminate(self):
             events.append("terminated")
 
-    def run_training(dirs, queue, device):
-        events.append(("train", dirs, device))
+    def run_training(dirs, queue, device, compute_dtype):
+        events.append(("train", dirs, device, compute_dtype))
         if fails:
             raise RuntimeError("training failed")
 
@@ -195,7 +195,8 @@ def test_training_worker_serves_its_log_while_it_trains(monkeypatch, fails):
             port_train._run_training_job(["d"], None, "cpu")
     else:
         port_train._run_training_job(["d"], None, "cpu")
-    assert events == [("serve", port_train.LOG_ROOT), ("train", ["d"], "cpu"), "terminated"]
+    assert events == [("serve", port_train.LOG_ROOT), ("train", ["d"], "cpu", "float32"),
+                      "terminated"]
 
 
 # --- profiling ------------------------------------------------------------------

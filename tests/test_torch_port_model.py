@@ -344,7 +344,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {p.__name__ + m for m in ('.app', '.ui.scene', '.serve', '.models.large',\n"
-        "        '.benchmarks.bench_large')} <= set(names), names\n"
+        "        '.benchmarks.bench_large', '.training.checkpoint')} <= set(names), names\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'jaxlib')\n"
         "       or m.startswith(('jax.', 'flax.', 'recognizer3d_tpu.'))\n"
         "       or m == 'recognizer3d_tpu']\n"

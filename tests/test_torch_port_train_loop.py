@@ -174,14 +174,12 @@ def test_two_epoch_train_on_cpu(tmp_path, monkeypatch, device_pipeline):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("data_parallel_devices", 2), ("checkpoint_every", 1), ("resume", True),
-])
+@pytest.mark.parametrize("field,value", [("data_parallel_devices", 2)])
 def test_trainer_refuses_what_is_not_ported(field, value):
     model = Model(RandLANetSettings(**SMALL), device="cpu")
     settings = TrainingSettings(epochs=1, **{field: value})
     dl = get_data_loader(_clouds(0, 2), 256, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         Trainer(dl, dl).train(model, settings)
 
 
