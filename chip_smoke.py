@@ -104,6 +104,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    points on the exact route and at 32,768 on the approximate route, at
    the session window of 16,384 points on both sides, the logits within
    1e-4 of their largest magnitude;
+5f. data-parallel serving (BASELINE.json config 2): ``DPServing`` of the
+   bundled archive on ``["cuda:0", "cuda:0"]`` (two ranks, one process
+   each, sharing the card; ``parallel/serving.py``) over 5d's captures at
+   batch 8 (a ragged batch of 3 and two of 8), the launch counts set to 0
+   on every rank before each batch and each rank's held to the app path's
+   (its block of the batch is one forward); confidences held against the
+   single-process ``Model.predict`` on the card with the same numpy seed
+   (within 1e-4, masks equal away from the threshold); the clouds/s of
+   the two ranks and of one (``DPServing`` on ``["cuda:0"]``), in turns,
+   and the ranks' peak memory printed; then the serve CLI with ``--devices
+   -1`` (one rank: the one card), whose masks must equal 5d's, and its
+   ``clouds_per_sec`` line;
+5g. point-sharded serving (BASELINE.json config 5): ``SPServing`` of the
+   bundled weights on ``["cuda:0"] * 4`` over 5e's 1,048,576-point cloud
+   (no padding: it is its own bucket and a multiple of the 1,024-point
+   granule), one untimed call and 3 timed ones, the launch counts set to 0
+   on every rank before each and each rank's held to ``PER_CALL_SP`` (B1 at
+   every ring step of the encoder, B4 at the decoder's); wall p50 and each
+   rank's peak memory printed; the first call's confidences held against
+   ``forward_eval_large`` on the card on the exact route with the server's
+   permutation replayed (atol 5e-4, rtol 1e-3, masks equal away from the
+   threshold), that call's kernel calls in rank 0 (this process) recorded
+   for phase 8; then the serve CLI with ``--point-shards -1`` (one rank) on
+   a 60,000-point capture. The workers are joined before each phase ends;
 6. B7's entry point: the table of
    ``recognizer3d_tpu_torch.benchmarks.bench_roll_stages`` at
    (512, 128, 1024), with the launch counts set to 0 before it;
@@ -172,7 +196,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    query rows (whole query blocks of the window search), its plain version
    and library call timed on them and scaled to all rows (the kernels line
    says so in the row's ``note``), and its work counted by the CPU model on
-   every eighth of them; B1's box pass (its global-memory form, above
+   every eighth of them (on 1,024 seeded query rows, scaled, for any other
+   call of over 8,192 queries); B1's box pass (its global-memory form, above
    2,048 support points) must write the boxes PyTorch's ``amin``/``amax``
    compute, bit for bit; each LFA call is held, and the
    first of each shape timed; their
@@ -187,8 +212,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    streaming kernel that B1 replaced, both held against the plain version;
    and B1 at the large-scene exact route's level 0 (1,048,576 points):
    bit-equal to the streaming kernel on every row, the box pass, the walk
-   and the streaming kernel (once) timed;
-9. print the ``{"kernels": [...]}`` line, then the result line. The
+   and the streaming kernel (once) timed; then every kernel call rank 0
+   made in 5g's recorded call (B1 at the 16 ring steps of the encoder on
+   unsorted blocks, with its box pass; B4 at the 12 of the decoder, with
+   its ordering launch where it has one), by the rules above, each call
+   timed, B1's bound counted on the same blocks Morton-sorted (its walk on
+   these unsorted blocks is the algorithm failing, not the work the
+   function needs; B4 bins its support itself, so its walk does not
+   depend on the order); and at one level-0 ring step (262,144 unsorted
+   queries against a 262,144-point block), the share of the M·N distances
+   the walk evaluates on the unsorted blocks (the work the culling fails
+   to skip) beside B1 on the same blocks Morton-sorted, held to its plain
+   version on sampled rows and timed;
+9. print the ``{"kernels": [...]}`` line (its launches count every rank's),
+   then the result line. The
    ``knn_topk`` row is B1 (in its global-memory form, box pass and walk);
    the ``knn_topk_boxes`` row is the global form's box pass alone, held
    against ``amin``/``amax``.
@@ -330,9 +367,45 @@ LARGE_CPU_REL_TOL = 1e-4
 # (query, window point) distances, against the plain version on
 # LARGE_KNN_SAMPLE seeded query rows (whole query blocks of the window
 # search), its plain version and library call timed on them and scaled to
-# all rows, and its CPU work model run on every eighth of them
+# all rows, and its CPU work model run on every eighth of them; the work
+# model of any other call of over 8 * WORK_MODEL_ROWS queries walks
+# WORK_MODEL_ROWS seeded rows, scaled to all (the walk of a query does not
+# depend on the others'; every row of a 65,536-query 1-NN call took 14 s)
 LARGE_CHECK_DISTANCES = 1 << 30
 LARGE_KNN_SAMPLE = 8_192
+WORK_MODEL_ROWS = LARGE_KNN_SAMPLE // 8
+
+# data-parallel serving (phase 5f, BASELINE.json config 2): DPServing of the
+# bundled archive on DP_DEVICES, two ranks sharing the one card, over 5d's
+# captures at batch 8 (one ragged batch of 3, two full batches of 8); each
+# rank's block of a batch is one forward that launches PER_FRAME
+DP_DEVICES = ["cuda:0", "cuda:0"]
+DP_TOL = 1e-4
+
+# point-sharded serving (phase 5g, BASELINE.json config 5): SPServing of the
+# bundled weights on SP_DEVICES, four ranks on the one card, over the 5e
+# cloud (1,048,576 points: its bucket, and a multiple of the granule
+# 4 * 4^4 = 1,024). Per rank and call: the ring passes of the four encoder
+# levels, 4 steps each, each step B1 in its global-memory form (its support
+# blocks of 262,144 / 65,536 / 16,384 / 4,096 points are over 2,048: a box
+# pass and a walk); the decoder's ring 1-NN passes onto levels 2, 1 and 0,
+# 4 steps each, on B4 (supports of 4,096, 16,384 and 65,536 points, the last
+# two ordered by a launch of their own), the 1,024 -> 4,096 one on the plain
+# 1-NN route; no fused LFA (the point-sharded block runs unfused, as JAX's)
+SP_DEVICES = ["cuda:0"] * 4
+SP_CALLS = 3
+PER_CALL_SP = {"knn_topk": 16, "knn_topk_boxes": 16, "argmin_1nn": 12, "argmin_1nn_order": 8}
+# the confidences against forward_eval_large on the exact route (JAX's own
+# SP-against-single-device tolerance, tests/test_parallel.py)
+SP_ATOL, SP_RTOL = 5e-4, 1e-3
+# phase 8 runs the CPU model of B1's walk on one level-0 ring step's
+# unsorted inputs (rank 0's block of 262,144 permuted points against the
+# block of rank 3, the one that visits it at step 1) on every
+# SP_MODEL_STRIDE-th of LARGE_KNN_SAMPLE sampled rows (unsorted blocks
+# defeat the culling, so the model walks nearly every tile: about 5 s for
+# 32 rows)
+SP_MODEL_STRIDE = 256
+SP_CLI_POINTS = 60_000
 
 # the train path: the app's recipe (recognizer3d_tpu_torch.train.run_training)
 # on an annotated mock dataset, 2 epochs; 12 clouds split 9 / 3, so 3 steps
@@ -874,6 +947,19 @@ def _sample_rows(torch, m: int, span: int, block: int = 1):
     return torch.from_numpy((blocks[:, None] * block + np.arange(block)).ravel()).cuda()
 
 
+def _work_rows(torch, m: int, rows):
+    """The query rows (sorted, on the card) whose walks a call's CPU work
+    model counts: every eighth of a sampled call's ``rows``; else, for a
+    call of over 8 * WORK_MODEL_ROWS queries, WORK_MODEL_ROWS seeded rows;
+    else None (all)."""
+    if rows is not None:
+        return rows[::8]
+    if m <= 8 * WORK_MODEL_ROWS:
+        return None
+    picked = np.sort(np.random.RandomState(1).choice(m, WORK_MODEL_ROWS, replace=False))
+    return torch.from_numpy(picked).cuda()
+
+
 def _boxes_plain(torch, support):
     """B1's boxes in its scratch's layout, per cloud: tile boxes (6 rows of
     nt: lo x, y, z, hi x, y, z), then super-tile boxes (6 rows of ns), from
@@ -909,12 +995,22 @@ def _boxes_card(torch, build, support):
     return scratch.view(b, -1)[:, : 6 * (nt + -(-nt // 32))]
 
 
-def _check_kernels(torch, calls, results, label, plain_reps):
+def _morton_sorted(torch, x):
+    """(B, N, 3) points in their Morton order."""
+    from recognizer3d_tpu_torch.ops import morton
+
+    return morton.sort_rows(x, morton.morton_order(x)).contiguous()
+
+
+def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False):
     """Hold each recorded call's kernel against its plain version and time
     both (and the library call where there is one). A call with over
     LARGE_CHECK_DISTANCES distances is held on sampled query rows
     (``_sample_rows``); of the LFA kernels' calls, each is held, and the
-    first of each shape timed."""
+    first of each shape timed. ``sorted_bound``: B1's work is counted on
+    its support and queries Morton-sorted (for calls on unsorted blocks,
+    whose walk culls almost nothing: the bound is the function's, not what
+    the walk spends on that order)."""
     from recognizer3d_tpu_torch.ops import _build, knn_kernels, lfa_kernels
 
     # B1: exact k-NN; in its global-memory form (the wrapper's scratch
@@ -957,8 +1053,12 @@ def _check_kernels(torch, calls, results, label, plain_reps):
 
         plain, lib = _plain_library_ms(
             torch, lambda: knn_kernels.knn_topk_plain(support, q, k), library, plain_reps, scale)
-        work_rows = None if rows is None else rows[::8].cpu().numpy()
-        bound = _bound(*_cull_work(support, query, k, work_rows), PEAK_F32_INSTR_PER_S)
+        work_rows = _work_rows(torch, m, rows)
+        work_rows = None if work_rows is None else work_rows.cpu().numpy()
+        work_in = ((_morton_sorted(torch, support), _morton_sorted(torch, query))
+                   if sorted_bound else (support, query))
+        bound = _bound(*_cull_work(*work_in, k, work_rows), PEAK_F32_INSTR_PER_S)
+        del work_in
         results.add("knn_topk", 0.0, ms, plain, bound, lib)
         if rows is not None:
             results.sampled("knn_topk")
@@ -977,7 +1077,9 @@ def _check_kernels(torch, calls, results, label, plain_reps):
                           f"{box_bound[0]:.5f} ms")
         print(f"{label} knn_topk M={m} N={n} k={k}: indices (in order) and d2 equal on "
               f"{held}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
-              f"bound {bound[0]:.5f} ms ({bound[1]}){boxes_note}", flush=True)
+              f"bound {bound[0]:.5f} ms ({bound[1]}"
+              f"{', counted on the inputs Morton-sorted' if sorted_bound else ''})"
+              f"{boxes_note}", flush=True)
 
     # B4: exact 1-NN upsample, held to the first entry of the stable sort,
     # ties included; timed with its ordering launch where it has one
@@ -1007,8 +1109,8 @@ def _check_kernels(torch, calls, results, label, plain_reps):
         plain, lib = _plain_library_ms(
             torch, lambda: knn_kernels.argmin_1nn_plain(support, q),
             lambda: torch.cdist(q, support).argmin(-1), max(1, plain_reps // 2), scale)
-        work_rows = None if rows is None else rows[::8]
-        bound = _bound(*_argmin_work(support, query, work_rows), PEAK_F32_INSTR_PER_S)
+        bound = _bound(*_argmin_work(support, query, _work_rows(torch, m, rows)),
+                       PEAK_F32_INSTR_PER_S)
         brute = _knn_work(m, n, 1)[1] / PEAK_F32_INSTR_PER_S * 1e3
         results.add("argmin_1nn", 0.0, ms, plain, bound, lib)
         if rows is not None:
@@ -1791,6 +1893,265 @@ def _large_card_vs_cpu(torch, Model, port_knn, approach):
           f"{seconds['cpu']:.1f}", flush=True)
 
 
+def _rank_launches(pool, label, expected):
+    """Each rank's launch counts since they were set to 0, held to
+    ``expected`` on every rank; returns their sum."""
+    from recognizer3d_tpu_torch.parallel import mesh
+
+    per_rank = pool.run(mesh.launches)
+    for r, launches in enumerate(per_rank):
+        if launches != expected:
+            raise RuntimeError(f"{label}: rank {r} launched {launches}, expected {expected}")
+    total = {}
+    for launches in per_rank:
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+    return total
+
+
+def _dp_serve_path(torch, Model, captures):
+    """Phase 5f: ``DPServing`` of the bundled archive on DP_DEVICES (two ranks
+    sharing the card) over 5d's captures at batch 8. Per batch, the launch
+    counts set to 0 on every rank before it, and each rank's held to
+    PER_FRAME (its block of clouds is one forward); the confidences held
+    against the single-process ``Model.predict`` on the card with the same
+    numpy seed (within DP_TOL, masks equal where that confidence lies more
+    than DP_TOL from the threshold). Then the clouds/s over the batches
+    (masks, after one untimed pass) of the two ranks and of one, in turns
+    (2, 1, 1, 2), each rank's peak memory,
+    and the CLI with ``--devices -1`` (one rank: the one card), whose masks
+    must equal 5d's. Returns the ranks' launches of the checked batches."""
+    import contextlib
+    import io
+
+    from recognizer3d_tpu_torch import serve
+    from recognizer3d_tpu_torch.ops import _build
+    from recognizer3d_tpu_torch.parallel import mesh
+    from recognizer3d_tpu_torch.parallel.serving import DPServing
+
+    t0 = time.perf_counter()
+    model = Model.load(ARCHIVE, device="cuda")
+    batches = list(serve.iter_batches(captures, SERVE_BATCH))
+    totals, worst, near = {}, 0.0, 0
+    with DPServing(model, DP_DEVICES) as server:
+        pool = server.pool
+        t1 = time.perf_counter()
+        for i, (_, clouds) in enumerate(batches):
+            pool.run(_build.reset_launches)
+            np.random.seed(10 + i)
+            conf = server.predict(clouds)
+            for name, count in _rank_launches(pool, f"dp-serve batch {i}", PER_FRAME).items():
+                totals[name] = totals.get(name, 0) + count
+            np.random.seed(10 + i)
+            mask = server.predict_mask(clouds)
+            np.random.seed(10 + i)
+            ref = model.predict(clouds)
+            if conf.shape != ref.shape or mask.shape != ref[:, 1].shape:
+                raise RuntimeError(f"dp-serve batch {i}: confidences {conf.shape}, masks "
+                                   f"{mask.shape}, expected {ref.shape}")
+            away = np.abs(ref[:, 1] - 0.5) > DP_TOL
+            worst = max(worst, float(np.abs(conf - ref).max()))
+            near += int((~away).sum())
+            if worst > DP_TOL or (mask != (ref[:, 1] > 0.5))[away].any():
+                raise RuntimeError(f"dp-serve batch {i}: against Model.predict: confidences max "
+                                   f"abs err {worst}, "
+                                   f"{int((mask != (ref[:, 1] > 0.5))[away].sum())} mask points "
+                                   f"differ")
+        t2 = time.perf_counter()
+        pool.run(mesh.reset_peak_memory)
+        n_clouds = sum(len(c) for _, c in batches)
+        rates = {len(DP_DEVICES): [], 1: []}
+        with DPServing(model, DP_DEVICES[:1]) as one:  # one rank: no group, no worker
+            for _, clouds in batches:
+                one.predict_mask(clouds)
+            for srv in (server, one, one, server):
+                t = time.perf_counter()
+                for _, clouds in batches:
+                    srv.predict_mask(clouds)
+                rates[srv.n_devices].append(n_clouds / (time.perf_counter() - t))
+        peaks = [b / 1e9 for b in pool.run(mesh.peak_memory_bytes)]
+    print(f"dp-serve: DPServing on {DP_DEVICES}, batches of {[len(c) for _, c in batches]} "
+          f"clouds: each rank launched {PER_FRAME} a batch; against Model.predict on the card: "
+          f"confidences max abs err {worst:.3g}, masks equal ({near} points within {DP_TOL} of "
+          f"the threshold)", flush=True)
+    print(f"dp-serve: predict_mask over the {n_clouds} clouds, in turns (2, 1, 1, 2 ranks; "
+          f"after one untimed pass): {len(DP_DEVICES)} ranks on one card "
+          f"{[round(r, 3) for r in rates[len(DP_DEVICES)]]} clouds/s, one rank "
+          f"{[round(r, 3) for r in rates[1]]}; peak memory a rank "
+          f"{[round(x, 3) for x in peaks]} GB; seconds: start and replicate {t1 - t0:.1f}, "
+          f"checked batches {t2 - t1:.1f}", flush=True)
+
+    out = SERVE_DIR / "dp_masks"
+    buf = io.StringIO()
+    np.random.seed(0)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["-m", str(ARCHIVE), "-d", str(captures), "-o", str(out), "--batch",
+                         str(SERVE_BATCH), "--devices", "-1"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    if rc != 0 or json.loads(line)["devices"] != 1:
+        raise RuntimeError(f"serve --devices -1: exit code {rc}, line {line}")
+    for f in sorted((SERVE_DIR / "masks").glob("*_prediction.npy")):
+        if not np.array_equal(np.load(f), np.load(out / f.name)):
+            raise RuntimeError(f"serve --devices -1: {f.name} differs from the one-card CLI's")
+    print(f"dp-serve: serve --devices -1 (one rank): {line}; masks equal to 5d's; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return totals
+
+
+def _sp_serve_path(torch, Model, captures, targets):
+    """Phase 5g: ``SPServing`` of the bundled weights on SP_DEVICES (four
+    ranks on the card) over the 5e cloud. One untimed call, with rank 0's
+    (this process's) kernel wrappers recording their inputs (``targets``;
+    each wrapper's calls held to its PER_CALL_SP count), then SP_CALLS
+    calls, each with the launch counts set to 0 on every rank before it and
+    each rank's held to PER_CALL_SP; wall p50 and each rank's peak memory.
+    The first call's confidences (its permutation replayed from a
+    ``RandomState(0)``, as the server drew it) against ``forward_eval_large``
+    on the card on the exact route (within SP_ATOL + SP_RTOL·|ref|, masks
+    equal where the reference lies further than that from the threshold).
+    Then the CLI with ``--point-shards -1`` (one rank) on one capture of
+    SP_CLI_POINTS points. Returns the ranks' launches of the timed calls and
+    rank 0's recorded kernel calls for phase 8."""
+    import contextlib
+    import io
+
+    from recognizer3d_tpu_torch import serve
+    from recognizer3d_tpu_torch.benchmarks import bench_large
+    from recognizer3d_tpu_torch.models.facade import _bucket
+    from recognizer3d_tpu_torch.models.large import forward_eval_large
+    from recognizer3d_tpu_torch.ops import _build
+    from recognizer3d_tpu_torch.parallel import mesh
+    from recognizer3d_tpu_torch.parallel.serving import SPServing
+    from recognizer3d_tpu_torch.parallel.sp_model import pad_for_sharding, sharding_multiple
+
+    t0 = time.perf_counter()
+    _, clouds = bench_large.inputs(LARGE_POINTS)
+    cloud = clouds["approximate"][0]
+    torch.cuda.empty_cache()
+    model = Model.load(ARCHIVE, device="cuda")
+    granule = sharding_multiple(model.settings, len(SP_DEVICES))
+    if _bucket(LARGE_POINTS) != LARGE_POINTS or LARGE_POINTS % granule:
+        raise RuntimeError(f"sp-1M: {LARGE_POINTS} points would be padded (bucket "
+                           f"{_bucket(LARGE_POINTS)}, granule {granule})")
+    totals, walls = {}, []
+    with SPServing(model, SP_DEVICES) as server:
+        pool = server.pool
+        t1 = time.perf_counter()
+        with _Recorder(targets) as rec:
+            conf = server.predict(cloud)
+        t2 = time.perf_counter()
+        for name, recorded in rec.calls.items():
+            if len(recorded) != PER_CALL_SP.get(name, 0):
+                raise RuntimeError(f"sp-1M: rank 0 recorded {len(recorded)} calls of {name}, "
+                                   f"expected {PER_CALL_SP.get(name, 0)}")
+        pool.run(mesh.reset_peak_memory)
+        for i in range(SP_CALLS):
+            pool.run(_build.reset_launches)
+            t = time.perf_counter()
+            server.predict(cloud)
+            walls.append((time.perf_counter() - t) * 1e3)
+            for name, count in _rank_launches(pool, f"sp-1M call {i}", PER_CALL_SP).items():
+                totals[name] = totals.get(name, 0) + count
+        peaks = [b / 1e9 for b in pool.run(mesh.peak_memory_bytes)]
+    if conf.shape != (1, 2, LARGE_POINTS) or not np.isfinite(conf).all():
+        raise RuntimeError(f"sp-1M: confidences of shape {conf.shape}, or not finite")
+    print(f"sp-1M: SPServing on {SP_DEVICES}, {LARGE_POINTS} points: each rank launched "
+          f"{PER_CALL_SP} a call; wall ms {[round(w, 3) for w in walls]}, p50 "
+          f"{statistics.median(walls):.3f}; first call {(t2 - t1) * 1e3:.3f} ms; peak memory "
+          f"a rank {[round(x, 3) for x in peaks]} GB; start and replicate {t1 - t0:.1f} s",
+          flush=True)
+
+    rng = np.random.RandomState(0)
+    padded, _ = pad_for_sharding(cloud[0], model.settings, len(SP_DEVICES),
+                                 n_target=_bucket(LARGE_POINTS), rng=rng)
+    perm = rng.permutation(padded.shape[0])
+    ref_model = Model.load(ARCHIVE, device="cuda", n_points=LARGE_POINTS, knn="naive")
+    with torch.inference_mode():
+        x = torch.from_numpy(padded[None]).cuda()
+        ref = torch.softmax(forward_eval_large(ref_model.module, x, torch.from_numpy(perm).cuda()),
+                            dim=-2).cpu().numpy()
+        del x
+    del ref_model
+    torch.cuda.empty_cache()
+    diff = np.abs(conf - ref)
+    limit = SP_ATOL + SP_RTOL * np.abs(ref)
+    away = np.abs(ref[:, 1] - 0.5) > SP_ATOL + SP_RTOL * 0.5
+    flipped = int(((conf[:, 1] > 0.5) != (ref[:, 1] > 0.5))[away].sum())
+    if (diff > limit).any() or flipped:
+        raise RuntimeError(f"sp-1M against forward_eval_large: {int((diff > limit).sum())} "
+                           f"confidences beyond atol {SP_ATOL} rtol {SP_RTOL} (max abs err "
+                           f"{diff.max()}), {flipped} mask points differ")
+    print(f"sp-1M: the first call against forward_eval_large (exact route, the replayed "
+          f"permutation) on the card: confidences max abs err {diff.max():.3g} (atol {SP_ATOL}, "
+          f"rtol {SP_RTOL}); masks equal ({int((~away).sum())} points within the tolerance of "
+          f"the threshold)", flush=True)
+
+    cli_dir = ROOT / "build" / "sp_serve"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    (cli_dir / "captures").mkdir(parents=True)
+    src = next(f for f in sorted(captures.glob("*_data.npy"))
+               if np.load(f, mmap_mode="r").shape[0] == SP_CLI_POINTS)
+    shutil.copy(src, cli_dir / "captures" / src.name)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["-m", str(ARCHIVE), "-d", str(cli_dir / "captures"), "-o",
+                         str(cli_dir / "out"), "--point-shards", "-1", "--confidences"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    out = np.load(cli_dir / "out" / src.name.replace("_data.npy", "_confidences.npy"))
+    if rc != 0 or json.loads(line)["point_shards"] != 1 or out.shape != (2, SP_CLI_POINTS) \
+            or not np.isfinite(out).all() or np.abs(out.sum(0) - 1).max() > 1e-5:
+        raise RuntimeError(f"serve --point-shards -1: exit code {rc}, line {line}, confidences "
+                           f"{out.shape}")
+    print(f"sp-1M: serve --point-shards -1 (one rank) on a capture of {SP_CLI_POINTS} points: "
+          f"{line}; {time.perf_counter() - t:.1f} s", flush=True)
+    return totals, rec.calls
+
+
+def _sp_ring_step(torch, knn_kernels, support, query):
+    """One level-0 ring step's inputs (unsorted blocks of the permuted
+    cloud; phase 8 held and timed B1 on them with the other recorded calls):
+    the share of the M·N distances B1's walk evaluates there, by the CPU
+    model on every SP_MODEL_STRIDE-th of the LARGE_KNN_SAMPLE sampled rows
+    (the work the culling fails to skip on this order), beside B1 on the
+    same two blocks Morton-sorted: bit-equal to its plain version on the
+    sampled rows, its box pass and walk timed, and its walk's share by the
+    model on the same number of rows."""
+    from recognizer3d_tpu_torch.benchmarks import knn_cull
+
+    k = 32
+    m, n = query.shape[1], support.shape[1]
+    if not m == n == LARGE_POINTS // len(SP_DEVICES):
+        raise RuntimeError(f"sp ring step: M={m} N={n}, not a level-0 step")
+    rows = _sample_rows(torch, m, n)
+    model_rows = rows[::SP_MODEL_STRIDE].cpu().numpy()
+
+    def walked(s, q):
+        counts = knn_cull.select(s[0].cpu().numpy(), q[0].cpu().numpy(), k, 1,
+                                 rows=model_rows)[2]
+        return float(counts["distances"].sum()) / (len(model_rows) * n)
+
+    unsorted_share = walked(support, query)
+    s_sorted, q_sorted = _morton_sorted(torch, support), _morton_sorted(torch, query)
+    idx, d2 = knn_kernels.knn_topk(s_sorted, q_sorted, k)
+    ref_i, ref_d = knn_kernels.knn_topk_plain(s_sorted, q_sorted[:, rows].contiguous(), k)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx[:, rows], ref_i) and torch.equal(d2[:, rows], ref_d)):
+        raise RuntimeError(f"sp ring step, Morton-sorted: knn_topk M={m} N={n}: "
+                           f"{int((idx[:, rows] != ref_i).sum())} indices and "
+                           f"{int((d2[:, rows] != ref_d).sum())} distances differ")
+    del idx, d2, ref_i, ref_d
+    box_ms, walk_ms = _device_ms(torch, lambda: knn_kernels.knn_topk(s_sorted, q_sorted, k),
+                                 10, ("knn_box_kernel", "knn_cull_kernel"))
+    print(f"sp ring step knn_topk M={m} N={n} k={k} (rank 0's level-0 block against rank 3's): "
+          f"on the unsorted blocks the walk evaluates {unsorted_share:.4f} of the M*N "
+          f"distances (CPU model, {len(model_rows)} rows); on the same blocks Morton-sorted it "
+          f"evaluates {walked(s_sorted, q_sorted):.4f}, and B1 (indices in order and d2 equal to "
+          f"the plain version on {len(rows)} sampled rows) takes box pass {box_ms:.4f} ms + "
+          f"walk {walk_ms:.4f} ms = {box_ms + walk_ms:.4f} ms", flush=True)
+
+
 def _torch_archive(torch, Model, model, frame):
     """The bundled weights re-saved as a reference-layout torch archive and
     loaded on the card: the same state and the same predictions."""
@@ -2371,6 +2732,25 @@ def main() -> None:
         _large_card_vs_cpu(torch, Model, port_knn, approach)
     phase_done("5e")
 
+    # --- 5f. data-parallel serving: two ranks on the card ----------------------
+    for name, count in _dp_serve_path(torch, Model, captures).items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("5f")
+
+    # --- 5g. point-sharded serving of the 1M cloud: four ranks on the card -----
+    # (the wrappers phase 8 records the main paths' kernel calls through)
+    targets = [
+        (port_knn, "knn_topk", "knn_topk"),
+        (port_knn, "argmin_1nn", "argmin_1nn"),
+        (port_knn, "knn_window_topk", "knn_window_topk"),
+        (lfa_kernels, "lfa_round1", "lfa_round1"),
+        (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
+    ]
+    totals, calls_sp = _sp_serve_path(torch, Model, captures, targets)
+    for name, count in totals.items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("5g")
+
     # --- 6. B7's entry point ------------------------------------------------
     _build.reset_launches()
     rows = bench_roll_stages.table()
@@ -2415,13 +2795,6 @@ def main() -> None:
 
     # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
-    targets = [
-        (port_knn, "knn_topk", "knn_topk"),
-        (port_knn, "argmin_1nn", "argmin_1nn"),
-        (port_knn, "knn_window_topk", "knn_window_topk"),
-        (lfa_kernels, "lfa_round1", "lfa_round1"),
-        (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
-    ]
     # one call of each large path (the approximate route at the window its
     # guard settled on in 5e), held last; then the guard back at its default
     # for approx64k, whose guard settled there
@@ -2521,6 +2894,16 @@ def main() -> None:
                   flush=True)
         del calls_l
         _exact_1m(torch, knn_kernels, level0)
+        # rank 0's calls of 5g's recorded call; the level-0 ring step at
+        # step 1 (the block of rank 3 visiting) again, sorted and not
+        t = time.perf_counter()
+        _check_kernels(torch, calls_sp, results, "sp-1M rank 0", plain_reps=1,
+                       sorted_bound=True)
+        print(f"sp-1M rank 0: kernels held on one call in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        (support, query, _), _ = calls_sp["knn_topk"][1]
+        _sp_ring_step(torch, knn_kernels, support, query)
+        del calls_sp, support, query
     del calls, calls64, calls_live, calls_train, calls_val, calls_bf16
     del calls_train_bf16, calls_val_bf16
     phase_done("8")

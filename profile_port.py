@@ -2,7 +2,8 @@
 """Where a live frame's time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 profile_port.py [app|approx64k|live|train|train-bf16|app-bf16|
-                             approx64k-bf16|large-exact|large-approx ...]
+                             approx64k-bf16|large-exact|large-approx|dp-serve|
+                             sp-1m ...]
                             [--expect-window W]
 
 For each path named (the first four by default): the app path is
@@ -24,7 +25,13 @@ same step with ``compute_dtype="bfloat16"``; large-exact and
 large-approx are the large-scene forward of ``chip_smoke.py``'s phase 5e
 (``Model.predict(cloud, prepostprocess=False)`` on the first 1,048,576-point
 cloud of ``benchmarks/bench_large.py``, the bundled weights at that
-n_points, ``knn="naive"`` or ``"approximate"``), 3 calls on that cloud.
+n_points, ``knn="naive"`` or ``"approximate"``), 3 calls on that cloud;
+dp-serve and sp-1m are ``chip_smoke.py``'s phases 5f and 5g: ``DPServing``
+on two ranks sharing the card (a batch of 8 mock clouds of 60,000 points)
+and ``SPServing`` on four (that 1,048,576-point cloud), each rank (a
+process of its own) traced by its own profiler over the same calls, and
+the card's busy time taken as the union of the ranks' device activity
+(their kernels take turns on the card, so their durations do not add up).
 Each path's predictor is warmed up on 5 frames, then its frames (20 of the
 app and live paths, 10 of approx64k) are timed untraced, every path before
 any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
@@ -60,9 +67,11 @@ from chip_smoke import (
     APPROX_SETTINGS,
     ARCHIVE,
     BF16_ARCHIVE,
+    DP_DEVICES,
     FRAME_POINTS,
     LARGE_POINTS,
     LIVE_DISPLAY,
+    SP_DEVICES,
     _gpu_line,
     _make_frame,
     _train_batches,
@@ -125,6 +134,108 @@ def _profile(torch, predict, frames, label: str) -> None:
                        max_name_column_width=60), flush=True)
 
 
+def _rank_profile(fn, calls: int, args, root=None):
+    """On every rank of a serving pool: ``calls`` calls of the rank body
+    ``fn(*args, root=root)`` traced by this rank's profiler, the ranks
+    starting together (a barrier once every profiler runs). Returns (wall ms
+    a call, device ms a call, ``cudaLaunchKernel`` a call, the TOP kernels
+    and copies by device time as (name, ms a call, count a call), and the
+    (start, end) ns of every device activity). Where ranks share a card
+    their kernels take turns, and a kernel's duration counts the other
+    ranks' turns that fall inside it."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args, root=root)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if dist.is_initialized():
+            dist.barrier()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn(*args, root=root)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / calls
+    events = prof.key_averages()
+    device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / calls
+    top = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
+           for e in device[:TOP // 2]]
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / calls
+    return wall, device_ms, launches, top, spans
+
+
+def _union_ns(spans) -> int:
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _profile_ranks(server, fn, args, root, label: str) -> None:
+    """Untimed then timed calls of a serving pool's body, then every rank
+    traced over the same calls (``_rank_profile``). The card's busy time is
+    the union of every rank's device activity (the kineto timestamps of
+    processes on one host share a clock), over the span from the first
+    activity to the last."""
+    walls = []
+    for _ in range(LARGE_FRAMES + 1):
+        t = time.perf_counter()
+        server.pool.run(fn, *args, root=root)
+        walls.append((time.perf_counter() - t) * 1e3)
+    print(f"{label}: untraced wall per call over {LARGE_FRAMES} calls after one: "
+          f"{[round(w, 3) for w in walls[1:]]} ms, p50 {statistics.median(walls[1:]):.3f}",
+          flush=True)
+    reports = server.pool.run(_rank_profile, fn, LARGE_FRAMES, args, root=root)
+    spans = [s for r in reports for s in r[4]]
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6 / LARGE_FRAMES
+    busy_ms = _union_ns(spans) / 1e6 / LARGE_FRAMES
+    print(f"{label}: {len(reports)} ranks, traced wall per call (rank 0) {reports[0][0]:.3f} ms; "
+          f"first to last device activity {span_ms:.3f} ms a call; the card busy (the union "
+          f"of the ranks' device activity) {busy_ms:.3f} ms a call; idle share "
+          f"{1 - busy_ms / reports[0][0]:.3f}", flush=True)
+    for r, (w, dev, launches, top, _) in enumerate(reports):
+        print(f"{label}: rank {r}: wall {w:.3f} ms, device {dev:.3f} ms (its kernels' "
+              f"durations, the other ranks' turns inside them included), {launches:.1f} "
+              f"cudaLaunchKernel a call; by device time:", flush=True)
+        for name, ms, count in top:
+            print(f"    {ms:10.3f} ms {count:8.1f}x  {name[:90]}", flush=True)
+
+
+def _serving_paths(torch, Model, make_frame, paths) -> None:
+    """dp-serve and sp-1m (``_profile_ranks``)."""
+    from recognizer3d_tpu_torch.ops import knn as port_knn
+    from recognizer3d_tpu_torch.parallel import serving
+
+    model = Model.load(ARCHIVE, device="cuda")
+    if "dp-serve" in paths:
+        clouds = np.stack([make_frame(np.random.RandomState(700 + i), 0.3 * i,
+                                      FRAME_POINTS)[0] for i in range(8)])
+        with serving.DPServing(model, DP_DEVICES) as server:
+            np.random.seed(0)
+            buf, indices, permutation, _ = model._prepare_host(clouds)
+            root = (buf, indices, permutation, port_knn.session_guard_state())
+            _profile_ranks(server, serving._dp_predict, (server._key, 0.5), root, "dp-serve")
+    if "sp-1m" in paths:
+        from recognizer3d_tpu_torch.benchmarks import bench_large
+
+        cloud = bench_large.inputs(LARGE_POINTS)[1]["approximate"][0][0]
+        perm = np.random.RandomState(0).permutation(LARGE_POINTS)
+        x = torch.from_numpy(np.ascontiguousarray(cloud[perm][None]))
+        with serving.SPServing(model, SP_DEVICES) as server:
+            _profile_ranks(server, serving._sp_confidences, (server._key,), x, "sp-1m")
+
+
 def _train_data(torch, make_frame):
     _write_train_dataset(make_frame)
     return _train_batches(torch, FRAMES)
@@ -166,6 +277,8 @@ def main() -> None:
     make_frame = _make_frame()
     runs = []
     for path in paths:
+        if path in ("dp-serve", "sp-1m"):
+            continue
         if path in ("train", "train-bf16"):
             dtype = "bfloat16" if path == "train-bf16" else "float32"
             runs.append((_train_step_fn(torch, dtype), _train_data(torch, make_frame), path))
@@ -224,6 +337,8 @@ def main() -> None:
             raise SystemExit(f"profile_port: {path} settled on window {windows[path]} but would "
                              f"be profiled at {port_knn.session_window_points()}")
         _profile(torch, predict, frames, path)
+    if {"dp-serve", "sp-1m"} & set(paths):
+        _serving_paths(torch, Model, make_frame, paths)
     subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
                     "--format=csv"], check=False, timeout=60)
 

@@ -303,9 +303,24 @@ class Model:
         )
 
     def _prepare_full(self, inputs: np.ndarray):
-        """Host prep of the full-cloud predict paths: cached consistent
-        sample indices, this call's random permutation (a numpy draw under
-        the caller's seed), and bucket padding into a reused buffer."""
+        """:meth:`_prepare_host`, with the padded cloud, the indices and the
+        permutation on the device."""
+        buf, indices, permutation, n_full = self._prepare_host(inputs)
+        dev = self.device
+        return (
+            buf.to(dev, non_blocking=True),
+            torch.from_numpy(indices).to(dev),
+            torch.from_numpy(permutation).to(dev),
+            n_full,
+        )
+
+    def _prepare_host(self, inputs: np.ndarray):
+        """Host prep of the full-cloud predict paths: consistent sample
+        indices, this call's random permutation (a numpy draw under the
+        caller's seed), and bucket padding into a reused host buffer (pinned
+        when the model runs on the GPU). Returns (the padded (B, bucket, C)
+        tensor in the transfer dtype, indices, permutation (int64 numpy),
+        N)."""
         n_full = inputs.shape[1]
         indices = np.array(
             consistent_sample_indices(n_full, self.settings.n_points), dtype=np.int64
@@ -322,13 +337,7 @@ class Model:
         host = buf.numpy()
         host[:, :n_full] = inputs  # casts to the transfer dtype on copy
         host[:, n_full:] = 0.0
-        dev = self.device
-        return (
-            buf.to(dev, non_blocking=True),
-            torch.from_numpy(indices).to(dev),
-            torch.from_numpy(permutation).to(dev),
-            n_full,
-        )
+        return buf, indices, permutation, n_full
 
     @staticmethod
     def _batch_inputs(xyz: np.ndarray, features: Optional[np.ndarray]):

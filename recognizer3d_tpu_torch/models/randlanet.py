@@ -316,7 +316,13 @@ class LocalFeatureAggregation(nn.Module):
     ``lrelu(mlp2(features) + shortcut(input))`` -> (B, N, 2·n_out).
 
     ``features`` rows follow ``xyz``'s order (any order: the search and
-    every reduction are order-agnostic) and the output keeps it."""
+    every reduction are order-agnostic) and the output keeps it.
+
+    With a ``backend`` (``parallel/sp_model.SPBackend``), ``xyz`` and
+    ``features`` are this rank's blocks of point-sharded tensors: the
+    self-KNN and the first neighbour gather are one ring pass, the second
+    gather another, and the block runs unfused (the eval kernels take a
+    whole level's neighbour rows), as the JAX block does."""
 
     def __init__(self, n_in: int, n_out: int, n_neighbors: int, knn_approach: str,
                  dtype: torch.dtype = torch.float32):
@@ -340,9 +346,9 @@ class LocalFeatureAggregation(nn.Module):
             self.n_neighbors, self.half, str(self.compute_dtype).removeprefix("torch.")
         )
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor, backend=None) -> torch.Tensor:
         half = self.half
-        fused = self.fused()
+        fused = backend is None and self.fused()
         feats = self.mlp1(features)
         # the mlp_rpe1 neighbour term and the feature rows share one gather;
         # the table is float32 (bfloat16 rows round after the gather, or,
@@ -351,8 +357,11 @@ class LocalFeatureAggregation(nn.Module):
         table = torch.cat([support, feats.to(support.dtype)], dim=-1)
         if fused and self.compute_dtype == torch.bfloat16:
             table = table.to(torch.bfloat16)
-        neighbors, d2 = knn_presorted(xyz, xyz, self.n_neighbors, self.knn_approach)
-        gathered = gather_neighbors(table, neighbors)  # (B, N, K, 2·half)
+        if backend is None:
+            neighbors, d2 = knn_presorted(xyz, xyz, self.n_neighbors, self.knn_approach)
+            gathered = gather_neighbors(table, neighbors)  # (B, N, K, 2·half)
+        else:
+            neighbors, d2, gathered = backend.knn_gather(xyz, xyz, table, self.n_neighbors)
         if fused:
             s1, o1 = self.mlp_rpe1.batch_norm.eval_affine()
             wp1, bp1 = self.pool1.mlp.dense_wb()
@@ -381,8 +390,11 @@ class LocalFeatureAggregation(nn.Module):
         cat = torch.cat([rpe, gathered[..., half:].to(rpe.dtype)], dim=-1)  # (B, N, K, n_out)
         feats = self.pool1(cat)
         rpe = self.mlp_rpe2(rpe)
-        cat = torch.cat([rpe, gather_neighbors(feats, neighbors)], dim=-1)
-        feats = self.pool2(cat)
+        if backend is None:
+            neighbor_feats = gather_neighbors(feats, neighbors)
+        else:
+            neighbor_feats = backend.gather(feats, neighbors)
+        feats = self.pool2(torch.cat([rpe, neighbor_feats], dim=-1))
         out = self.mlp2(feats) + self.shortcut(features)
         return _leaky_relu(out, 0.01)
 
@@ -420,7 +432,10 @@ class RandLANet(nn.Module):
     mode ignores it. In bfloat16 the kept features are doubled in bfloat16
     (exact). A module in double (``.double()``) computes in
     float64 but for the geometry and the neighbour search, which stay
-    float32: the reference a float32 step is held against."""
+    float32: the reference a float32 step is held against.
+
+    With a ``backend`` (``parallel/sp_model.SPBackend``) the eval forward
+    runs point-sharded (:meth:`_forward_sharded`)."""
 
     dropout_rate = 0.5
 
@@ -461,8 +476,10 @@ class RandLANet(nn.Module):
         self.fc_end_1 = SharedMLP(64, 32, activation="relu", dtype=dt)
         self.fc_end_2 = SharedMLP(32, s.n_classes, bn=False, dtype=dt)
 
-    def forward(self, inputs: torch.Tensor, permutation: torch.Tensor,
-                dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, permutation: Optional[torch.Tensor],
+                dropout_mask: Optional[torch.Tensor] = None, backend=None) -> torch.Tensor:
+        if backend is not None:
+            return self._forward_sharded(inputs, backend)
         s = self.settings
         B, N, dim = inputs.shape
         assert dim == 3 + s.n_features, "Input should have shape (B, N, 3 + F)!"
@@ -521,4 +538,43 @@ class RandLANet(nn.Module):
                                 torch.zeros_like(feats))
         feats = self.fc_end_2(feats)
         # (B, C, N), float32 at least (a float64 module keeps float64)
+        return feats.transpose(-1, -2).to(torch.promote_types(feats.dtype, torch.float32))
+
+    def _forward_sharded(self, inputs: torch.Tensor, backend) -> torch.Tensor:
+        """The eval forward over a point-sharded cloud (JAX's ``backend=``
+        branch): ``inputs`` (B, N/D, 3+F) is this rank's block of the cloud
+        already in its random-sampling permutation (the caller permutes on
+        the host: JAX's in-model permutation and its inverse are
+        all-to-alls), and the logits (B, C, N/D) keep that order. Levels
+        stay in permuted order, with no Morton sorts (the ring search is
+        order-agnostic); each decimation prefix is rebalanced onto the
+        block layout; each decoder upsample is a ring 1-NN pass."""
+        if self.training:
+            raise NotImplementedError("point-sharded training is ROADMAP A9b; this forward "
+                                      "is eval only")
+        s = self.settings
+        B, n_loc, dim = inputs.shape
+        N = n_loc * backend.n_shards
+        assert dim == 3 + s.n_features, "Input should have shape (B, N, 3 + F)!"
+        assert N >= s.min_n_points, (
+            f"Input point cloud should have at least {s.min_n_points} points!"
+        )
+        level_sizes = [N // s.decimation**i for i in range(s.n_layers + 1)]
+        backend.check_level_sizes(level_sizes)
+        xyz_levels = [inputs[..., :3].float()]
+        for n_level in level_sizes[1:]:
+            xyz_levels.append(backend.constrain(xyz_levels[-1], n_level))
+        feats = _leaky_relu(self.bn_start(_dense(self.fc_start, inputs, self.compute_dtype)), 0.2)
+        skip_stack = []
+        for i in range(s.n_layers):
+            feats = getattr(self, f"encoder_{i}")(xyz_levels[i], feats, backend=backend)
+            skip_stack.append(feats)
+            feats = backend.constrain(feats, level_sizes[i + 1])
+        feats = self.mlp(feats)
+        for i in range(s.n_layers):
+            level = s.n_layers - i
+            _, _, up = backend.knn_gather(xyz_levels[level], xyz_levels[level - 1], feats, 1)
+            feats = torch.cat([up[:, :, 0, :], skip_stack.pop()], dim=-1)
+            feats = getattr(self, f"decoder_{i}")(feats)
+        feats = self.fc_end_2(self.fc_end_1(self.fc_end_0(feats)))
         return feats.transpose(-1, -2).to(torch.promote_types(feats.dtype, torch.float32))

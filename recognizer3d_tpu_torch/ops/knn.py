@@ -296,6 +296,19 @@ def reset_window_guard() -> None:
     _session_guard["exact_fallback"] = False
 
 
+def session_guard_state() -> Tuple[int, bool]:
+    """(window points, exact fallback) of this process's session."""
+    return _session_guard["window_points"], _session_guard["exact_fallback"]
+
+
+def adopt_session_guard(state: Tuple[int, bool]) -> None:
+    """Install another process's :func:`session_guard_state`: the ranks of a
+    serving pool search with rank 0's session (in the JAX package the
+    shards of one process share it)."""
+    _session_guard["window_points"], _session_guard["exact_fallback"] = (
+        int(state[0]), bool(state[1]))
+
+
 def _in_window_regime(n: int, m: int) -> bool:
     return n > _WINDOW_MIN_SUPPORT and n * m > _NAIVE_MAX_MN
 

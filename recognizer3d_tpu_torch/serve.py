@@ -12,15 +12,19 @@ confidences (``<ts>_confidences.npy``) instead. One synthetic batch per
 distinct (batch size, bucket) warms the kernels and the allocator before
 the clock starts.
 
-The model runs on the card unless ``--device cpu`` is given. Serving over
-several cards (``--devices``) or a cloud's points sharded over cards
-(``--point-shards``) is ROADMAP A9, not ported: any value other than 1
-is refused.
+The model runs on the card unless ``--device cpu`` is given.
+``--devices N`` shards each batch over N ranks, one process and one card
+each (``parallel/serving.DPServing``); ``--point-shards N`` instead shards
+each cloud's points over N ranks (``SPServing``): the full-resolution
+forward, every point classified by the network with no subsample and
+upsample, for clouds beyond one card. On the card N is at most the visible
+cards and -1 means all of them; with ``--device cpu`` any N runs that many
+ranks on the CPU (-1: one). The two flags exclude each other.
 
 Usage:
     python -m recognizer3d_tpu_torch.serve -m models/<ts> -d data/captures -o out/
         [--batch 8] [--threshold 0.5] [--confidences] [--transfer-dtype float16]
-        [--device cuda]
+        [--device cuda] [--devices N | --point-shards N]
 """
 
 import argparse
@@ -74,9 +78,12 @@ def main(argv=None) -> int:
     ap.add_argument("--confidences", action="store_true",
                     help="write (C, N) float confidences instead of the bool mask")
     ap.add_argument("--devices", type=int, default=1,
-                    help="cards to shard each batch over; only 1 (ROADMAP A9)")
+                    help="shard each batch over this many ranks, a card each (-1: all "
+                    "cards); 1 serves on one card")
     ap.add_argument("--point-shards", type=int, default=1,
-                    help="cards to shard each cloud's points over; only 1 (ROADMAP A9)")
+                    help="shard each cloud's points over this many ranks (-1: all cards): "
+                    "the full-resolution forward by the ring KNN, for clouds beyond one "
+                    "card; excludes --devices")
     ap.add_argument(
         "--transfer-dtype", choices=("float32", "float16"), default="float16",
         help="upload dtype of full clouds (default float16: half the host-to-device "
@@ -85,14 +92,41 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model runs (default: the GPU)")
     args = ap.parse_args(argv)
-    for flag, value in (("--devices", args.devices), ("--point-shards", args.point_shards)):
-        if value != 1:
-            ap.error(f"{flag} {value}: serving over more than one card is not ported yet "
-                     "(ROADMAP A9); this CLI serves on one card")
+    if args.devices != 1 and args.point_shards != 1:
+        ap.error("--devices and --point-shards are mutually exclusive")
+    ranks = args.devices if args.devices != 1 else args.point_shards
+    devices = None
+    if ranks != 1:
+        from recognizer3d_tpu_torch.parallel.mesh import devices_for
 
-    from recognizer3d_tpu_torch.models.facade import Model, _bucket
+        try:
+            devices = devices_for(ranks, args.device)
+        except ValueError as exc:
+            ap.error(f"{'--devices' if args.devices != 1 else '--point-shards'}: {exc}")
 
-    model = Model.load(args.model, device=args.device, transfer_dtype=args.transfer_dtype)
+    from recognizer3d_tpu_torch.models.facade import Model
+
+    model = Model.load(args.model, device=devices[0] if devices else args.device,
+                       transfer_dtype=args.transfer_dtype)
+    if devices is None:
+        summary = _serve(args, model)
+    else:
+        from recognizer3d_tpu_torch.parallel.serving import DPServing, SPServing
+
+        # the workers are joined before the summary line is printed
+        dp = args.devices != 1
+        with (DPServing if dp else SPServing)(model, devices) as server:
+            summary = _serve(args, server, *((len(devices), 1) if dp else (1, len(devices))))
+    print(json.dumps(summary))
+    return 0
+
+
+def _serve(args, model, devices: int = 1, point_shards: int = 1) -> dict:
+    """Warm up, serve every batch and return the throughput summary;
+    ``model`` is a ``Model`` or a server of ``devices`` or ``point_shards``
+    ranks."""
+    from recognizer3d_tpu_torch.models.facade import _bucket
+
     args.out.mkdir(parents=True, exist_ok=True)
 
     def predict_once(clouds):
@@ -102,8 +136,7 @@ def main(argv=None) -> int:
 
     shapes = distinct_batch_shapes(args.dataset, args.batch)
     if not shapes:
-        print(json.dumps({"clouds": 0, "seconds": 0.0}))
-        return 0
+        return {"clouds": 0, "seconds": 0.0}
     # one synthetic batch per (B, bucket): the shapes the card sees
     warm_rng = np.random.RandomState(0)
     warmed = set()
@@ -120,16 +153,15 @@ def main(argv=None) -> int:
             np.save(args.out / f"{stem}{suffix}", row)
         n_clouds += len(stamps)
     dt = time.perf_counter() - t0
-    print(json.dumps({
+    return {
         "clouds": n_clouds,
         "seconds": round(dt, 3),
         "clouds_per_sec": round(n_clouds / dt, 3) if dt else None,
         "batch": args.batch,
-        "devices": args.devices,
-        "point_shards": args.point_shards,
+        "devices": devices,
+        "point_shards": point_shards,
         "output": "confidences" if args.confidences else "mask",
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 defaults, so a recipe reads the same in both packages.
 
 This package trains on one device: ``data_parallel_devices > 1`` (ROADMAP
-A9) raises in ``Trainer.train``.
+A9b) raises in ``Trainer.train``.
 """
 
 from dataclasses import dataclass
@@ -26,7 +26,7 @@ class TrainingSettings:
     early_stopping: bool = True
     #: Patience for early stopping
     early_stopping_patience: int = 20
-    #: Number of data-parallel devices (only 1 is ported; ROADMAP A9)
+    #: Number of data-parallel devices (only 1 is ported; ROADMAP A9b)
     data_parallel_devices: int = 1
     #: Save a training-state checkpoint every N epochs (0: never); needs a log_dir
     checkpoint_every: int = 0

@@ -42,7 +42,7 @@ it, with that epoch's learning rate. Neither package restores the early
 stopper or the random generators, so a resumed run draws other batches
 than an uninterrupted one.
 
-Not ported: data-parallel training (ROADMAP A9).
+Not ported: data-parallel training (ROADMAP A9b).
 """
 
 import logging
@@ -190,7 +190,7 @@ class Trainer:
         """Train the given facade Model in place; returns it with the best
         (``val_mIoU``) weights loaded."""
         if settings.data_parallel_devices > 1:
-            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9)")
+            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9b)")
         module = model.module
         device = model.device
         criterion = get_loss(settings.loss_function)

@@ -331,7 +331,9 @@ def test_cpu_predictor_runs_the_app_path():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port imports without JAX, flax or the JAX
     package. The UI modules and the app import vispy and tkinter, which
-    need not be installed: the in-memory stubs stand in for them."""
+    need not be installed: the in-memory stubs stand in for them. A pool of
+    two ranks (``parallel/mesh.RankPool``) runs a ring search, and neither
+    rank has JAX loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import pytest\n"
@@ -344,11 +346,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {p.__name__ + m for m in ('.app', '.ui.scene', '.serve', '.models.large',\n"
-        "        '.benchmarks.bench_large', '.training.checkpoint')} <= set(names), names\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'jaxlib')\n"
-        "       or m.startswith(('jax.', 'flax.', 'recognizer3d_tpu.'))\n"
-        "       or m == 'recognizer3d_tpu']\n"
-        "assert not bad, bad\n"
+        "        '.benchmarks.bench_large', '.training.checkpoint', '.parallel.mesh',\n"
+        "        '.parallel.ring_knn', '.parallel.serving', '.parallel.sp_lfa',\n"
+        "        '.parallel.sp_model')} <= set(names), names\n"
+        "import torch\n"
+        "from recognizer3d_tpu_torch.parallel import mesh, ring_knn\n"
+        "x = torch.rand(1, 64, 3)\n"
+        "with mesh.RankPool(['cpu', 'cpu']) as pool:\n"
+        "    mesh.shard_map(pool, ring_knn.ring_knn, x, x, 4)\n"
+        "    loaded = pool.run(eval, 'sorted(__import__(\"sys\").modules)')\n"
+        "assert len(loaded) == 2\n"
+        "for modules in loaded:\n"
+        "    bad = [m for m in modules if m in ('jax', 'flax', 'jaxlib')\n"
+        "           or m.startswith(('jax.', 'flax.', 'recognizer3d_tpu.'))\n"
+        "           or m == 'recognizer3d_tpu']\n"
+        "    assert not bad, bad\n"
         "print('ok')\n"
     )
     res = subprocess.run(

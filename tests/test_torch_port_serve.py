@@ -112,18 +112,6 @@ def test_serve_empty_dir(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.strip()) == {"clouds": 0, "seconds": 0.0}
 
 
-@pytest.mark.parametrize("flag", ["--devices", "--point-shards"])
-def test_more_than_one_card_is_refused_naming_a9(tmp_path, capsys, flag):
-    """Serving over several cards is ROADMAP A9: the CLI refuses it rather
-    than serve on one card in silence."""
-    with pytest.raises(SystemExit) as exc:
-        port_serve.main(["-m", str(tmp_path / "m"), "-d", str(tmp_path), "-o",
-                         str(tmp_path / "o"), flag, "2", "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "A9" in err
-
-
 def test_serve_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
     """Without --device the model loads on the GPU: on a machine without
     CUDA that raises, and does not serve on the CPU."""
