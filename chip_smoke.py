@@ -180,6 +180,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``resume=True, epochs=3`` must run only epoch 3, from a restored state
    (weights, running statistics, Adam's count, mu and nu, step) equal to
    the checkpoint bit for bit;
+7e. data-parallel training: ``Model.train`` at the app config on 7b's
+   dataset for 2 epochs (batch 4, the device pipeline, the app's
+   augmentation) on ``RankPool(["cuda:0"] * 2)`` (two ranks sharing the
+   card) and on one rank, under one numpy seed: every loss finite, the
+   first step's loss at 2 ranks within 1e-5 relative of one rank's, both
+   ranks' parameters and statistics bit-identical at the end (the trainer's
+   digests); then 4 training clouds for one epoch (one step) at 2 ranks and
+   at 1, the parameters inside JAX's envelope (95% quantile of |Δ| < 1e-4,
+   max < 2.1·lr, under 2% beyond 1e-3). On the trained weights, through
+   ``training/data_parallel.py``: one step with the launch counts set to 0
+   on every rank before it, each rank's held to PER_STEP and rank 0's
+   kernel calls recorded for phase 8; the step's wall over 20 steps at 2
+   ranks and at 1, in turns (2, 1, 1, 2); one step in float64 at 2 ranks
+   against 1 from the same weights, batch, permutation and mask: both
+   ranks' summed gradients equal, the loss within F64_LOSS_REL, every
+   gradient within F64_GRAD (``train_precision.grad_distance``), the running
+   statistics within F64_STATS;
+7f. the point-sharded train step: the bundled weights at settings64a's
+   widths with ``knn="naive"``, one seeded 65,536-point mock cloud, its
+   labels and a seeded keep mask, over ``["cuda:0"] * 4`` (each rank its
+   block of the cloud permuted on the host, the labels and mask permuted
+   alike; ``RandLANet(..., backend=SPBackend())`` in train mode, the ring
+   backward) against one rank's step on the unpermuted cloud: the launch
+   counts set to 0 on every rank before each step and each rank's held to
+   PER_SP_STEP, rank 0's kernel calls of the float32 step recorded for
+   phase 8; in float64 the limits of 7e, in float32 the loss within 1e-5
+   relative; the step's wall (forward, backward, gradient sum) at 4 ranks
+   and at 1, in turns;
+5h. (run after 7f, on its pool) the DP×SP grid: ``SPServing.
+   confidences_permuted`` of 2 seeded 65,536-point clouds with
+   ``batch_shards=2`` (2 rows of 2 ranks: each row a cloud, its ring over
+   the cloud's points) at the bundled weights with ``knn="naive"``, the
+   launch counts set to 0 on every rank before the timed call and each
+   rank's held to PER_GRID_CALL; the confidences against the one-rank
+   forward on the card within SP_ATOL + SP_RTOL·|ref| (5g's rule);
 8. run one frame of each path, one call of each large path, one train
    step and one validation forward (batch 3) in each dtype while recording
    the inputs it hands to each kernel wrapper,
@@ -223,7 +258,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    queries against a 262,144-point block), the share of the M·N distances
    the walk evaluates on the unsorted blocks (the work the culling fails
    to skip) beside B1 on the same blocks Morton-sorted, held to its plain
-   version on sampled rows and timed;
+   version on sampled rows and timed; then rank 0's calls of one 7e step
+   and of one 7f step by the same rules (7f's B1 bounds counted on its
+   unsorted ring blocks Morton-sorted, as 5g's);
 9. print the ``{"kernels": [...]}`` line (its launches count every rank's),
    then the result line. The
    ``knn_topk`` row is B1 (in its global-memory form, box pass and walk);
@@ -251,7 +288,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ARCHIVE = ROOT / "pretrained" / "mock_fingertip"
 FRAME_POINTS = 60_000
-N_FRAMES = 5
+# frames of each predict path (app, approx64k, their bf16 forms, live; every
+# bf16 frame also runs twice on the CPU): 3, so that the whole script keeps
+# well inside its time limit (at 5 it took 796 s of 1,200 on an H100 80GB
+# HBM3 whose host built the kernels in 37 s)
+N_FRAMES = 3
 # launches of each kernel per live frame at the app config: the four
 # encoder self-KNNs (the 2,500-point one in B1's global-memory form, after
 # its box pass), the fused LFA at encoder levels 0 and 1, and the final
@@ -428,6 +469,41 @@ TRAIN_OUT_BF16 = ROOT / "build" / "train_run_bf16"
 PER_VAL_FORWARD_BF16 = {_TO_BF16.get(k, k): v for k, v in PER_VAL_FORWARD.items()}
 # checkpoints and resume (phase 7d): Model.train's log_dir
 CKPT_RUN = ROOT / "build" / "train_ckpt"
+# data-parallel training (phase 7e): Model.train at the app config on 7b's
+# dataset (9 training clouds: 2 steps of batch 4 an epoch over 2 ranks, the
+# ragged remainder dropped, 3 on one rank) on DP_TRAIN_DEVICES, two ranks
+# sharing the card, against one rank under one numpy seed; JAX's envelope on
+# the parameters after one step (DP_ENVELOPE_CLOUDS training clouds, one
+# epoch); a step launches PER_STEP on every rank (its block of 2 clouds)
+DP_TRAIN_DEVICES = ["cuda:0"] * 2
+DP_TRAIN_SEED = 11
+DP_ENVELOPE_CLOUDS = 4
+# one step over ranks in float64 against one rank (the geometry and the
+# search float32 on both sides, B1 included): the loss relative, every
+# gradient to its tensor's largest |g| (a Dense bias before a BatchNorm to
+# its weight's: ``train_precision.grad_distance``), the running statistics
+# to their tensor's largest value
+F64_LOSS_REL, F64_GRAD, F64_STATS = 1e-10, 1e-8, 1e-10
+# the point-sharded train step (phase 7f): settings64a's widths (K 32,
+# decimation 4, layers [16, 64, 128, 256]) with knn="naive" and the bundled
+# weights, one cloud of SP_TRAIN_POINTS points over SP_TRAIN_DEVICES. Per rank
+# and step: B1 at the 4 steps of each encoder level's ring (blocks of
+# 16,384 / 4,096 / 1,024 / 256 points, the first two after a box pass); the
+# decoder's ring 1-NN onto level 0 on B4 (support blocks of 4,096 points, no
+# ordering launch), the three coarser ones on the plain 1-NN route; the
+# backward searches nothing (the indices are saved)
+SP_TRAIN_DEVICES = ["cuda:0"] * 4
+SP_TRAIN_POINTS = 65_536
+PER_SP_STEP = {"knn_topk": 16, "knn_topk_boxes": 8, "argmin_1nn": 4}
+# the DP×SP grid's forward (phase 5h): GRID_CLOUDS clouds of SP_TRAIN_POINTS
+# points on the four ranks as GRID_ROWS rows of 2 (each row a cloud, its ring
+# of 2 ranks over the cloud's points). Per rank: B1 at the 2 steps of each
+# encoder level (blocks of 32,768 / 8,192 / 2,048 / 512 points, the first
+# two after a box pass); B4 onto levels 0 (support blocks of 8,192: an
+# ordering launch each) and 1 (2,048), 2 steps each; the rest plain
+GRID_ROWS = 2
+GRID_CLOUDS = 2
+PER_GRID_CALL = {"knn_topk": 8, "knn_topk_boxes": 4, "argmin_1nn": 4, "argmin_1nn_order": 2}
 # a float32 step's distance from the float64 step: per batch the median
 # over the gradient tensors of ``benchmarks/train_precision.grad_distances``,
 # then the smallest over PRECISION_BATCHES batches. On an H100 (80GB HBM3,
@@ -2570,6 +2646,267 @@ def _checkpoint_resume(torch, build, Model):
     return totals
 
 
+def _f64_step_gaps(torch, label, many, one, grad_distance):
+    """A float64 step over ranks (``many``: every rank's (loss, gradients,
+    statistics, ms)) against the one-rank step ``one``: every rank's
+    gradients equal rank 0's bit for bit, and rank 0's loss, gradients and
+    running statistics within F64_LOSS_REL, F64_GRAD and F64_STATS."""
+    loss, grads, stats = many[0][:3]
+    for r, other in enumerate(many[1:], start=1):
+        if not all(torch.equal(other[1][k], grads[k]) for k in grads):
+            raise RuntimeError(f"{label}: rank {r}'s summed gradients differ from rank 0's")
+    loss_err = abs(loss - one[0]) / abs(one[0])
+    grad_err, _, at = grad_distance(grads, one[1])
+    stats_err = max(float((stats[k] - v).abs().max()) / float(v.abs().max())
+                    for k, v in one[2].items())
+    if not math.isfinite(loss) or loss_err > F64_LOSS_REL or grad_err > F64_GRAD \
+            or stats_err > F64_STATS:
+        raise RuntimeError(f"{label}: in float64 against one rank: loss rel {loss_err:.3g}, "
+                           f"gradients {grad_err:.3g} of max |g| at {at}, running statistics "
+                           f"{stats_err:.3g}")
+    return loss_err, grad_err, at, stats_err
+
+
+def _dp_train_path(torch, build, Model, targets):
+    """Phase 7e: data-parallel ``Model.train`` at the app config on 7b's
+    dataset, DP_TRAIN_DEVICES (two ranks sharing the card) against one
+    rank, and the step's checks. Returns the ranks' launches of the
+    runs and of the timed steps, and rank 0's recorded kernel calls of one
+    step for phase 8."""
+    from recognizer3d_tpu_torch.benchmarks.train_precision import grad_distance
+    from recognizer3d_tpu_torch.data.dataset import Dataset, DatasetMerged
+    from recognizer3d_tpu_torch.parallel import mesh
+    from recognizer3d_tpu_torch.train import (CLASS_NAMES, app_augmentation, app_model_config,
+                                              app_training_config)
+    from recognizer3d_tpu_torch.training import data_parallel
+
+    t0 = time.perf_counter()
+    train, val = DatasetMerged([Dataset(TRAIN_DIR, broaden_annotations=True)]).split()
+    settings = app_model_config()
+    totals = {}
+
+    def add(launches):
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+
+    def run(train_set, epochs, pool):
+        training = app_training_config()
+        training.epochs = epochs
+        model = Model(settings, device="cuda")  # seed 0
+        np.random.seed(DP_TRAIN_SEED)
+        if pool is not None:
+            pool.run(build.reset_launches)
+        build.reset_launches()
+        t = time.perf_counter()
+        trainer = model.train(train_set, val, training, app_augmentation(),
+                              class_names=CLASS_NAMES, pool=pool)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        add(pool.run(mesh.launches)[1] if pool is not None else {})
+        add(dict(build.LAUNCHES))
+        return trainer, model, wall
+
+    with mesh.RankPool(DP_TRAIN_DEVICES) as pool:
+        t1 = time.perf_counter()
+        runs = {n: run(train, TRAIN_EPOCHS, pool if n > 1 else None) for n in (2, 1)}
+        for n, (trainer, _, wall) in runs.items():
+            bad = [(h["epoch"], k) for h in trainer.history for k, v in h["metrics"].items()
+                   if not math.isfinite(float(v))]
+            losses = [x for h in trainer.history for x in h["step_losses"]]
+            if bad or not all(math.isfinite(x) for x in losses):
+                raise RuntimeError(f"dp-train at {n} ranks: not finite: {bad}, losses {losses}")
+            print(f"dp-train: Model.train at {n} rank(s), {TRAIN_EPOCHS} epochs of "
+                  f"{[h['steps'] for h in trainer.history]} steps, {wall:.3f} s; step losses "
+                  f"{[round(x, 6) for x in losses]}; epoch train s "
+                  f"{[round(h['train_s'], 3) for h in trainer.history]}, validate s "
+                  f"{[round(h['validate_s'], 3) for h in trainer.history]}", flush=True)
+        two, one = runs[2][0], runs[1][0]
+        first2, first1 = two.history[0]["step_losses"][0], one.history[0]["step_losses"][0]
+        if abs(first2 - first1) > 1e-5 * abs(first1):
+            raise RuntimeError(f"dp-train: first-step loss {first2} at 2 ranks, {first1} at 1")
+        if len(two.rank_digests) != 2 or len(set(two.rank_digests)) != 1:
+            raise RuntimeError(f"dp-train: the ranks' parameters differ: {two.rank_digests}")
+        print(f"dp-train: first-step loss {first2:.9f} at 2 ranks, {first1:.9f} at 1 (rel "
+              f"{abs(first2 - first1) / abs(first1):.3g}); both ranks' parameters and "
+              f"statistics bit-identical at the end (sha256 {two.rank_digests[0][:16]}); the "
+              f"ragged remainder dropped at 2 ranks ({two.history[0]['steps']} steps an "
+              f"epoch against {one.history[0]['steps']})", flush=True)
+
+        # JAX's envelope after Adam's first step: DP_ENVELOPE_CLOUDS training
+        # clouds, one epoch of one step
+        sub = [train[i] for i in range(DP_ENVELOPE_CLOUDS)]
+        params = {}
+        for n in (2, 1):
+            _, model, _ = run(sub, 1, pool if n > 1 else None)
+            params[n] = {k: p.detach() for k, p in model.module.named_parameters()}
+        diffs = torch.cat([(params[2][k] - params[1][k]).abs().flatten() for k in params[1]])
+        q95, worst = float(diffs.quantile(0.95)), float(diffs.max())
+        share = float((diffs > 1e-3).float().mean())
+        lr = app_training_config().learning_rate
+        if not (q95 < 1e-4 and worst < 2 * lr * 1.05 and share < 0.02):
+            raise RuntimeError(f"dp-train: parameters after one step outside JAX's envelope: "
+                               f"95% quantile {q95:.3g}, max {worst:.3g}, share beyond 1e-3 "
+                               f"{share:.3g}")
+        print(f"dp-train: parameters after one step ({DP_ENVELOPE_CLOUDS} clouds, batch 4) at 2 "
+              f"ranks against 1: 95% quantile of |Δ| {q95:.3g} (< 1e-4), max {worst:.3g} (< "
+              f"{2 * lr * 1.05:.3g}), share beyond 1e-3 {share:.3g} (< 0.02)", flush=True)
+
+        # the trainer's step alone on the trained weights: launches, walls, float64
+        trained = runs[2][1]
+        cache_spec = ([train[i] for i in range(len(train))], settings.n_points,
+                      app_augmentation())
+        spec = data_parallel.payload(trained, "dice", seed=DP_TRAIN_SEED, cache_spec=cache_spec,
+                                     batch_size=4)
+        # rank 0 of both pools is this process: a key a pool
+        with mesh.RankPool(DP_TRAIN_DEVICES[:1]) as single:
+            for p in (pool, single):
+                p.run(data_parallel.adopt, f"dp-time-{p.n_ranks}", spec)
+            pool.run(build.reset_launches)
+            with _Recorder(targets) as rec:
+                pool.run(data_parallel.time_steps, "dp-time-2", 1)
+            torch.cuda.synchronize()
+            add(_rank_launches(pool, "dp-train step", PER_STEP))
+            for name, recorded in rec.calls.items():
+                if len(recorded) != PER_STEP.get(name, 0):
+                    raise RuntimeError(f"dp-train step: rank 0 recorded {len(recorded)} calls of "
+                                       f"{name}, expected {PER_STEP.get(name, 0)}")
+            walls = {2: [], 1: []}
+            for p in (pool, single, single, pool):
+                walls[p.n_ranks] += p.run(data_parallel.time_steps, f"dp-time-{p.n_ranks}",
+                                          STEP_REPS // 2)[0]
+            inputs, labels, perm, keep = (t.cpu() for t in _train_batches(torch, 1)[0])
+            spec64 = data_parallel.payload(trained, "dice", dtype=torch.float64)
+            for p in (pool, single):
+                p.run(data_parallel.adopt, f"dp-64-{p.n_ranks}", spec64)
+            many = pool.run(data_parallel.step, "dp-64-2", inputs, labels, perm, keep)
+            ref = single.run(data_parallel.step, "dp-64-1", inputs, labels, perm, keep)[0]
+            gaps = _f64_step_gaps(torch, "dp-train step", many, ref, grad_distance)
+            for p in (pool, single):
+                for key in ("dp-time", "dp-64"):
+                    p.run(mesh.forget, f"{key}-{p.n_ranks}")
+    print(f"dp-train step (batch 4 x 2500 points, 2 clouds a rank): each rank launched "
+          f"{PER_STEP}; wall ms in turns (2, 1, 1, 2 ranks, {STEP_REPS // 2} steps each, "
+          f"synchronised): 2 ranks p50 {statistics.median(walls[2]):.3f} (min "
+          f"{min(walls[2]):.3f}, max {max(walls[2]):.3f}), 1 rank p50 "
+          f"{statistics.median(walls[1]):.3f} (min {min(walls[1]):.3f}, max "
+          f"{max(walls[1]):.3f}); steps/s 2 ranks / 1 rank "
+          f"{statistics.median(walls[1]) / statistics.median(walls[2]):.3f}", flush=True)
+    print(f"dp-train step in float64 (geometry and search float32), 2 ranks against 1 from the "
+          f"same weights, batch, permutation and mask: loss {ref[0]:.12f} (rel {gaps[0]:.3g}), "
+          f"gradients within {gaps[1]:.3g} of each tensor's max |g| ({gaps[2]}), running "
+          f"statistics within {gaps[3]:.3g}; both ranks' summed gradients equal; "
+          f"{time.perf_counter() - t0:.1f} s (pool start {t1 - t0:.1f})", flush=True)
+    return totals, rec.calls
+
+
+def _sp_train_path(torch, build, Model, make_frame, targets):
+    """Phase 7f: the point-sharded train step at settings64a's widths with
+    knn="naive" on one SP_TRAIN_POINTS-point cloud, SP_TRAIN_DEVICES (four
+    ranks on the card) against one rank; then 5h, the DP×SP grid's forward
+    on the same pool. Returns the ranks' launches and rank 0's recorded
+    kernel calls of one step for phase 8."""
+    from recognizer3d_tpu_torch.benchmarks.train_precision import grad_distance
+    from recognizer3d_tpu_torch.parallel import mesh
+    from recognizer3d_tpu_torch.training import data_parallel
+
+    t0 = time.perf_counter()
+    model = Model.load(ARCHIVE, device="cuda", n_points=SP_TRAIN_POINTS, knn="naive")
+    s = model.settings
+    cloud, annotation = make_frame(np.random.RandomState(910), 0.3, SP_TRAIN_POINTS)
+    rng = np.random.RandomState(911)
+    perm = torch.from_numpy(rng.permutation(SP_TRAIN_POINTS))
+    x = torch.from_numpy(np.ascontiguousarray(cloud[None], np.float32))
+    y = torch.from_numpy(annotation[None].astype(np.int64))
+    keep = torch.from_numpy(rng.rand(1, SP_TRAIN_POINTS, 32) < 0.5)
+    permuted = (x[:, perm], y[:, perm], None, keep[:, perm])
+    totals = {}
+    with mesh.RankPool(SP_TRAIN_DEVICES) as pool, \
+            mesh.RankPool(SP_TRAIN_DEVICES[:1]) as single:
+        t1 = time.perf_counter()
+        out = {}
+        for dtype in (torch.float64, torch.float32):
+            spec = data_parallel.payload(model, "dice", dtype=dtype)
+            # rank 0 of both pools is this process: a key a pool
+            for p in (pool, single):
+                p.run(data_parallel.adopt, f"sp-step-{p.n_ranks}", spec)
+            pool.run(build.reset_launches)
+            rec = None
+            if dtype == torch.float32:
+                with _Recorder(targets) as rec:
+                    out[dtype, 4] = pool.run(data_parallel.step, "sp-step-4", *permuted, axis=1)
+                torch.cuda.synchronize()
+            else:
+                out[dtype, 4] = pool.run(data_parallel.step, "sp-step-4", *permuted, axis=1)
+            for name, count in _rank_launches(pool, "sp-train step", PER_SP_STEP).items():
+                totals[name] = totals.get(name, 0) + count
+            out[dtype, 1] = single.run(data_parallel.step, "sp-step-1", x, y, perm, keep)
+        for name, recorded in rec.calls.items():
+            if len(recorded) != PER_SP_STEP.get(name, 0):
+                raise RuntimeError(f"sp-train step: rank 0 recorded {len(recorded)} calls of "
+                                   f"{name}, expected {PER_SP_STEP.get(name, 0)}")
+        gaps = _f64_step_gaps(torch, "sp-train step", out[torch.float64, 4],
+                              out[torch.float64, 1][0], grad_distance)
+        l4, l1 = out[torch.float32, 4][0][0], out[torch.float32, 1][0][0]
+        if not math.isfinite(l4) or abs(l4 - l1) > 1e-5 * abs(l1):
+            raise RuntimeError(f"sp-train step in float32: loss {l4} at 4 ranks, {l1} at 1")
+        walls = {4: [], 1: []}
+        for p in (pool, single, single, pool):
+            walls[p.n_ranks].append(p.run(data_parallel.step, f"sp-step-{p.n_ranks}",
+                                          *(permuted if p is pool else (x, y, perm, keep)),
+                                          axis=1 if p is pool else 0)[0][3])
+        for p in (pool, single):
+            p.run(mesh.forget, f"sp-step-{p.n_ranks}")
+        print(f"sp-train: one {SP_TRAIN_POINTS}-point cloud, K {s.n_neighbors}, decimation "
+              f"{s.decimation}, layers {s.layer_sizes}, knn={s.knn}, the bundled weights; 4 "
+              f"ranks (each its block of the permuted cloud) against one rank's step: each rank "
+              f"launched {PER_SP_STEP} a step; float64: loss {out[torch.float64, 1][0][0]:.12f} "
+              f"(rel {gaps[0]:.3g}), gradients within {gaps[1]:.3g} of each tensor's max |g| "
+              f"({gaps[2]}), running statistics within {gaps[3]:.3g}; float32: loss {l4:.9f} at "
+              f"4 ranks, {l1:.9f} at 1 (rel {abs(l4 - l1) / abs(l1):.3g}); step wall ms "
+              f"(forward, backward, gradient sum, Adam at lr 0; synchronised) 4 ranks "
+              f"{[round(w, 3) for w in walls[4]]}, 1 rank {[round(w, 3) for w in walls[1]]}; "
+              f"{time.perf_counter() - t0:.1f} s (pools {t1 - t0:.1f})", flush=True)
+        for name, count in _grid_forward(torch, build, Model, make_frame, pool).items():
+            totals[name] = totals.get(name, 0) + count
+    return totals, rec.calls
+
+
+def _grid_forward(torch, build, Model, make_frame, pool):
+    """Phase 5h: the DP×SP grid's forward (``SPBackend(batch_shards=2)``
+    through ``SPServing.confidences_permuted``) on the four ranks of
+    ``pool`` as 2 rows of 2, GRID_CLOUDS seeded clouds of SP_TRAIN_POINTS
+    points at the bundled weights (``knn="naive"``), the launch counts set
+    to 0 on every rank before the timed call; the confidences against the
+    one-rank forward on the card, within SP_ATOL + SP_RTOL·|ref|."""
+    from recognizer3d_tpu_torch.parallel.serving import SPServing
+
+    model = Model.load(ARCHIVE, device="cuda", n_points=SP_TRAIN_POINTS, knn="naive")
+    clouds = np.stack([make_frame(np.random.RandomState(920 + i), 0.3 * i, SP_TRAIN_POINTS)[0]
+                       for i in range(GRID_CLOUDS)])
+    perm = np.random.RandomState(921).permutation(SP_TRAIN_POINTS)
+    with SPServing(model, pool) as server:
+        server.confidences_permuted(clouds[:, perm], batch_shards=GRID_ROWS)
+        pool.run(build.reset_launches)
+        t = time.perf_counter()
+        conf_perm = server.confidences_permuted(clouds[:, perm], batch_shards=GRID_ROWS)
+        wall = (time.perf_counter() - t) * 1e3
+        totals = _rank_launches(pool, "dp-sp grid", PER_GRID_CALL)
+    with torch.inference_mode():
+        logits = model.module(torch.from_numpy(clouds).cuda(), torch.from_numpy(perm).cuda())
+        ref = torch.softmax(logits, dim=-2)[..., torch.from_numpy(perm).cuda()].cpu().numpy()
+    diff = np.abs(conf_perm - ref)
+    limit = SP_ATOL + SP_RTOL * np.abs(ref)
+    if conf_perm.shape != ref.shape or (diff > limit).any():
+        raise RuntimeError(f"dp-sp grid: confidences {conf_perm.shape}, "
+                           f"{int((diff > limit).sum())} beyond atol {SP_ATOL} rtol {SP_RTOL} "
+                           f"of the one-rank forward (max abs err {diff.max()})")
+    print(f"dp-sp grid: {GRID_CLOUDS} clouds of {SP_TRAIN_POINTS} points on {GRID_ROWS} rows of "
+          f"{len(SP_TRAIN_DEVICES) // GRID_ROWS} ranks: each rank launched {PER_GRID_CALL}; "
+          f"wall {wall:.3f} ms; against the one-rank forward on the card: confidences max abs "
+          f"err {diff.max():.3g} (atol {SP_ATOL}, rtol {SP_RTOL})", flush=True)
+    return totals
+
+
 def _flat_tree(tree, prefix=""):
     out = {}
     for key, value in tree.items():
@@ -2793,6 +3130,18 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + count
     phase_done("7d")
 
+    # --- 7e. data-parallel training: two ranks on the card ---------------------
+    totals, calls_dp_train = _dp_train_path(torch, _build, Model, targets)
+    for name, count in totals.items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("7e")
+
+    # --- 7f, 5h. the point-sharded train step, the DP×SP grid: four ranks -------
+    totals, calls_sp_train = _sp_train_path(torch, _build, Model, make_frame, targets)
+    for name, count in totals.items():
+        launches[name] = launches.get(name, 0) + count
+    phase_done("7f, 5h")
+
     # --- 8. each kernel against its plain version ---------------------------
     # (after the paths: profiler sessions slow the launches that follow)
     # one call of each large path (the approximate route at the window its
@@ -2904,6 +3253,15 @@ def main() -> None:
         (support, query, _), _ = calls_sp["knn_topk"][1]
         _sp_ring_step(torch, knn_kernels, support, query)
         del calls_sp, support, query
+        # rank 0's calls of one data-parallel step and of one point-sharded
+        # train step (the backward searches nothing: no call of its own)
+        _check_kernels(torch, calls_dp_train, results, "dp-train step rank 0", plain_reps=10)
+        t = time.perf_counter()
+        _check_kernels(torch, calls_sp_train, results, "sp-train step rank 0", plain_reps=3,
+                       sorted_bound=True)
+        print(f"sp-train step rank 0: kernels held on one step in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        del calls_dp_train, calls_sp_train
     del calls, calls64, calls_live, calls_train, calls_val, calls_bf16
     del calls_train_bf16, calls_val_bf16
     phase_done("8")

@@ -3,7 +3,7 @@
 
     python3 profile_port.py [app|approx64k|live|train|train-bf16|app-bf16|
                              approx64k-bf16|large-exact|large-approx|dp-serve|
-                             sp-1m ...]
+                             sp-1m|dp-train|sp-train ...]
                             [--expect-window W]
 
 For each path named (the first four by default): the app path is
@@ -31,7 +31,13 @@ on two ranks sharing the card (a batch of 8 mock clouds of 60,000 points)
 and ``SPServing`` on four (that 1,048,576-point cloud), each rank (a
 process of its own) traced by its own profiler over the same calls, and
 the card's busy time taken as the union of the ranks' device activity
-(their kernels take turns on the card, so their durations do not add up).
+(their kernels take turns on the card, so their durations do not add up);
+dp-train and sp-train likewise trace ``chip_smoke.py``'s phases 7e and 7f:
+one data-parallel step a call on two ranks (20 calls; the app config,
+batches from the replicated device tables) and one point-sharded train step
+a call on four (a 65,536-point cloud), and print each rank's host time in
+the port's exchanges (the ranges ``r3d.all_reduce_sum``, ``r3d.rotate``,
+``r3d.constrain``: staging, gloo and the wait for the other ranks).
 Each path's predictor is warmed up on 5 frames, then its frames (20 of the
 app and live paths, 10 of approx64k) are timed untraced, every path before
 any tracing, and then traced with ``torch.profiler`` (CPU and CUDA
@@ -68,10 +74,14 @@ from chip_smoke import (
     ARCHIVE,
     BF16_ARCHIVE,
     DP_DEVICES,
+    DP_TRAIN_DEVICES,
     FRAME_POINTS,
     LARGE_POINTS,
     LIVE_DISPLAY,
     SP_DEVICES,
+    SP_TRAIN_DEVICES,
+    SP_TRAIN_POINTS,
+    TRAIN_DIR,
     _gpu_line,
     _make_frame,
     _train_batches,
@@ -81,6 +91,8 @@ from chip_smoke import (
 FRAMES = 20
 LARGE_FRAMES = 3
 TOP = 25
+# the port's profiler ranges around the ranks' exchanges
+RANGES = ("r3d.all_reduce_sum", "r3d.rotate", "r3d.constrain")
 
 
 def _time(torch, predict, frames, label: str) -> None:
@@ -158,16 +170,25 @@ def _rank_profile(fn, calls: int, args, root=None):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / calls
     events = prof.key_averages()
-    device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
+    # a user annotation's device range (the port's exchange ranges, the
+    # optimizer step) spans its kernels and the gaps between them: no
+    # device work of its own
+    annotations = set(RANGES) | {e.key for e in events if getattr(e, "is_user_annotation", False)}
+    device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.key not in annotations),
                     key=lambda e: -e.self_device_time_total)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / calls
     top = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
            for e in device[:TOP // 2]]
     spans = [(e.start_ns(), e.start_ns() + e.duration_ns())
              for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
+             if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in annotations]
     device_ms = sum(e.self_device_time_total for e in device) / 1e3 / calls
-    return wall, device_ms, launches, top, spans
+    # the host time in the ranks' exchanges (their staging, gloo and the
+    # wait for the other ranks), by the port's ranges, and their count
+    ranges = {e.key: (e.cpu_time_total / 1e3 / calls, e.count / calls) for e in events
+              if e.key in RANGES and e.device_type == torch.autograd.DeviceType.CPU}
+    return wall, device_ms, launches, top, spans, ranges
 
 
 def _union_ns(spans) -> int:
@@ -182,32 +203,34 @@ def _union_ns(spans) -> int:
     return total
 
 
-def _profile_ranks(server, fn, args, root, label: str) -> None:
-    """Untimed then timed calls of a serving pool's body, then every rank
+def _profile_ranks(pool, fn, args, root, label: str, calls: int = LARGE_FRAMES) -> None:
+    """Untimed then timed calls of a pool's rank body, then every rank
     traced over the same calls (``_rank_profile``). The card's busy time is
     the union of every rank's device activity (the kineto timestamps of
     processes on one host share a clock), over the span from the first
     activity to the last."""
     walls = []
-    for _ in range(LARGE_FRAMES + 1):
+    for _ in range(calls + 1):
         t = time.perf_counter()
-        server.pool.run(fn, *args, root=root)
+        pool.run(fn, *args, root=root)
         walls.append((time.perf_counter() - t) * 1e3)
-    print(f"{label}: untraced wall per call over {LARGE_FRAMES} calls after one: "
+    print(f"{label}: untraced wall per call over {calls} calls after one: "
           f"{[round(w, 3) for w in walls[1:]]} ms, p50 {statistics.median(walls[1:]):.3f}",
           flush=True)
-    reports = server.pool.run(_rank_profile, fn, LARGE_FRAMES, args, root=root)
+    reports = pool.run(_rank_profile, fn, calls, args, root=root)
     spans = [s for r in reports for s in r[4]]
-    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6 / LARGE_FRAMES
-    busy_ms = _union_ns(spans) / 1e6 / LARGE_FRAMES
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e6 / calls
+    busy_ms = _union_ns(spans) / 1e6 / calls
     print(f"{label}: {len(reports)} ranks, traced wall per call (rank 0) {reports[0][0]:.3f} ms; "
           f"first to last device activity {span_ms:.3f} ms a call; the card busy (the union "
           f"of the ranks' device activity) {busy_ms:.3f} ms a call; idle share "
           f"{1 - busy_ms / reports[0][0]:.3f}", flush=True)
-    for r, (w, dev, launches, top, _) in enumerate(reports):
+    for r, (w, dev, launches, top, _, ranges) in enumerate(reports):
+        shares = ", ".join(f"{k} {ms:.3f} ms ({n:.1f}x)" for k, (ms, n) in sorted(ranges.items()))
         print(f"{label}: rank {r}: wall {w:.3f} ms, device {dev:.3f} ms (its kernels' "
               f"durations, the other ranks' turns inside them included), {launches:.1f} "
-              f"cudaLaunchKernel a call; by device time:", flush=True)
+              f"cudaLaunchKernel a call; host time in exchanges a call: {shares or 'none'}; "
+              f"by device time:", flush=True)
         for name, ms, count in top:
             print(f"    {ms:10.3f} ms {count:8.1f}x  {name[:90]}", flush=True)
 
@@ -225,7 +248,8 @@ def _serving_paths(torch, Model, make_frame, paths) -> None:
             np.random.seed(0)
             buf, indices, permutation, _ = model._prepare_host(clouds)
             root = (buf, indices, permutation, port_knn.session_guard_state())
-            _profile_ranks(server, serving._dp_predict, (server._key, 0.5), root, "dp-serve")
+            _profile_ranks(server.pool, serving._dp_predict, (server._key, 0.5), root,
+                           "dp-serve")
     if "sp-1m" in paths:
         from recognizer3d_tpu_torch.benchmarks import bench_large
 
@@ -233,7 +257,55 @@ def _serving_paths(torch, Model, make_frame, paths) -> None:
         perm = np.random.RandomState(0).permutation(LARGE_POINTS)
         x = torch.from_numpy(np.ascontiguousarray(cloud[perm][None]))
         with serving.SPServing(model, SP_DEVICES) as server:
-            _profile_ranks(server, serving._sp_confidences, (server._key,), x, "sp-1m")
+            _profile_ranks(server.pool, serving._sp_confidences, (server._key,), x, "sp-1m")
+
+
+def _dp_train_step(key, root=None):
+    """One data-parallel step on every rank (a rank body for ``_profile_ranks``)."""
+    from recognizer3d_tpu_torch.training import data_parallel
+
+    data_parallel.time_steps(key, 1)
+
+
+def _sp_train_step(key, x, y, keep, root=None):
+    """One point-sharded train step on every rank (a rank body)."""
+    from recognizer3d_tpu_torch.training import data_parallel
+
+    data_parallel.step(key, x, y, None, keep, axis=1)
+
+
+def _training_paths(torch, make_frame, paths) -> None:
+    """dp-train and sp-train (``_profile_ranks``): ``chip_smoke.py``'s 7e step
+    (2 ranks on the card, the app config, batches from the replicated device
+    tables; each call one step) and its 7f step (4 ranks, one
+    65,536-point cloud at settings64a's widths with ``knn="naive"``)."""
+    from recognizer3d_tpu_torch import Model
+    from recognizer3d_tpu_torch.data.dataset import Dataset, DatasetMerged
+    from recognizer3d_tpu_torch.parallel import mesh
+    from recognizer3d_tpu_torch.train import app_augmentation, app_model_config
+    from recognizer3d_tpu_torch.training import data_parallel
+
+    if "dp-train" in paths:
+        _write_train_dataset(make_frame)
+        train, _ = DatasetMerged([Dataset(TRAIN_DIR, broaden_annotations=True)]).split()
+        model = Model(app_model_config(), device="cuda")
+        spec = data_parallel.payload(
+            model, "dice", seed=0, batch_size=4,
+            cache_spec=([train[i] for i in range(len(train))], 2500, app_augmentation()))
+        with mesh.RankPool(DP_TRAIN_DEVICES) as pool:
+            pool.run(data_parallel.adopt, "dp-train", spec)
+            _profile_ranks(pool, _dp_train_step, ("dp-train",), None, "dp-train", FRAMES)
+    if "sp-train" in paths:
+        model = Model.load(ARCHIVE, device="cuda", n_points=SP_TRAIN_POINTS, knn="naive")
+        cloud, labels = make_frame(np.random.RandomState(910), 0.3, SP_TRAIN_POINTS)
+        rng = np.random.RandomState(911)
+        perm = rng.permutation(SP_TRAIN_POINTS)
+        keep = torch.from_numpy(rng.rand(1, SP_TRAIN_POINTS, 32) < 0.5)[:, perm]
+        x = torch.from_numpy(np.ascontiguousarray(cloud[perm][None], np.float32))
+        y = torch.from_numpy(labels[perm][None].astype(np.int64))
+        with mesh.RankPool(SP_TRAIN_DEVICES) as pool:
+            pool.run(data_parallel.adopt, "sp-train", data_parallel.payload(model, "dice"))
+            _profile_ranks(pool, _sp_train_step, ("sp-train", x, y, keep), None, "sp-train")
 
 
 def _train_data(torch, make_frame):
@@ -277,7 +349,7 @@ def main() -> None:
     make_frame = _make_frame()
     runs = []
     for path in paths:
-        if path in ("dp-serve", "sp-1m"):
+        if path in ("dp-serve", "sp-1m", "dp-train", "sp-train"):
             continue
         if path in ("train", "train-bf16"):
             dtype = "bfloat16" if path == "train-bf16" else "float32"
@@ -339,6 +411,8 @@ def main() -> None:
         _profile(torch, predict, frames, path)
     if {"dp-serve", "sp-1m"} & set(paths):
         _serving_paths(torch, Model, make_frame, paths)
+    if {"dp-train", "sp-train"} & set(paths):
+        _training_paths(torch, make_frame, paths)
     subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
                     "--format=csv"], check=False, timeout=60)
 

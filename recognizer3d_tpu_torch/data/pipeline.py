@@ -187,6 +187,14 @@ class SampleDraws:
     dup_pos: torch.Tensor  # (B, n_points) int64 in [0, n_real)
     augmentation: Optional[AugmentationDraws] = None
 
+    def rows(self, rows: slice) -> "SampleDraws":
+        """The draws of the clouds ``rows`` only (a rank's block of a batch:
+        each cloud's draws are its own)."""
+        aug = self.augmentation
+        return SampleDraws(self.uniform[rows], self.dup_pos[rows], None if aug is None else
+                           AugmentationDraws(aug.jitter[rows], aug.scale[rows],
+                                             aug.angles[rows], aug.shift[rows]))
+
 
 class DeviceDatasetCache:
     """A training set on the device, with each batch assembled there.
@@ -272,10 +280,20 @@ class DeviceDatasetCache:
         """:meth:`assemble` under fresh draws from ``generator``."""
         return self.assemble(sample_ids, self.draw(sample_ids, generator))
 
-    def epoch_batches(self, batch_size: int, generator: Optional[torch.Generator] = None
+    def epoch_batches(self, batch_size: int, generator: Optional[torch.Generator] = None,
+                      block: Tuple[int, int] = (0, 1), drop_remainder: bool = False
                       ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-        """Shuffled batches covering the dataset once, the remainder batch
-        included; the shuffle is drawn on the device."""
+        """Shuffled batches covering the dataset once, the shuffle drawn on
+        the device; the remainder batch included unless ``drop_remainder``.
+        With ``block`` (i, D), block i of D equal blocks of each batch's
+        clouds, drawn as the whole batch is drawn (a rank's block of a
+        data-parallel batch: each cloud's draws are its own)."""
+        stop = self.n_samples - self.n_samples % batch_size if drop_remainder else self.n_samples
+        if drop_remainder and not stop:
+            raise ValueError(f"{self.n_samples} samples make no full batch of {batch_size}")
+        i, d = block
         order = torch.randperm(self.n_samples, generator=generator, device=self.device)
-        for start in range(0, self.n_samples, batch_size):
-            yield self.sample_batch(order[start : start + batch_size], generator)
+        for start in range(0, stop, batch_size):
+            ids = order[start : start + batch_size]
+            rows = slice(i * len(ids) // d, (i + 1) * len(ids) // d)
+            yield self.assemble(ids[rows], self.draw(ids, generator).rows(rows))

@@ -451,10 +451,13 @@ class Model:
         log_dir: Optional[Path] = None,
         class_names: Optional[List[str]] = None,
         callbacks: List[Callable[[int, Dict[str, float]], None]] = [],
+        pool=None,
     ):
         """Train this model in place; it ends with the best (``val_mIoU``)
         weights, in eval mode. Returns the Trainer (its ``history``: steps, times and metrics of
-        each epoch)."""
+        each epoch). With ``training_settings.data_parallel_devices`` N > 1
+        the steps run over N ranks, or over the ranks of ``pool`` (a
+        ``parallel.mesh.RankPool`` whose rank 0 is on this model's device)."""
         from recognizer3d_tpu_torch.training.settings import TrainingSettings
         from recognizer3d_tpu_torch.training.trainer import Trainer
 
@@ -479,7 +482,7 @@ class Model:
             shuffle=False, consistent_sampling=True,
         )
         trainer = Trainer(train_dataloader, validation_dataloader, log_dir, class_names)
-        trainer.train(self, training_settings, callbacks=callbacks)
+        trainer.train(self, training_settings, callbacks=callbacks, pool=pool)
         return trainer
 
     def evaluate(

@@ -63,6 +63,7 @@ from recognizer3d_tpu_torch.ops.morton import (
     morton_order,
     sort_rows,
 )
+from recognizer3d_tpu_torch.parallel import collectives
 
 _BN_EPS = 1e-6
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,7 +136,17 @@ class BatchNorm(nn.Module):
     the upcast input too (flax's ``force_float32_reductions``), here reduced
     in float64 and rounded, with ``rsqrt(var + eps)``. flax upcasts the
     input twice, once for the statistics and once where the normalisation
-    promotes it, so the backward sums two bfloat16 cotangents: here too."""
+    promotes it, so the backward sums two bfloat16 cotangents: here too.
+
+    Inside ``parallel/collectives.whole_batch()`` (data-parallel or
+    point-sharded training; the default is the tensor in hand) train mode
+    takes the statistics of the whole batch, as flax's BatchNorm does under
+    a JAX mesh: each rank's Σx and Σx² over its block (every rank's block
+    the same size) are summed over the ranks in one exchange, in the dtype of the one-rank reduction
+    (float64 for a bfloat16 input), and the backward carries the
+    cross-rank terms of the mean and the variance
+    (``parallel/collectives.py``). The running statistics are then the
+    same on every rank."""
 
     momentum = 0.01
 
@@ -162,14 +173,23 @@ class BatchNorm(nn.Module):
         # the device's summation order
         exact = torch.float64 if x.dtype == torch.bfloat16 else wide
         xs = x.to(exact)
-        mean = xs.mean(axes)
-        var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+        ranks = collectives.batch_ranks()
+        if ranks == 1:
+            mean = xs.mean(axes)
+            var = torch.clamp((xs * xs).mean(axes) - mean * mean, min=0.0)
+        else:
+            n = xs.numel() // xs.shape[-1] * ranks
+            s1, s2 = collectives.replicated_sum(xs.sum(axes), (xs * xs).sum(axes))
+            mean = s1 / n
+            var = torch.clamp(s2 / n - mean * mean, min=0.0)
         mean, var = mean.to(wide), var.to(wide)
         inv = torch.rsqrt((var + self.eps).to(exact)).to(wide)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        if ranks > 1:
+            mean, inv = collectives.to_ranks(mean, inv)
         return ((x.to(wide) - mean) * (inv * self.weight) + self.bias).to(x.dtype)
 
     def eval_affine(self):
@@ -434,8 +454,8 @@ class RandLANet(nn.Module):
     float64 but for the geometry and the neighbour search, which stay
     float32: the reference a float32 step is held against.
 
-    With a ``backend`` (``parallel/sp_model.SPBackend``) the eval forward
-    runs point-sharded (:meth:`_forward_sharded`)."""
+    With a ``backend`` (``parallel/sp_model.SPBackend``) the forward runs
+    point-sharded (:meth:`_forward_sharded`), in eval or train mode."""
 
     dropout_rate = 0.5
 
@@ -479,7 +499,7 @@ class RandLANet(nn.Module):
     def forward(self, inputs: torch.Tensor, permutation: Optional[torch.Tensor],
                 dropout_mask: Optional[torch.Tensor] = None, backend=None) -> torch.Tensor:
         if backend is not None:
-            return self._forward_sharded(inputs, backend)
+            return self._forward_sharded(inputs, backend, dropout_mask)
         s = self.settings
         B, N, dim = inputs.shape
         assert dim == 3 + s.n_features, "Input should have shape (B, N, 3 + F)!"
@@ -529,29 +549,38 @@ class RandLANet(nn.Module):
         # back to the original point order: inv_0 ∘ permutation⁻¹ in one gather
         feats = sort_rows(feats, invs[0][:, invert_permutation(permutation)])
 
-        feats = self.fc_end_0(feats)
-        feats = self.fc_end_1(feats)
-        if self.training:
-            if dropout_mask is None:
-                dropout_mask = torch.rand(feats.shape, device=feats.device) < 1.0 - self.dropout_rate
-            feats = torch.where(dropout_mask, feats / (1.0 - self.dropout_rate),
-                                torch.zeros_like(feats))
+        feats = self._dropout(self.fc_end_1(self.fc_end_0(feats)), dropout_mask)
         feats = self.fc_end_2(feats)
         # (B, C, N), float32 at least (a float64 module keeps float64)
         return feats.transpose(-1, -2).to(torch.promote_types(feats.dtype, torch.float32))
 
-    def _forward_sharded(self, inputs: torch.Tensor, backend) -> torch.Tensor:
-        """The eval forward over a point-sharded cloud (JAX's ``backend=``
+    def _dropout(self, feats: torch.Tensor, dropout_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Train mode: flax's ``Dropout(0.5)`` with the keep mask given (or
+        drawn from torch's global generator); eval mode: the identity."""
+        if not self.training:
+            return feats
+        if dropout_mask is None:
+            dropout_mask = torch.rand(feats.shape, device=feats.device) < 1.0 - self.dropout_rate
+        return torch.where(dropout_mask, feats / (1.0 - self.dropout_rate),
+                           torch.zeros_like(feats))
+
+    def _forward_sharded(self, inputs: torch.Tensor, backend,
+                         dropout_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The forward over a point-sharded cloud (JAX's ``backend=``
         branch): ``inputs`` (B, N/D, 3+F) is this rank's block of the cloud
         already in its random-sampling permutation (the caller permutes on
         the host: JAX's in-model permutation and its inverse are
         all-to-alls), and the logits (B, C, N/D) keep that order. Levels
         stay in permuted order, with no Morton sorts (the ring search is
         order-agnostic); each decimation prefix is rebalanced onto the
-        block layout; each decoder upsample is a ring 1-NN pass."""
-        if self.training:
-            raise NotImplementedError("point-sharded training is ROADMAP A9b; this forward "
-                                      "is eval only")
+        block layout; each decoder upsample is a ring 1-NN pass.
+
+        Train mode runs inside ``parallel/collectives.whole_batch()``: there
+        BatchNorm takes the statistics of every point of every rank, and
+        ``dropout_mask`` is this rank's block of the keep mask in the same
+        permuted order (the rows of the one-device mask at the
+        caller's permutation); the caller permutes the labels likewise (the
+        losses and metrics are sums over points, in any order)."""
         s = self.settings
         B, n_loc, dim = inputs.shape
         N = n_loc * backend.n_shards
@@ -559,6 +588,10 @@ class RandLANet(nn.Module):
         assert N >= s.min_n_points, (
             f"Input point cloud should have at least {s.min_n_points} points!"
         )
+        if self.training and backend.n_shards > 1 and collectives.batch_ranks() == 1:
+            raise ValueError("the point-sharded train forward runs inside "
+                             "parallel.collectives.whole_batch(), so that BatchNorm takes the "
+                             "statistics of every rank's points")
         level_sizes = [N // s.decimation**i for i in range(s.n_layers + 1)]
         backend.check_level_sizes(level_sizes)
         xyz_levels = [inputs[..., :3].float()]
@@ -576,5 +609,6 @@ class RandLANet(nn.Module):
             _, _, up = backend.knn_gather(xyz_levels[level], xyz_levels[level - 1], feats, 1)
             feats = torch.cat([up[:, :, 0, :], skip_stack.pop()], dim=-1)
             feats = getattr(self, f"decoder_{i}")(feats)
-        feats = self.fc_end_2(self.fc_end_1(self.fc_end_0(feats)))
+        feats = self._dropout(self.fc_end_1(self.fc_end_0(feats)), dropout_mask)
+        feats = self.fc_end_2(feats)
         return feats.transpose(-1, -2).to(torch.promote_types(feats.dtype, torch.float32))

@@ -39,6 +39,7 @@ import shutil
 import tempfile
 import traceback
 from contextlib import contextmanager
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -145,19 +146,52 @@ def exchange(
     return [box.to(dev, non_blocking=True).view(dtype).view(shape) for box, shape, dtype in boxes]
 
 
-def rotate(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The ring step (``lax.ppermute`` to rank + 1): send ``tensors`` to
-    the next rank and return the previous rank's. The identity on one
-    rank (gloo refuses a send to self)."""
+@dataclass(frozen=True)
+class Ring:
+    """The ranks of one point axis: ``size`` consecutive ranks from rank
+    ``base``. The whole group is one ring; on a (dp, sp) grid of ranks
+    (rank = row · sp + column, as a JAX mesh of axes ("batch", "points")
+    numbers its devices) each row is a ring of its own."""
+
+    size: int
+    base: int = 0
+
+    @property
+    def position(self) -> int:
+        """This rank's place on the ring."""
+        return rank() - self.base
+
+    def peer(self, position: int) -> int:
+        """The rank at ``position`` (taken modulo the size) on the ring."""
+        return self.base + position % self.size
+
+
+def ring(batch_shards: int = 1) -> Ring:
+    """This rank's ring when the group forms a grid of ``batch_shards``
+    rows (1: the whole group)."""
     d = world()
-    if d == 1:
+    if batch_shards < 1 or d % batch_shards:
+        raise ValueError(f"{d} ranks do not form {batch_shards} rows")
+    size = d // batch_shards
+    return Ring(size, rank() - rank() % size)
+
+
+def rotate(tensors: Sequence[torch.Tensor], on: Optional[Ring] = None) -> List[torch.Tensor]:
+    """The ring step (``lax.ppermute`` to position + 1): send ``tensors`` to
+    the next rank of the ring ``on`` (default: the whole group) and return
+    the previous one's. The identity on a ring of one (gloo refuses a send
+    to self)."""
+    on = ring() if on is None else on
+    if on.size == 1:
         return list(tensors)
-    me = rank()
-    return exchange(
-        [(t, (me + 1) % d) for t in tensors],
-        [(tuple(t.shape), t.dtype, (me - 1) % d) for t in tensors],
-        tensors[0].device,
-    )
+    me = on.position
+    # a range the profiler reads (profile_port.py): the ring's share of a call
+    with torch.profiler.record_function("r3d.rotate"):
+        return exchange(
+            [(t, on.peer(me + 1)) for t in tensors],
+            [(tuple(t.shape), t.dtype, on.peer(me - 1)) for t in tensors],
+            tensors[0].device,
+        )
 
 
 def replicate(obj=None):
@@ -170,29 +204,48 @@ def replicate(obj=None):
     return box[0]
 
 
-def scatter_blocks(full: Optional[torch.Tensor], axis: int, shape, dtype) -> torch.Tensor:
+def block_of(full: torch.Tensor, r: int, axis: int, batch_shards: int = 1) -> torch.Tensor:
+    """Rank ``r``'s block of ``full``, a view: block sharding along ``axis``
+    over the group's ranks (as ``P("data")`` or ``P(None, "points")``). On
+    a grid of ``batch_shards`` rows (``P("batch", "points")``; rank = row ·
+    columns + column, as :func:`ring` numbers them), its row's block of axis
+    0 and its column's block of ``axis``."""
+    columns = world() // batch_shards
+    rows = full.chunk(batch_shards, dim=0)[r // columns] if batch_shards > 1 else full
+    return rows.chunk(columns, dim=axis)[r % columns]
+
+
+def scatter_blocks(full: Optional[torch.Tensor], axis: int, shape, dtype,
+                   batch_shards: int = 1) -> torch.Tensor:
     """Rank 0's host tensor ``full`` of ``shape`` and ``dtype`` (which every
     rank passes) cut into ``world()`` equal blocks along ``axis`` (block
     sharding, as ``P("data")`` or ``P(None, "points")``); returns this
-    rank's block, on the host."""
+    rank's block, on the host. With ``batch_shards`` > 1 the ranks form that
+    many rows (``P("batch", "points")``): rank r takes row r // (D /
+    batch_shards)'s block of axis 0 and its column's block of ``axis``."""
     d, me = world(), rank()
     if d == 1:
         return full
     shape = list(shape)
-    if shape[axis] % d:
-        raise ValueError(f"axis {axis} of {tuple(shape)} does not split over {d} ranks")
-    shape[axis] //= d
+    sp = d // batch_shards
+    if shape[axis] % sp or shape[0] % batch_shards:
+        raise ValueError(f"{tuple(shape)} does not split over {batch_shards} x {sp} ranks "
+                         f"(axes 0 and {axis})")
+    shape[axis] //= sp
+    if batch_shards > 1:
+        shape[0] //= batch_shards
     cpu = torch.device("cpu")
     if me == 0:
-        blocks = full.chunk(d, dim=axis)
-        exchange([(blocks[r], r) for r in range(1, d)], [], cpu)
-        return blocks[0]
+        exchange([(block_of(full, r, axis, batch_shards), r) for r in range(1, d)], [], cpu)
+        return block_of(full, 0, axis, batch_shards)
     return exchange([], [(tuple(shape), dtype, 0)], cpu)[0]
 
 
-def gather_blocks(block: torch.Tensor, axis: int) -> Optional[torch.Tensor]:
+def gather_blocks(block: torch.Tensor, axis: int,
+                  batch_shards: int = 1) -> Optional[torch.Tensor]:
     """The inverse of :func:`scatter_blocks`: every rank's host ``block``
-    (equal shapes) concatenated along ``axis`` on rank 0; None elsewhere."""
+    (equal shapes) joined along ``axis`` (and, on a grid, the rows along
+    axis 0) on rank 0; None elsewhere."""
     d, me = world(), rank()
     if d == 1:
         return block
@@ -200,8 +253,11 @@ def gather_blocks(block: torch.Tensor, axis: int) -> Optional[torch.Tensor]:
     if me != 0:
         exchange([(block, 0)], [], cpu)
         return None
-    parts = exchange([], [(tuple(block.shape), block.dtype, r) for r in range(1, d)], cpu)
-    return torch.cat([block, *parts], dim=axis)
+    parts = [block] + exchange([], [(tuple(block.shape), block.dtype, r)
+                                    for r in range(1, d)], cpu)
+    sp = d // batch_shards
+    rows = [torch.cat(parts[i:i + sp], dim=axis) for i in range(0, d, sp)]
+    return torch.cat(rows, dim=0)
 
 
 # --- per-rank readings --------------------------------------------------------
@@ -339,8 +395,9 @@ class RankPool:
 
     def run(self, fn, *args, root=None, **kwargs) -> List[object]:
         """Call ``fn(*args, **kwargs)`` on every rank and return the results,
-        rank 0's first. ``fn`` must be importable by name (a module-level
-        function of this package: a worker never imports a test module). With
+        rank 0's first. ``fn`` must be importable by name in a worker, which
+        imports its module: a module-level function of this package, or of
+        a helper that imports no more than it does. With
         ``root`` given, rank 0's call also gets ``root=root`` and the workers'
         ``root=None``: data that only rank 0 has, which ``fn`` then sends
         through the group. Workers' results travel pickled: keep them
@@ -438,13 +495,16 @@ class RankPool:
 
 def _shard(x, axis: int):
     if isinstance(x, torch.Tensor) and x.dim() > axis:
-        return x.chunk(world(), dim=axis)[rank()].to(device())
+        return block_of(x, rank(), axis).to(device())
     return x
 
 
 def _to_numpy(out):
+    """Tensors (nested in tuples) as numpy on the host; bfloat16, which numpy
+    lacks, as float32 (exactly)."""
     if isinstance(out, torch.Tensor):
-        return out.cpu().numpy()
+        out = out.cpu()
+        return (out.float() if out.dtype == torch.bfloat16 else out).numpy()
     if isinstance(out, tuple):
         return tuple(_to_numpy(o) for o in out)
     return out

@@ -65,17 +65,19 @@ def _dp_predict(key: str, threshold, root=None):
     return mesh.gather_blocks(out, axis=0)
 
 
-def _sp_confidences(key: str, root=None):
-    """One permuted cloud on every rank: each rank runs the point-sharded
-    forward on its block, and rank 0 gets the confidences (B, C, N), in the
+def _sp_confidences(key: str, batch_shards: int = 1, root=None):
+    """Permuted clouds (B, N, 3+F) on every rank: each rank runs the
+    point-sharded forward on its block (on a grid of ``batch_shards`` rows,
+    its row's clouds), and rank 0 gets the confidences (B, C, N), in the
     permuted order."""
     model = mesh.local()[key]
     shape, dtype = mesh.replicate(None if root is None else (tuple(root.shape), root.dtype))
-    block = mesh.scatter_blocks(root, 1, shape, dtype)
+    block = mesh.scatter_blocks(root, 1, shape, dtype, batch_shards)
     with torch.inference_mode():
-        logits = model.module(block.to(model.device), None, backend=SPBackend())
+        logits = model.module(block.to(model.device), None,
+                              backend=SPBackend(batch_shards=batch_shards))
         conf = torch.softmax(logits, dim=-2).cpu()
-    return mesh.gather_blocks(conf, axis=2)
+    return mesh.gather_blocks(conf, 2, batch_shards)
 
 
 class _RankServing:
@@ -193,11 +195,20 @@ class SPServing(_RankServing):
         padded, n = pad_for_sharding(cloud, self._model.settings, self.n_shards,
                                      n_target=_bucket(cloud.shape[0]), rng=self._rng)
         permutation = self._rng.permutation(padded.shape[0])
-        x = torch.from_numpy(np.ascontiguousarray(padded[permutation][None], np.float32))
-        conf_perm = self.pool.run(_sp_confidences, self._key, root=x)[0][0].numpy()
+        conf_perm = self.confidences_permuted(padded[permutation][None])[0]
         conf = np.empty_like(conf_perm)
         conf[:, permutation] = conf_perm
         return conf[:, :n]
+
+    def confidences_permuted(self, clouds: np.ndarray, batch_shards: int = 1) -> np.ndarray:
+        """The point-sharded forward of clouds (B, N, 3+F) already in their
+        random-sampling permutation, N a multiple of the granule: (B, C, N)
+        confidences in that order. With ``batch_shards`` > 1 the ranks form
+        the DP×SP grid (JAX's ``SPBackend(batch_axis=...)``): that many rows,
+        each taking its block of the clouds, each row's ranks a ring over
+        the points."""
+        x = torch.from_numpy(np.ascontiguousarray(clouds, np.float32))
+        return self.pool.run(_sp_confidences, self._key, batch_shards, root=x)[0].numpy()
 
     def predict(self, xyz: np.ndarray) -> np.ndarray:
         """(C, N) or (B, C, N) full-resolution per-class confidences."""

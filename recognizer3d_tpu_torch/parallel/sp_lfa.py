@@ -7,7 +7,9 @@ the rest of it is pointwise or a reduction over a point's K neighbours, so
 it runs on each rank's block. The JAX function restates the block's math
 over its flax variables; here the block's own backend branch
 (``LocalFeatureAggregation.forward(..., backend=...)``) runs with its
-weights, so the two cannot drift apart. Eval only, as in JAX.
+weights, so the two cannot drift apart. Eval only, as in JAX: the
+point-sharded train step runs the whole model (``RandLANet(...,
+backend=SPBackend())`` in train mode).
 """
 
 import torch
@@ -25,5 +27,6 @@ def sp_lfa_eval(block, xyz: torch.Tensor, features: torch.Tensor) -> torch.Tenso
     :return: (B, n_loc, 2·n_out), this rank's block of the output.
     """
     if block.training:
-        raise NotImplementedError("point-sharded training is ROADMAP A9b; put the block in eval()")
+        raise ValueError("sp_lfa_eval runs the eval block; put it in eval() (the point-sharded "
+                         "train step runs the whole RandLANet with backend=SPBackend())")
     return block(xyz, features, backend=SPBackend())

@@ -11,6 +11,14 @@ returns a scalar tensor:
 - ``focal_tversky``  — focal Tversky with alpha 0.7, gamma 4/3
 
 The Tversky variants leave class 0 (the background) out.
+
+Inside ``parallel/collectives.whole_batch()`` (data-parallel or
+point-sharded training) each rank holds its block of the batch, and every
+loss is that of the whole batch, as under a JAX mesh: the per-class sums of
+the Tversky variants and the sums over points of the others are summed over
+the ranks (``collectives.batch_sum``), the divisor is the whole batch's
+B·N (every rank's block the same size), and the loss is the same on every
+rank. Outside it, or on one rank, nothing changes.
 """
 
 from functools import partial
@@ -18,6 +26,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from recognizer3d_tpu_torch.parallel import collectives
 
 EPS = 1e-7
 
@@ -31,7 +41,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     """Mean cross entropy (torch.nn.CrossEntropyLoss semantics)."""
     log_probs = torch.log_softmax(logits, dim=-2)
     picked = torch.gather(log_probs, -2, labels.long()[..., None, :])
-    return -picked.mean()
+    ranks = collectives.batch_ranks()
+    if ranks == 1:
+        return -picked.mean()
+    return -collectives.batch_sum(picked.sum()) / (picked.numel() * ranks)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0) -> torch.Tensor:
@@ -40,7 +53,7 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0) -
     y_pred = torch.softmax(logits, dim=-2).clamp(EPS, 1.0 - EPS)
     focal = -y_true * torch.log(y_pred) * (1.0 - y_pred) ** gamma
     b, _, n = logits.shape
-    return focal.sum() / (b * n)
+    return collectives.batch_sum(focal.sum()) / (b * n * collectives.batch_ranks())
 
 
 def focal_tversky_loss(
@@ -62,6 +75,7 @@ def focal_tversky_loss(
     true_pos = (y_true * y_pred).sum(dim=1)
     false_neg = (y_true * (1.0 - y_pred)).sum(dim=1)
     false_pos = ((1.0 - y_true) * y_pred).sum(dim=1)
+    true_pos, false_neg, false_pos = collectives.batch_sum(true_pos, false_neg, false_pos)
     tversky_index = (true_pos + EPS) / (
         true_pos + alpha * false_neg + (1.0 - alpha) * false_pos + EPS
     )

@@ -17,6 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from recognizer3d_tpu_torch.parallel import collectives
+
 
 def _masks(logits: torch.Tensor, labels: torch.Tensor):
     """(C, 1…) class ids broadcastable against (…, N) predictions."""
@@ -28,6 +30,41 @@ def _masks(logits: torch.Tensor, labels: torch.Tensor):
     return predictions, class_ids
 
 
+def _counts(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The counts behind the metrics, float32 (exact below 2^24): correct
+    points, points, then per class correct points, labelled points,
+    intersection and union, (2 + 4C,)."""
+    predictions, class_ids = _masks(logits, labels)
+    correct = predictions == labels
+    label_mask = labels[None] == class_ids  # (C, ..., N)
+    pred_mask = predictions[None] == class_ids
+    reduce = tuple(range(1, label_mask.dim()))
+    return torch.cat([
+        correct.float().sum()[None],
+        torch.full((1,), float(labels.numel()), device=logits.device),
+        (correct[None] & label_mask).float().sum(reduce),
+        label_mask.float().sum(reduce),
+        (pred_mask & label_mask).float().sum(reduce),
+        (pred_mask | label_mask).float().sum(reduce),
+    ])
+
+
+def _from_counts(counts: torch.Tensor, n_classes: int):
+    """(overall accuracy, per-class accuracies, mIoU, per-class IoUs) of
+    :func:`_counts`."""
+    n_correct_all, n_all, n_correct, n_labels, intersection, union = counts.split(
+        [1, 1] + [n_classes] * 4)
+    per_class_acc = torch.where(
+        n_labels == 0,
+        (n_correct == 0).float(),
+        n_correct / torch.clamp(n_labels, min=1.0),
+    )
+    per_class_iou = torch.where(
+        union == 0, torch.ones_like(union), intersection / torch.clamp(union, min=1.0)
+    )
+    return n_correct_all[0] / n_all[0], per_class_acc, per_class_iou.mean(), per_class_iou
+
+
 def accuracy_array(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Overall and per-class accuracy as tensors.
 
@@ -35,19 +72,7 @@ def accuracy_array(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Te
     :param labels: (..., N) integer class labels.
     :return: (scalar overall accuracy, (C,) per-class accuracies)
     """
-    predictions, class_ids = _masks(logits, labels)
-    correct = predictions == labels
-    overall = correct.float().mean()
-    label_mask = labels[None] == class_ids  # (C, ..., N)
-    reduce = tuple(range(1, label_mask.dim()))
-    n_correct = (correct[None] & label_mask).float().sum(reduce)
-    n_labels = label_mask.float().sum(reduce)
-    per_class = torch.where(
-        n_labels == 0,
-        (n_correct == 0).float(),
-        n_correct / torch.clamp(n_labels, min=1.0),
-    )
-    return overall, per_class
+    return _from_counts(_counts(logits, labels), logits.shape[-2])[:2]
 
 
 def iou_array(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,16 +82,20 @@ def iou_array(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor,
     :param labels: (..., N) integer class labels.
     :return: (scalar mIoU, (C,) per-class IoUs)
     """
-    predictions, class_ids = _masks(logits, labels)
-    label_mask = labels[None] == class_ids
-    pred_mask = predictions[None] == class_ids
-    reduce = tuple(range(1, label_mask.dim()))
-    intersection = (pred_mask & label_mask).float().sum(reduce)
-    union = (pred_mask | label_mask).float().sum(reduce)
-    per_class = torch.where(
-        union == 0, torch.ones_like(union), intersection / torch.clamp(union, min=1.0)
-    )
-    return per_class.mean(), per_class
+    return _from_counts(_counts(logits, labels), logits.shape[-2])[2:]
+
+
+def batch_metric_arrays(logits: torch.Tensor, labels: torch.Tensor):
+    """(overall accuracy, per-class accuracies, mIoU, per-class IoUs) of a
+    step's batch: :func:`accuracy_array` and :func:`iou_array` from one
+    count. Inside ``parallel/collectives.whole_batch()`` each rank holds its
+    block of the batch and these are the whole batch's, the same on every
+    rank: the counts are summed over the ranks (in float64) before the
+    division."""
+    counts = _counts(logits, labels)
+    if collectives.batch_ranks() > 1:
+        counts = collectives.all_reduce_sum(counts.double()).float()
+    return _from_counts(counts, logits.shape[-2])
 
 
 def _metric_dict(prefix: str, loss, oa, macc, miou, per_class_ious, class_names) -> OrderedDict:

@@ -1,9 +1,6 @@
 """Training configuration (counterpart of
 ``recognizer3d_tpu/training/settings.py``): the same dataclass, fields and
 defaults, so a recipe reads the same in both packages.
-
-This package trains on one device: ``data_parallel_devices > 1`` (ROADMAP
-A9b) raises in ``Trainer.train``.
 """
 
 from dataclasses import dataclass
@@ -26,7 +23,8 @@ class TrainingSettings:
     early_stopping: bool = True
     #: Patience for early stopping
     early_stopping_patience: int = 20
-    #: Number of data-parallel devices (only 1 is ported; ROADMAP A9b)
+    #: Number of data-parallel devices: the first N cards, each a rank of
+    #: its own (``Trainer.train``; clamped to gcd(N, batch_size))
     data_parallel_devices: int = 1
     #: Save a training-state checkpoint every N epochs (0: never); needs a log_dir
     checkpoint_every: int = 0

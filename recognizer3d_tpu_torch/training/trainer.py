@@ -42,11 +42,26 @@ it, with that epoch's learning rate. Neither package restores the early
 stopper or the random generators, so a resumed run draws other batches
 than an uninterrupted one.
 
-Not ported: data-parallel training (ROADMAP A9b).
+With ``TrainingSettings.data_parallel_devices`` N > 1 the steps run over
+ranks, as the JAX trainer's steps run over a "data" mesh: the rank count is
+clamped to ``gcd(N, batch_size)`` with JAX's warning (1: one device); the
+ranks are the first of the cards (``parallel/mesh.devices_for``; on a model
+on the CPU, CPU ranks), or the ranks of a ``RankPool`` the caller passes
+(ranks may share a card). Each rank trains on its block of the batch one
+device would train on, with whole-batch BatchNorm, loss and metrics, the
+gradients summed over the ranks and Adam on every rank; batches that do not
+divide over the ranks are dropped (``training/data_parallel.py``). Rank 0 is
+this process: it validates (unsharded, as JAX does), logs, snapshots the
+best weights and checkpoints between epochs while the other ranks wait, and
+at the end checks that every rank holds the same parameters and statistics
+bit for bit. One device is a pool of one rank, this process: every epoch,
+sharded or not, is ``data_parallel.run_epoch``.
 """
 
 import logging
+import math
 import time
+import uuid
 from collections import OrderedDict
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -54,14 +69,15 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from recognizer3d_tpu_torch.parallel import collectives, mesh
 from recognizer3d_tpu_torch.training import checkpoint as ckpt
+from recognizer3d_tpu_torch.training import data_parallel
 from recognizer3d_tpu_torch.training.early_stopper import EarlyStopper
 from recognizer3d_tpu_torch.training.losses import get_loss
 from recognizer3d_tpu_torch.training.metrics import (
     MetricCollector,
     MetricCollectorBag,
-    accuracy_array,
-    iou_array,
+    batch_metric_arrays,
 )
 from recognizer3d_tpu_torch.training.settings import TrainingSettings
 from recognizer3d_tpu_torch.utils.tb import make_summary_writer
@@ -88,22 +104,23 @@ def dropout_mask(generator: torch.Generator, inputs: torch.Tensor) -> torch.Tens
     return torch.rand((b, n, 32), generator=generator, device=inputs.device) < 0.5
 
 
-def train_step(module, optimizer, criterion, inputs, labels, permutation, keep_mask):
-    """One optimisation step: train-mode forward, loss, backward, Adam.
-    The gradients stay in ``.grad`` until the next step. Returns the
-    detached (loss, logits)."""
+def train_step(module, optimizer, criterion, inputs, labels, permutation, keep_mask,
+               backend=None):
+    """One optimisation step: train-mode forward, loss, backward, Adam. With
+    a ``backend`` (``parallel/sp_model.SPBackend``) the forward runs
+    point-sharded. Inside ``parallel/collectives.whole_batch()`` (the steps
+    of ``training/data_parallel.py``) each rank holds its block of the
+    batch, and the parameter gradients are summed over the ranks before
+    Adam, in one exchange. The gradients stay in ``.grad`` until the next
+    step. Returns the detached (loss, logits)."""
     optimizer.zero_grad(set_to_none=True)
-    logits = module(inputs, permutation, keep_mask)
+    logits = module(inputs, permutation, keep_mask, backend=backend)
     loss = criterion(logits, labels)
     loss.backward()
+    if collectives.batch_ranks() > 1:
+        collectives.all_reduce_grads(module.parameters())
     optimizer.step()
     return loss.detach(), logits.detach()
-
-
-def _metrics_arrays(logits, labels):
-    oa, pca = accuracy_array(logits, labels)
-    miou, pciou = iou_array(logits, labels)
-    return oa, pca, miou, pciou
 
 
 def _drain(pending) -> List[tuple]:
@@ -133,16 +150,21 @@ class Trainer:
         self._validation_dataloader = validation_dataloader
         self._log_dir = log_dir
         self._class_names = class_names
-        #: per epoch: {"epoch", "steps", "train_s", "validate_s", "metrics"}
-        #: (host clock; each phase ends in a read of its results; the
-        #: metrics the callbacks get)
+        #: per epoch: {"epoch", "steps", "train_s", "validate_s", "metrics",
+        #: "step_losses"} (host clock; each phase ends in a read of its
+        #: results; the metrics the callbacks get; each step's loss)
         self.history: List[Dict] = []
+        #: after a data-parallel run, each rank's SHA-256 of its parameters
+        #: and running statistics (``data_parallel.digest``), rank 0's first
+        self.rank_digests: List[str] = []
 
     # ------------------------------------------------------------------
 
     def _device_cache(self, device):
-        """The training set on the device, or None where the device pipeline
-        does not apply (normalized clouds, extra point features)."""
+        """The training set on the device and what it was built from
+        (dataset, n_points, augmentation settings), or (None, None) where
+        the device pipeline does not apply (normalized clouds, extra point
+        features)."""
         from recognizer3d_tpu_torch.data.pipeline import DeviceDatasetCache
 
         preproc = self._train_dataloader.dataset
@@ -151,46 +173,65 @@ class Trainer:
                 "device_pipeline requested but the loader uses normalization="
                 f"{preproc._normalization!r}; using the host loader."
             )
-            return None
+            return None, None
         if preproc._dataset[0][1].shape[1] != 0:
             logger.warning(
                 "device_pipeline requested but the dataset has extra point "
                 "features; using the host loader."
             )
-            return None
+            return None, None
         t0 = time.monotonic()
-        cache = DeviceDatasetCache(
-            preproc._dataset, preproc._n_sample_points,
-            augmentation_settings=preproc._augmentation_settings, device=device,
-        )
+        spec = ([preproc._dataset[i] for i in range(len(preproc._dataset))],
+                preproc._n_sample_points, preproc._augmentation_settings)
+        cache = DeviceDatasetCache(spec[0], spec[1], augmentation_settings=spec[2],
+                                   device=device)
         logger.info(f"device pipeline: dataset on {device} in {time.monotonic() - t0:.1f}s")
-        return cache
+        return cache, spec
 
-    def _batches(self, device_cache, settings, generator, device):
-        """(inputs, labels, permutation) per step of one epoch."""
-        if device_cache is not None:
-            for inputs, labels in device_cache.epoch_batches(settings.batch_size, generator):
-                perm = torch.randperm(inputs.shape[1], generator=generator, device=device)
-                yield inputs, labels, perm
-            return
-        for inputs, labels, _ in self._train_dataloader:
-            permutation = np.random.permutation(inputs.shape[1])
-            yield (
-                torch.from_numpy(inputs).to(device),
-                torch.from_numpy(labels).to(device),
-                torch.from_numpy(permutation).to(device),
+    def _ranks(self, model, settings: TrainingSettings, pool):
+        """The pool of ranks the steps run on and whether this trainer
+        started it: the JAX trainer's ``gcd(data_parallel_devices,
+        batch_size)`` clamp, with its warning; a given ``pool`` must hold
+        exactly the clamped count. Where the clamp leaves one device, a pool
+        of one rank: this process, on the model's device."""
+        requested = settings.data_parallel_devices if pool is None else pool.n_ranks
+        if pool is not None and settings.data_parallel_devices not in (1, requested):
+            raise ValueError(f"data_parallel_devices {settings.data_parallel_devices} with a "
+                             f"pool of {requested} ranks")
+        n_dp = math.gcd(requested, settings.batch_size)
+        if n_dp != requested:
+            logger.warning(
+                f"batch_size {settings.batch_size} is not divisible by "
+                f"data_parallel_devices {requested}; "
+                + (f"using a {n_dp}-device data-parallel mesh instead." if n_dp > 1
+                   else "running without data-parallel sharding.")
             )
+        if n_dp == 1:
+            return mesh.RankPool([model.device]), True
+        if pool is not None:
+            if n_dp != pool.n_ranks:
+                raise ValueError(f"a pool of {pool.n_ranks} ranks cannot train on {n_dp}")
+            if mesh.normalize_device(pool.devices[0]) != mesh.normalize_device(model.device):
+                raise ValueError(f"rank 0 trains the model on {model.device}; the pool's "
+                                 f"ranks start with {pool.devices[0]}")
+            return pool, False
+        devices = mesh.devices_for(n_dp, torch.device(model.device).type)
+        if mesh.normalize_device(devices[0]) != mesh.normalize_device(model.device):
+            raise ValueError(f"data-parallel ranks run on {devices}; the model is on "
+                             f"{model.device}")
+        return mesh.RankPool(devices), True
 
     def train(
         self,
         model,
         settings: TrainingSettings,
         callbacks: List[Callable[[int, Dict[str, float]], None]] = [],
+        pool: Optional[mesh.RankPool] = None,
     ):
         """Train the given facade Model in place; returns it with the best
-        (``val_mIoU``) weights loaded."""
-        if settings.data_parallel_devices > 1:
-            raise NotImplementedError("data-parallel training is not ported yet (ROADMAP A9b)")
+        (``val_mIoU``) weights loaded. ``pool``: the data-parallel ranks to
+        train on (rank 0 on the model's device), in place of the first
+        ``data_parallel_devices`` cards; the caller closes it."""
         module = model.module
         device = model.device
         criterion = get_loss(settings.loss_function)
@@ -205,9 +246,11 @@ class Trainer:
 
         # the JAX trainer's first draw from the global numpy RNG seeds its
         # host generator; here it seeds the device generator
+        seed = int(np.random.randint(0, 2**31 - 1))
         generator = torch.Generator(device=device)
-        generator.manual_seed(int(np.random.randint(0, 2**31 - 1)))
-        device_cache = self._device_cache(device) if settings.device_pipeline else None
+        generator.manual_seed(seed)
+        device_cache, cache_spec = (self._device_cache(device) if settings.device_pipeline
+                                    else (None, None))
 
         ckpt_dir, start_epoch, step_counter = None, 1, 0
         if self._log_dir is not None and (settings.checkpoint_every > 0 or settings.resume):
@@ -220,25 +263,28 @@ class Trainer:
                 start_epoch = epoch + 1
                 logger.info(f"Resumed from checkpoint epoch {latest} in {ckpt_dir}")
 
+        ranks, owns_pool = None, False
+        key = f"trainer-{uuid.uuid4().hex}"
         try:
+            ranks, owns_pool = self._ranks(model, settings, pool)
+            spec = None  # what the workers build their replicas from
+            if ranks.n_ranks > 1:
+                logger.info(f"data-parallel training on {ranks.n_ranks} ranks: "
+                            f"{[str(d) for d in ranks.devices]}")
+                spec = data_parallel.payload(model, settings.loss_function, optimizer, seed,
+                                             cache_spec, settings.batch_size)
+            ranks.run(data_parallel.adopt, key, spec, root=data_parallel.RankTrainer(
+                module, optimizer, criterion, generator, device_cache, settings.batch_size))
+            spec = cache_spec = None  # the host copies of the training set
             for epoch in range(start_epoch, settings.epochs + 1):
                 t_epoch = time.monotonic()
                 lr = step_lr(settings, epoch)
-                for group in optimizer.param_groups:
-                    group["lr"] = lr
-                module.train()
-                pending = []
-                for inputs, labels, permutation in self._batches(
-                    device_cache, settings, generator, device
-                ):
-                    loss, logits = train_step(
-                        module, optimizer, criterion, inputs, labels, permutation,
-                        dropout_mask(generator, inputs),
-                    )
-                    pending.append((loss,) + _metrics_arrays(logits, labels))
+                loader = self._train_dataloader if device_cache is None else None
+                pending = ranks.run(data_parallel.run_epoch, key, lr, root=loader)[0]
                 step_counter += len(pending)
                 train_metrics = MetricCollector(self._class_names)
-                for row in _drain(pending):  # one read per epoch
+                rows = _drain(pending)  # one read per epoch
+                for row in rows:
                     train_metrics.push(*row)
                 t_train = time.monotonic()
 
@@ -253,7 +299,8 @@ class Trainer:
                 metrics.update(validation_metrics.as_dict("val"))
                 self.history.append(dict(epoch=epoch, steps=len(pending),
                                          train_s=t_train - t_epoch,
-                                         validate_s=t_done - t_train, metrics=metrics))
+                                         validate_s=t_done - t_train, metrics=metrics,
+                                         step_losses=[float(row[0]) for row in rows]))
                 continue_training = early_stopper.check(metrics, module.state_dict())
                 self._log(epoch, settings.epochs, lr, train_metrics.as_dict(),
                           validation_metrics.as_dict(include_stdev=True), writer)
@@ -266,10 +313,20 @@ class Trainer:
                     )
                 if not continue_training:
                     break
+            if ranks.n_ranks > 1:
+                self.rank_digests = ranks.run(data_parallel.digest, key)
+                if len(set(self.rank_digests)) != 1:
+                    raise RuntimeError(f"the ranks' parameters and statistics differ after "
+                                       f"training: {self.rank_digests}")
         finally:
             module.eval()
             if writer is not None:
                 writer.close()
+            mesh.forget(key)  # rank 0's replica: the caller's own objects
+            if owns_pool:
+                ranks.close()
+            elif ranks is not None and not ranks.closed:
+                ranks.run(mesh.forget, key)
         best = early_stopper.best_state
         if best is None:
             logger.warning("Model did not improve during training!")
@@ -381,7 +438,7 @@ class Trainer:
                         for si in range(n_evaluations):
                             logits = module(inputs, perms[si])
                             pending[si].append(
-                                (criterion(logits, labels),) + _metrics_arrays(logits, labels)
+                                (criterion(logits, labels),) + batch_metric_arrays(logits, labels)
                             )
                 else:
                     rnd_state = np.random.get_state()
@@ -393,7 +450,7 @@ class Trainer:
                             labels_d = torch.from_numpy(labels).to(device)
                             logits = module(inputs_d, torch.from_numpy(permutation).to(device))
                             loss = criterion(logits, labels_d)
-                            metrics = _metrics_arrays(logits, labels_d)
+                            metrics = batch_metric_arrays(logits, labels_d)
                             if postprocess:
                                 raw_inputs, raw_labels, _ = data_loader.dataset.__getitem__(
                                     int(indices[0]), preprocess=False
@@ -401,7 +458,7 @@ class Trainer:
                                 confidences = model.upsample(
                                     logits, inputs[:, :, :3], raw_inputs[None, :, :3]
                                 )
-                                metrics = _metrics_arrays(
+                                metrics = batch_metric_arrays(
                                     torch.from_numpy(confidences[0]).to(device),
                                     torch.from_numpy(raw_labels.astype(np.int64)).to(device),
                                 )

@@ -110,7 +110,7 @@ def test_sp_lfa_block_matches_jax(pool, jax_mesh):
     assert got.shape == (1, 256, 32)
     np.testing.assert_allclose(got, np.asarray(ref), rtol=RTOL, atol=ATOL)
     port.train()
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="eval"):
         sp_lfa.sp_lfa_eval(port, torch.from_numpy(xyz), torch.from_numpy(feats))
 
 
@@ -150,16 +150,6 @@ def test_sp_forward_matches_jax_and_the_single_device_forward(pool, jax_mesh, mo
     np.testing.assert_allclose(got, single, rtol=0, atol=ATOL)
     blocks = pool.run(sp_model.SPBackend().shard_inputs, torch.from_numpy(inputs))
     assert torch.equal(torch.cat(blocks, dim=1), torch.from_numpy(inputs))
-
-
-def test_sp_forward_is_eval_only(model_pair):
-    _, port, inputs, _ = model_pair
-    port.train()
-    try:
-        with pytest.raises(NotImplementedError, match="A9b"):
-            port(torch.from_numpy(inputs), None, backend=sp_model.SPBackend())
-    finally:
-        port.eval()
 
 
 def test_sp_serving_matches_jax(pool, model_pair):

@@ -174,15 +174,6 @@ def test_two_epoch_train_on_cpu(tmp_path, monkeypatch, device_pipeline):
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("field,value", [("data_parallel_devices", 2)])
-def test_trainer_refuses_what_is_not_ported(field, value):
-    model = Model(RandLANetSettings(**SMALL), device="cpu")
-    settings = TrainingSettings(epochs=1, **{field: value})
-    dl = get_data_loader(_clouds(0, 2), 256, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        Trainer(dl, dl).train(model, settings)
-
-
 def test_run_training_recipe_on_cpu(tmp_path, monkeypatch):
     """The port's ``train.run_training`` end to end on the CPU, at the small
     config in place of the app's: two dataset directories with broadened
