@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    registers, shared memory and spills for the culled exact KNN kernel
    (B1) and its box pass, the window kernel (B6), the 1-NN kernel and its
    ordering kernel (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5),
-   the bfloat16 forms of B2, B3 and B5 and the bitonic stage kernel (B7),
-   and the count of HMMA (tensor-core) instructions in the SASS of each
+   the bfloat16 forms of B2, B3 and B5, the bitonic stage kernel (B7)
+   and the four kernels of the selection (B8), and the count of HMMA (tensor-core) instructions in the SASS of each
    compiled bfloat16 LFA kernel, which fails the run where it is 0;
 3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
    frames of 60,000 points with every launch count set to 0 just before
@@ -51,9 +51,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. the live depth path: ``LivePredictor(Model.load(pretrained/mock_fingertip))``
    at the L515's 1024×768 intrinsics and 16,384 display points answers
    z16 depth frames made from 60,000-point mock frames, launch counts
-   checked per frame as in 3, frame p50 printed. On one frame the card is
-   held against the CPU port given the same uniform draw and permutation:
-   selected indices equal, the float32 cloud within one ulp, packed xyz
+   checked per frame as in 3 (the z-band selection on B8 once a frame),
+   frame p50 printed. On one frame the card is held against the CPU port
+   given the same uniform draw and permutation: selected indices equal (B8
+   on the card, its plain version, the stable sort, on the CPU), the float32 cloud within one ulp, packed xyz
    within one float16 ulp, masks equal away from the threshold;
 5b. the app entry point, ``recognizer3d_tpu_torch.app.App``, under the
    repository's tkinter and vispy stubs (``tests/_tk_stub.py``,
@@ -138,8 +139,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``bin/make_mock_data``'s ``make_frame``) written under ``build/``, and
    the port's ``run_training`` at the app config on the card for 2 epochs
    (the app's augmentation, batches assembled on the card), with the
-   launch counts set to 0 before it: B1 4 a train step, B1 4, B2 2 and B3 2
-   a validation forward, summed over its steps and forwards. Every loss
+   launch counts set to 0 before it: B1 4 and B8 1 (the batch's selection)
+   a train step, B1 4, B2 2 and B3 2 a validation forward, summed over its
+   steps and forwards. Every loss
    finite; every parameter and running statistic moved from the seed-0
    init; the saved archive reloaded on the card answers one frame. Then,
    on the trained weights: the launches of one step and of one validation
@@ -190,7 +192,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 1, the parameters inside JAX's envelope (95% quantile of |Δ| < 1e-4,
    max < 2.1·lr, under 2% beyond 1e-3). On the trained weights, through
    ``training/data_parallel.py``: one step with the launch counts set to 0
-   on every rank before it, each rank's held to PER_STEP and rank 0's
+   on every rank before it, each rank's held to PER_STEP_ASSEMBLED (its
+   block of the batch assembled on the rank: B8 once) and rank 0's
    kernel calls recorded for phase 8; the step's wall over 20 steps at 2
    ranks and at 1, in turns (2, 1, 1, 2); one step in float64 at 2 ranks
    against 1 from the same weights, batch, permutation and mask: both
@@ -240,8 +243,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the CPU models in ``benchmarks/knn_cull.py`` and
    ``benchmarks/argmin_cull.py``), not every pair; the bfloat16 LFA forms'
    bounds take their dots at the tensor cores' bfloat16 rate
-   (``_lfa_bound``). Time the live path's subsample
-   selection (a stable sort) against ``torch.topk``, and the exact k = 32
+   (``_lfa_bound``); B8 bit-equal to its plain version (the stable sort)
+   on the live frame's and a data-parallel step's recorded calls, timed
+   beside ``torch.sort`` (its library call). B8 again on the live shape
+   (786,432 priorities -> 16,384) under a seeded draw and under the same
+   draw rounded to 1/256, and at the train shape (4 x 20,000 -> 2,500, one
+   row of 1,800 valid points), each bit-equal to the plain version and
+   timed beside ``torch.sort`` and ``torch.topk``; and the exact k = 32
    self-KNN of the approx64k frame's Morton-sorted 65,536-point level 0
    (the recall guard's exact fallback) on B1 and on the brute-force
    streaming kernel that B1 replaced, both held against the plain version;
@@ -333,10 +341,11 @@ BF16_MASK_IOU_FLOOR = 0.99
 # the live depth path: the app archive at the L515's default intrinsics, 16,384
 # display points (main.py's LivePredictor), depth frames made from mock frames
 # of 60,000 points; per frame the four encoder self-KNNs, the fused LFA at
-# levels 0 and 1, and the 2,500 -> 16,384 1-NN upsample
+# levels 0 and 1, the 2,500 -> 16,384 1-NN upsample, and B8's selection of the
+# 16,384 display points from the frame's 786,432 pixels
 LIVE_DISPLAY = 16_384
 PER_FRAME_LIVE = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2,
-                  "argmin_1nn": 1}
+                  "argmin_1nn": 1, "select_smallest": 1}
 
 # B7 at the TPU benchmark's shape, and its entry point's launches: five runs
 # (the 1-stage base and S = 1, 5, 15, 45), each an untimed and a timed chain
@@ -458,8 +467,12 @@ TRAIN_POINTS = 20_000
 TRAIN_EPOCHS = 2
 STEP_REPS = 20
 # launches per train step (B1 at each encoder level) and per validation
-# forward (eval mode under inference_mode, as predict)
+# forward (eval mode under inference_mode, as predict); a step whose batch
+# is assembled on the card (DeviceDatasetCache: the trainer's epochs, the
+# data-parallel rank's steps) launches B8 once more, to select the batch's
+# points (the validation batches come from the host loader)
 PER_STEP = {"knn_topk": 4, "knn_topk_boxes": 1}
+PER_STEP_ASSEMBLED = {**PER_STEP, "select_smallest": 1}
 PER_VAL_FORWARD = {"knn_topk": 4, "knn_topk_boxes": 1, "lfa_round1": 2, "lfa_pool2_res": 2}
 # the bfloat16 train path (phase 7c): run_training(compute_dtype="bfloat16")
 # on the same dataset. A step launches what the float32 step launches (the
@@ -474,7 +487,8 @@ CKPT_RUN = ROOT / "build" / "train_ckpt"
 # ragged remainder dropped, 3 on one rank) on DP_TRAIN_DEVICES, two ranks
 # sharing the card, against one rank under one numpy seed; JAX's envelope on
 # the parameters after one step (DP_ENVELOPE_CLOUDS training clouds, one
-# epoch); a step launches PER_STEP on every rank (its block of 2 clouds)
+# epoch); a step launches PER_STEP_ASSEMBLED on every rank (its block of 2
+# clouds, assembled on the rank)
 DP_TRAIN_DEVICES = ["cuda:0"] * 2
 DP_TRAIN_SEED = 11
 DP_ENVELOPE_CLOUDS = 4
@@ -520,7 +534,9 @@ FP32_GRAD_MEDIAN_LIMIT = 5e-4
 # kernels whose registers, shared memory and spills the build report prints
 PTXAS_KERNELS = ("knn_cull_kernel", "knn_box_kernel", "knn_window_kernel", "argmin_cull_kernel",
                  "argmin_order_kernel", "lfa_round1_tile_kernel", "lfa_pool2_tile_kernel",
-                 "lfa_round1_mma_kernel", "lfa_pool2_mma_kernel", "roll_stages_kernel")
+                 "lfa_round1_mma_kernel", "lfa_pool2_mma_kernel", "roll_stages_kernel",
+                 "select_hist_kernel", "select_count_kernel", "select_scatter_kernel",
+                 "select_sort_pass_kernel")
 # the bfloat16 LFA kernels, whose dots run on the tensor cores: every compiled
 # instance must hold HMMA instructions in its SASS
 MMA_KERNELS = ("lfa_round1_mma_kernel", "lfa_pool2_mma_kernel")
@@ -554,6 +570,10 @@ KERNELS = {
                            "recognizer3d_tpu/ops/lfa_pallas.py:221"),
     "lfa_pool2_bf16": ("recognizer3d_tpu_torch/csrc/lfa.cu",
                        "recognizer3d_tpu/ops/lfa_pallas.py:192"),
+    # B8: the n smallest priorities (the TPU's approx_min_k), the live
+    # path's z-band selection and every train batch's on the card
+    "select_smallest": ("recognizer3d_tpu_torch/csrc/select.cu",
+                        "recognizer3d_tpu/data/pipeline.py:115"),
 }
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32
@@ -1367,6 +1387,11 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
             print(f"{label} {name} {shape}: {count} more calls of this shape held, max abs err "
                   f"{err:.3g} (timed on the first)", flush=True)
 
+    # B8: the n smallest priorities of each row, bit-equal to the stable sort
+    for (priority, n_out), _ in calls.get("select_smallest", []):
+        ms, plain, sort_ms, bound = _select_once(torch, priority, n_out, label)
+        results.add("select_smallest", 0.0, ms, plain, bound, sort_ms)
+
 
 def _exact_64k(torch, morton, knn_kernels, cloud):
     """The exact k = 32 self-KNN of a Morton-sorted 65,536-point level (the
@@ -1472,31 +1497,62 @@ def _check_roll_stages(torch, results):
               f"bound: 7 instructions a stage take {seven:.5f} ms", flush=True)
 
 
-def _time_selection(torch, pipeline, depth):
-    """The live path's subsample selection at its shape (786,432 priorities
-    -> 16,384): the port's stable sort, which reproduces the JAX package's
-    off-TPU ``lax.top_k`` (where the TPU runs ``approx_min_k``), against
-    ``torch.topk`` on the same priorities, and the whole ``subsample_order``
-    (band test, priorities, sort); device ms from torch.profiler."""
+def _select_once(torch, priority, n_out, label, reps=20):
+    """B8 on one (priority, n_out): held bit-equal to its plain version (the
+    stable sort), then the device ms of the kernel (its launches and the
+    memset of its scratch), of the plain version, of ``torch.sort``
+    (stable; the library call) and of ``torch.topk``, and the bound: the
+    priorities read once and the int64 indices written once. Returns (ms,
+    plain ms, sort ms, bound)."""
+    from recognizer3d_tpu_torch.ops import select_kernels
+
+    b, n = priority.shape
+    got = select_kernels.select_smallest(priority, n_out)
+    ref = select_kernels.select_smallest_plain(priority, n_out)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise RuntimeError(f"{label} B={b} N={n} n_out={n_out}: {int((got != ref).sum())} "
+                           f"indices differ from the stable sort's")
+    del got, ref
+    ms = _device_ms(torch, lambda: select_kernels.select_smallest(priority, n_out), reps)
+    plain = _device_ms(torch, lambda: select_kernels.select_smallest_plain(priority, n_out), reps)
+    sort_ms = _device_ms(torch, lambda: torch.sort(priority, dim=-1, stable=True), reps)
+    topk_ms = _device_ms(
+        torch, lambda: torch.topk(priority, n_out, dim=-1, largest=False), reps)
+    bound = _bound(4 * b * n + 8 * b * n_out, 0)
+    print(f"{label} select_smallest B={b} N={n} n_out={n_out}: indices equal; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, torch.sort {sort_ms:.4f} ms, torch.topk "
+          f"{topk_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    return ms, plain, sort_ms, bound
+
+
+def _check_selection(torch, pipeline, depth):
+    """B8 at the live and the train shape (``_select_once``): the priorities
+    of a z16 frame (786,432 pixels, +inf outside the z band) -> 16,384 under
+    a seeded draw (``torch.rand`` ties about 18,000 of the values, as JAX's
+    key-3 draw ties 36,000) and under the same draw rounded to 1/256 (every
+    valid value tied: the threshold's ties decide); then 4 rows of
+    TRAIN_POINTS seeded priorities, one with 1,800 valid points (its tail
+    the lowest-indexed +inf), -> 2,500. Also the whole ``subsample_order``
+    (band test, priorities, B8)."""
     intr = pipeline.DepthIntrinsics()
     z = pipeline.depth_to_cloud(torch.from_numpy(depth).cuda(), intr)[None, :, 2].contiguous()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     uniform = torch.rand(z.shape, generator=gen, device="cuda")
     valid = (z > pipeline.Z_MIN) & (z < pipeline.Z_MAX)
-    priority = torch.where(valid, uniform, torch.full_like(uniform, float("inf")))
+    for draw, u in (("seeded", uniform), ("rounded to 1/256", torch.floor(uniform * 256) / 256)):
+        priority = torch.where(valid, u, torch.full_like(u, float("inf")))
+        _select_once(torch, priority, LIVE_DISPLAY,
+                     f"live selection ({draw} draw, {int(valid.sum())} valid)")
     order_ms = _device_ms(
         torch, lambda: pipeline.subsample_order(uniform, z, LIVE_DISPLAY), 20
     )
-    sort_ms = _device_ms(torch, lambda: torch.sort(priority, dim=-1, stable=True), 20)
-    topk_ms = _device_ms(
-        torch, lambda: torch.topk(priority, LIVE_DISPLAY, dim=-1, largest=False), 20
-    )
-    # bound: the float32 priorities read once, the int64 indices written once
-    bound = _bound(4 * z.shape[1] + 8 * LIVE_DISPLAY, 0)
-    print(f"live selection {z.shape[1]} -> {LIVE_DISPLAY} ({int(valid.sum())} valid): "
-          f"subsample_order {order_ms:.4f} ms, of which stable sort {sort_ms:.4f} ms; "
-          f"torch.topk {topk_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
+    print(f"live selection: subsample_order (band test, priorities, B8) {order_ms:.4f} ms",
+          flush=True)
+    priority = torch.rand((4, TRAIN_POINTS), generator=gen, device="cuda")
+    priority[1, 1_800:] = float("inf")
+    _select_once(torch, priority, 2_500, "train selection (a row of 1,800 valid points)")
 
 
 def _live_path(torch, build, Model, pipeline, LivePredictor, make_frame):
@@ -1588,7 +1644,8 @@ def _live_card_vs_cpu(torch, Model, pipeline, LivePredictor, live, intr, depth):
     mask_diff = int((mask_gpu != mask_cpu)[~near].sum())
     if mask_diff:
         raise RuntimeError(f"live: {mask_diff} mask points differ away from the threshold")
-    print(f"live: card vs CPU on one frame: {LIVE_DISPLAY} selected indices equal, "
+    print(f"live: card vs CPU on one frame: {LIVE_DISPLAY} selected indices equal (B8 "
+          f"against its plain version), "
           f"{cloud_diff} of {cloud_cpu.numel()} dewarped coordinates differ (at most one "
           f"ulp), packed xyz {int((xyz_gpu != xyz_cpu).sum())} differ (at most one float16 "
           f"ulp), masks equal ({int(near.sum())} points within 1e-4 of the threshold; "
@@ -2304,8 +2361,9 @@ def _train_path(torch, build, Model, make_frame, compute_dtype="float32"):
     val_forwards = 10 * math.ceil(n_val / training.batch_size)
     steps = sum(h["steps"] for h in trainer.history)
     expected = {
-        name: steps * PER_STEP.get(name, 0) + TRAIN_EPOCHS * val_forwards * count
-        for name, count in per_val.items()
+        name: steps * PER_STEP_ASSEMBLED.get(name, 0)
+        + TRAIN_EPOCHS * val_forwards * per_val.get(name, 0)
+        for name in {**per_val, **PER_STEP_ASSEMBLED}
     }
     if len(trainer.history) != TRAIN_EPOCHS or launches != expected:
         raise RuntimeError(f"{label}: {len(trainer.history)} epochs, launches {launches}, "
@@ -2765,11 +2823,11 @@ def _dp_train_path(torch, build, Model, targets):
             with _Recorder(targets) as rec:
                 pool.run(data_parallel.time_steps, "dp-time-2", 1)
             torch.cuda.synchronize()
-            add(_rank_launches(pool, "dp-train step", PER_STEP))
+            add(_rank_launches(pool, "dp-train step", PER_STEP_ASSEMBLED))
             for name, recorded in rec.calls.items():
-                if len(recorded) != PER_STEP.get(name, 0):
+                if len(recorded) != PER_STEP_ASSEMBLED.get(name, 0):
                     raise RuntimeError(f"dp-train step: rank 0 recorded {len(recorded)} calls of "
-                                       f"{name}, expected {PER_STEP.get(name, 0)}")
+                                       f"{name}, expected {PER_STEP_ASSEMBLED.get(name, 0)}")
             walls = {2: [], 1: []}
             for p in (pool, single, single, pool):
                 walls[p.n_ranks] += p.run(data_parallel.time_steps, f"dp-time-{p.n_ranks}",
@@ -2785,7 +2843,8 @@ def _dp_train_path(torch, build, Model, targets):
                 for key in ("dp-time", "dp-64"):
                     p.run(mesh.forget, f"{key}-{p.n_ranks}")
     print(f"dp-train step (batch 4 x 2500 points, 2 clouds a rank): each rank launched "
-          f"{PER_STEP}; wall ms in turns (2, 1, 1, 2 ranks, {STEP_REPS // 2} steps each, "
+          f"{PER_STEP_ASSEMBLED} (its block of the batch assembled on the card); wall ms in "
+          f"turns (2, 1, 1, 2 ranks, {STEP_REPS // 2} steps each, "
           f"synchronised): 2 ranks p50 {statistics.median(walls[2]):.3f} (min "
           f"{min(walls[2]):.3f}, max {max(walls[2]):.3f}), 1 rank p50 "
           f"{statistics.median(walls[1]):.3f} (min {min(walls[1]):.3f}, max "
@@ -3082,6 +3141,7 @@ def main() -> None:
         (port_knn, "knn_window_topk", "knn_window_topk"),
         (lfa_kernels, "lfa_round1", "lfa_round1"),
         (lfa_kernels, "attentive_pool2_residual", "lfa_pool2_res"),
+        (pipeline, "select_smallest", "select_smallest"),
     ]
     totals, calls_sp = _sp_serve_path(torch, Model, captures, targets)
     for name, count in totals.items():
@@ -3227,7 +3287,7 @@ def main() -> None:
         _check_kernels(torch, calls_bf16["approx64k-bf16"], results, "approx64k-bf16",
                        plain_reps=3)
         _check_roll_stages(torch, results)
-        _time_selection(torch, pipeline, pipeline.cloud_to_depth(
+        _check_selection(torch, pipeline, pipeline.cloud_to_depth(
             make_frame(np.random.RandomState(500), 0.0, FRAME_POINTS)[0],
             pipeline.DepthIntrinsics(),
         ))

@@ -1,7 +1,7 @@
-"""Time B1, B2, B4, B7 and the bfloat16 LFA kernels under launch policies
-other than the built ones.
+"""Time B1, B2, B4, B7, B8 and the bfloat16 LFA kernels under launch
+policies other than the built ones.
 
-    python -m recognizer3d_tpu_torch.benchmarks.launch_ab [B1 B2 B4 B7 bf16]
+    python -m recognizer3d_tpu_torch.benchmarks.launch_ab [B1 B2 B4 B7 B8 bf16]
 
 Needs a card. Each variant is a copy of ``csrc/`` with one line of a
 launcher or one constant changed, built under
@@ -27,6 +27,9 @@ launcher or one constant changed, built under
 * ``roll_e32``, ``roll_e64``: the bitonic stage kernel (B7) with 32, or 64,
   elements a thread at every S (as built: 32 up to S = 15, 64 beyond);
 * ``roll_threads64``: B7 in blocks of 64 threads (as built: 128);
+* ``select_tile512``, ``select_tile2048``: the sort passes of the selection
+  (B8) in tiles of 512, or 2,048, keys a block at every size (as built: 512
+  up to 4,096 selected keys a row, 2,048 above);
 * ``bf16_warps8``, ``bf16_warps4``: the bfloat16 round-1 kernel (B2-bf16)
   and pool 2 alone (B5-bf16) in blocks of 8 warps at h = 8, or of 4 at
   h = 32 (as built: 4 and 8); each warp takes one row at a time, so these
@@ -48,6 +51,9 @@ distances), each timed with its box pass where it has one; B2 runs the
 served levels' shapes (K = 32); B4 the served paths' upsamples
 (``benchmarks/argmin_cull.served_cases``), timed with the ordering launch where there is one; B7 the
 TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45;
+B8 the shapes of ``benchmarks/bench_select.py`` (the live frame's 786,432
+priorities -> 16,384 under a seeded and a rounded draw, 4 x 20,000 ->
+2,500), timed as a whole call (every kernel of it);
 B2-bf16, B3-bf16 and B5-bf16 the bfloat16 paths' shapes (K = 32; h = 8 at
 2,500 and 65,536 rows, h = 32 at 625 and 16,384; F = 8 and 32). Every variant is held
 to the plain version first (B1, B4 and B7 bit for bit, B2 within 1e-5, the
@@ -68,7 +74,9 @@ import torch
 
 from recognizer3d_tpu_torch.benchmarks import argmin_cull
 from recognizer3d_tpu_torch.benchmarks.window_select import _mock_level0
-from recognizer3d_tpu_torch.ops import _build, bitonic_kernels, knn_kernels, lfa_kernels
+from recognizer3d_tpu_torch.benchmarks import bench_select
+from recognizer3d_tpu_torch.ops import (_build, bitonic_kernels, knn_kernels, lfa_kernels,
+                                        select_kernels)
 
 #: variant -> (source file, line as built, line in the variant)
 VARIANTS = {
@@ -95,6 +103,8 @@ VARIANTS = {
     "roll_e64": ("bitonic.cu", "return stages <= ROLL_E32_MAX_STAGES ? 32 : 64;", "return 64;"),
     "roll_threads64": ("bitonic.cu", "constexpr int ROLL_THREADS = 128;",
                        "constexpr int ROLL_THREADS = 64;"),
+    "select_tile512": ("select.cu", "return n_out <= SORT_SMALL ? 2 : 8;", "return 2;"),
+    "select_tile2048": ("select.cu", "return n_out <= SORT_SMALL ? 2 : 8;", "return 8;"),
     "bf16_warps8": ("lfa.cu", "constexpr int BF_WARPS_H8 = 4;", "constexpr int BF_WARPS_H8 = 8;"),
     "bf16_warps4": ("lfa.cu", "constexpr int BF_WARPS_H32 = 8;",
                     "constexpr int BF_WARPS_H32 = 4;"),
@@ -113,6 +123,7 @@ SECTIONS = {
     "B2": ("r1_full_tile",),
     "B4": ("argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256", "nn_threads1024"),
     "B7": ("roll_e32", "roll_e64", "roll_threads64"),
+    "B8": ("select_tile512", "select_tile2048"),
     "bf16": ("bf16_warps8", "bf16_warps4", "bf16_tile8", "bf16_tile16", "bf16_wait_all"),
 }
 
@@ -339,6 +350,23 @@ def main() -> None:
                                "roll_stages_kernel")
 
             _line(f"B7 (512, 128, 1024) S={stages}", b7_variants, timed, 20)
+
+    if "B8" in opts.sections:
+        b8_variants = ("built", *SECTIONS["B8"])
+        for label, priority, n_out in bench_select.cases(dev):
+            ref = select_kernels.select_smallest_plain(priority, n_out)
+            for name in b8_variants:
+                with _using(libs[name]):
+                    if not torch.equal(select_kernels.select_smallest(priority, n_out), ref):
+                        raise RuntimeError(f"B8 {label} on {name}: not equal to the plain version")
+            del ref
+
+            def timed(name, reps, priority=priority, n_out=n_out):
+                with _using(libs[name]):
+                    return _ms(lambda: select_kernels.select_smallest(priority, n_out), reps,
+                               "select_")
+
+            _line(f"B8 {label}", b8_variants, timed, 50)
 
     if "bf16" in opts.sections:
         bf_variants = ("built", *SECTIONS["bf16"])

@@ -21,8 +21,9 @@ Numerics, held against the JAX package in the tests:
 - The selection is exact and stable: the ``n_out`` smallest priorities,
   ties to the lower index, which is what ``lax.top_k(-priority, n_out)``
   returns (the JAX package's branch off the TPU; on the TPU it takes
-  ``lax.approx_min_k``). ``torch.topk`` orders ties otherwise, so the port
-  takes a stable sort.
+  ``lax.approx_min_k``). ``torch.topk`` orders ties otherwise. Both
+  selections here go through ``ops/select_kernels.select_smallest``: a
+  stable sort on the CPU, the selection kernel B8 on the card.
 - The uniform draw is an argument, so a caller can hand both packages the
   same numbers (``jax.random.uniform`` as numpy in the tests, a seeded
   ``torch.Generator`` in ``LivePredictor``).
@@ -49,6 +50,7 @@ from recognizer3d_tpu_torch.data.augmentation import (
     draw_augmentation,
     perturbate_point_cloud_device,
 )
+from recognizer3d_tpu_torch.ops.select_kernels import select_smallest
 
 Z_MIN, Z_MAX = 0.05, 0.6  # the camera's z band in metres
 
@@ -139,8 +141,7 @@ def subsample_order(
     """
     valid = (z > z_min) & (z < z_max)
     priority = torch.where(valid, uniform, torch.full_like(uniform, float("inf")))
-    order = torch.sort(priority, dim=-1, stable=True).indices[..., :n_out]
-    return order, valid
+    return select_smallest(priority, n_out), valid
 
 
 def z_filter_subsample(
@@ -202,7 +203,7 @@ class DeviceDatasetCache:
     The clouds are loaded and zero-padded once into (n_samples, n_max)
     tables; afterwards a batch costs no host work. Per cloud, the
     ``n_points`` valid rows of lowest uniform priority are taken (ties to
-    the lower index: a stable sort, as ``lax.top_k(-priority, n)``); a cloud
+    the lower index, as ``lax.top_k(-priority, n)``: ``select_smallest``); a cloud
     shorter than ``n_points`` fills the rest with random duplicates of its
     selected points; then the optional augmentation runs.
     """
@@ -266,7 +267,7 @@ class DeviceDatasetCache:
         n_valid = self._n_valid[sample_ids]
         valid = self._arange[None, :] < n_valid[:, None]
         priority = torch.where(valid, draws.uniform, torch.full_like(draws.uniform, float("inf")))
-        order = torch.sort(priority, dim=-1, stable=True).indices[:, : self.n_points]
+        order = select_smallest(priority, self.n_points)
         pos = self._arange[None, : self.n_points]
         order = torch.where(pos < n_valid[:, None], order, torch.gather(order, 1, draws.dup_pos))
         pts = torch.gather(self._xyz[sample_ids], 1, order[..., None].expand(-1, -1, 3))

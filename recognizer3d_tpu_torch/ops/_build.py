@@ -202,6 +202,8 @@ _SIGNATURES = {
     "r3d_lfa_pool2_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (x, out, rows, ts, stages, stream)
     "r3d_roll_stages": [_P, _P, _I, _I, _I, _P],
+    # (priority, scratch, order_out, B, N, n_out, stream)
+    "r3d_select_smallest": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -217,6 +219,9 @@ def load(path: Path) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_I, _I]
         fn.restype = ctypes.c_longlong
+    # (B, N, n_out) -> bytes of scratch r3d_select_smallest needs
+    lib.r3d_select_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.r3d_select_scratch_bytes.restype = ctypes.c_longlong
     # window points -> whether r3d_knn_window scans them with the streaming kernel
     lib.r3d_knn_window_streams.argtypes = [_I]
     lib.r3d_knn_window_streams.restype = ctypes.c_int

@@ -32,6 +32,7 @@ points of clouds already permuted (the point-sharded train step,
 """
 
 import hashlib
+import itertools
 import logging
 import time
 from dataclasses import asdict, dataclass
@@ -212,7 +213,8 @@ def run_epoch(key: str, lr: float, root=None) -> Optional[List[tuple]]:
 def time_steps(key: str, n: int) -> List[float]:
     """``n`` steps on every rank from the device pipeline's draws at the
     default learning rate, each timed on the host clock between two
-    synchronisations of this rank's device; returns the walls (ms)."""
+    synchronisations of this rank's device; returns the walls (ms). No
+    batch is assembled beyond the n-th."""
     from recognizer3d_tpu_torch.training.settings import TrainingSettings
     from recognizer3d_tpu_torch.training.trainer import train_step
 
@@ -224,9 +226,8 @@ def time_steps(key: str, n: int) -> List[float]:
     walls: List[float] = []
     with collectives.whole_batch():
         while len(walls) < n:
-            for inputs, labels, perm, keep in _device_batches(st):
-                if len(walls) == n:
-                    break
+            for inputs, labels, perm, keep in itertools.islice(_device_batches(st),
+                                                               n - len(walls)):
                 _sync(dev)
                 t = time.perf_counter()
                 train_step(st.module, st.optimizer, st.criterion, inputs, labels, perm, keep)

@@ -18,7 +18,14 @@ no warp's or block's tile, batches, every neighbour count and both widths
 (and their refusals of mixed dtypes), the 1-NN
 kernel on sorted, unsorted, tied, duplicated, flat and far inputs at
 supports of 1 to 65,536 points (ordered in shared memory or by its own
-launch), the bitonic stage kernel at other shapes and stage counts, one small live depth frame
+launch), the bitonic stage kernel at other shapes and stage counts, the
+selection kernel B8 (the n smallest priorities of each row) at shapes the
+live and train paths do not reach (65,536 of 262,144, 8 rows of different
+valid counts, N = 1, odd N and N beside a tile, n_out = 1 and n_out = N,
+n_out beside a multiple of the sort's tile and on both sides of its
+choice of tile,
+rows whose values are all tied or all +inf, negative values) and twice on
+the same input, one small live depth frame
 on the card against the CPU, one small train step on the card against the CPU, and the
 wrappers' refusals (inputs that require grad among them). The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
@@ -35,7 +42,8 @@ import torch
 from recognizer3d_tpu_torch import Model
 from recognizer3d_tpu_torch.data import pipeline
 from recognizer3d_tpu_torch.models.live import LivePredictor
-from recognizer3d_tpu_torch.ops import _build, bitonic_kernels, knn_kernels, lfa_kernels, morton
+from recognizer3d_tpu_torch.ops import (_build, bitonic_kernels, knn_kernels, lfa_kernels,
+                                        morton, select_kernels)
 from recognizer3d_tpu_torch.ops.knn import window_starts
 
 ARCHIVE = Path(__file__).resolve().parents[1] / "pretrained" / "mock_fingertip"
@@ -658,3 +666,76 @@ def test_live_frame_on_the_card_matches_the_cpu(dev):
     )
     np.testing.assert_array_equal(out[:, :3], ref[:, :3])
     np.testing.assert_array_equal((out[:, 3] > 0)[~near], (ref[:, 3] > 0)[~near])
+
+
+def _select_priorities(seed, b, n, kind):
+    """(B, N) float32 priorities: a uniform draw, or one with every value
+    tied, rounded to 1/256, with +inf tails (valid counts from n down to
+    1 across the rows) or with negative values."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(b, n)
+    if kind == "tied":
+        x[:] = 0.25
+    elif kind == "all_inf":
+        x[:] = np.inf
+    elif kind == "rounded":
+        x = np.floor(x * 256) / 256
+    elif kind == "inf_tails":
+        for r, valid in enumerate(np.linspace(n, 1, b).astype(int)):
+            x[r, valid:] = np.inf
+    elif kind == "signed":
+        x = x * 4 - 2
+    return torch.tensor(x, dtype=torch.float32)
+
+
+@pytest.mark.parametrize(
+    "b,n,n_out,kind",
+    [
+        (1, 262_144, 65_536, "uniform"),   # a large n_out on the multi-block route
+        (1, 262_144, 65_536, "rounded"),
+        (8, 20_000, 2_500, "inf_tails"),   # batched rows of different valid counts
+        (8, 5_000, 700, "rounded"),
+        (1, 1, 1, "uniform"),              # N = 1
+        (3, 4_097, 1, "rounded"),          # n_out = 1, N one past a tile
+        (2, 12_345, 12_345, "uniform"),    # n_out = N, N odd
+        (1, 4_095, 4_000, "inf_tails"),    # N one short of a compaction tile
+        (2, 70_001, 3_333, "tied"),        # every value tied: the lowest indices
+        (1, 70_001, 70_001, "all_inf"),
+        (2, 30_000, 29_000, "signed"),     # negative values (bits inverted)
+        (2, 20_000, 16_384, "rounded"),    # 8 sort tiles of 2,048 keys
+        (1, 20_000, 16_385, "rounded"),    # and one key in a ninth
+        (2, 9_000, 4_096, "rounded"),      # the most keys sorted in tiles of 512
+        (1, 9_000, 4_097, "uniform"),      # one more: tiles of 2,048
+        (1, 786_432, 16_384, "rounded"),   # the live shape, every valid value tied
+    ],
+)
+def test_select_smallest_kernel_matches_plain(dev, b, n, n_out, kind):
+    """B8 against its plain version, the stable sort: the same indices in
+    the same order, ties to the lower index; a second launch returns the
+    same bits."""
+    x = _select_priorities(b * n + n_out, b, n, kind).to(dev)
+    _build.reset_launches()
+    got = select_kernels.select_smallest(x, n_out)
+    again = select_kernels.select_smallest(x, n_out)
+    assert _build.LAUNCHES == {"select_smallest": 2}
+    ref = select_kernels.select_smallest_plain(x, n_out)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (b, n_out)
+    assert torch.equal(got, ref)
+    assert torch.equal(again, got)
+
+
+def test_select_smallest_refuses_on_the_card(dev):
+    x = torch.rand(2, 100, device=dev)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="contiguous"):
+        select_kernels.select_smallest(torch.rand(100, 2, device=dev).t(), 10)
+    with pytest.raises(TypeError):
+        select_kernels.select_smallest(x.half(), 10)
+    with pytest.raises(ValueError):
+        select_kernels.select_smallest(x, 101)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        select_kernels.select_smallest(x.clone().requires_grad_(), 10)
+    with torch.no_grad():
+        select_kernels.select_smallest(x.clone().requires_grad_(), 10)
+    assert _build.LAUNCHES == {"select_smallest": 1}
