@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B1) and its box pass, the window kernel (B6), the 1-NN kernel and its
    ordering kernel (B4), the tiled round-1 kernel (B2), the tiled pool-2 kernel (B3, B5),
    the bfloat16 forms of B2, B3 and B5, the bitonic stage kernel (B7)
-   and the four kernels of the selection (B8), and the count of HMMA (tensor-core) instructions in the SASS of each
+   and the selection's one cluster kernel (B8), and the count of HMMA (tensor-core) instructions in the SASS of each
    compiled bfloat16 LFA kernel, which fails the run where it is 0;
 3. the app path: ``Predictor(pretrained/mock_fingertip)`` answers mock
    frames of 60,000 points with every launch count set to 0 just before
@@ -237,7 +237,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    every eighth of them (on 1,024 seeded query rows, scaled, for any other
    call of over 8,192 queries); B1's box pass (its global-memory form, above
    2,048 support points) must write the boxes PyTorch's ``amin``/``amax``
-   compute, bit for bit; each LFA call is held, and the
+   compute, bit for bit, and such a call's time is the route's span (the
+   box pass's start to the walk's end: the walk is a programmatic
+   dependent launch whose recorded time includes its wait for the box
+   pass, so the two kernels' sum, printed beside it, counts the overlap
+   twice), with the device time of a one-element ``fill_``, the launch
+   floor, once; each LFA call is held, and the
    first of each shape timed; their
    bounds count the distances their culled walks evaluate at those inputs
    (the CPU models in ``benchmarks/knn_cull.py`` and
@@ -254,8 +259,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the recall guard's exact fallback) on B1 and on the brute-force
    streaming kernel that B1 replaced, both held against the plain version;
    and B1 at the large-scene exact route's level 0 (1,048,576 points):
-   bit-equal to the streaming kernel on every row, the box pass, the walk
-   and the streaming kernel (once) timed; then every kernel call rank 0
+   bit-equal to the streaming kernel on every row, the box pass, the walk,
+   the route's span and the streaming kernel (once) timed; then every kernel call rank 0
    made in 5g's recorded call (B1 at the 16 ring steps of the encoder on
    unsorted blocks, with its box pass; B4 at the 12 of the decoder, with
    its ordering launch where it has one), by the rules above, each call
@@ -535,8 +540,7 @@ FP32_GRAD_MEDIAN_LIMIT = 5e-4
 PTXAS_KERNELS = ("knn_cull_kernel", "knn_box_kernel", "knn_window_kernel", "argmin_cull_kernel",
                  "argmin_order_kernel", "lfa_round1_tile_kernel", "lfa_pool2_tile_kernel",
                  "lfa_round1_mma_kernel", "lfa_pool2_mma_kernel", "roll_stages_kernel",
-                 "select_hist_kernel", "select_count_kernel", "select_scatter_kernel",
-                 "select_sort_pass_kernel")
+                 "select_cluster_kernel")
 # the bfloat16 LFA kernels, whose dots run on the tensor cores: every compiled
 # instance must hold HMMA instructions in its SASS
 MMA_KERNELS = ("lfa_round1_mma_kernel", "lfa_pool2_mma_kernel")
@@ -611,7 +615,8 @@ def _gpu_line() -> str:
 
 def _device_ms(torch, fn, reps: int, kernel=""):
     """Device time per call of ``fn``: torch.profiler's CUDA activity over
-    ``reps`` back-to-back calls after one warm-up call. With ``kernel``,
+    ``reps`` back-to-back calls after one warm-up call
+    (``utils/profiling.device_ms`` and ``kernel_ms``). With ``kernel``,
     only the kernels whose name contains it count (a wrapper's own small
     PyTorch operators and the host's launch gaps stay out); without, every
     kernel and copy the calls ran; with a tuple of names of kernels that
@@ -624,29 +629,11 @@ def _device_ms(torch, fn, reps: int, kernel=""):
     ran while it was timed. (Late in a long process, sessions kept 2 to 4
     of 5 launches of B1's box pass, and none of one launch of the streaming
     kernel; ``_event_ms`` times the long calls of the large paths.)"""
-    from torch.profiler import ProfilerActivity, profile
+    from recognizer3d_tpu_torch.utils import profiling
 
-    names = kernel if isinstance(kernel, tuple) else (kernel,)
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        seen = {name: [e for e in device if name in e.key] for name in names}
-        us = {name: sum(e.self_device_time_total for e in ev) for name, ev in seen.items()}
-        counts = {name: sum(e.count for e in ev) for name, ev in seen.items()}
-        if isinstance(kernel, tuple):
-            if all(us[name] > 0 for name in names):
-                return tuple(us[name] / 1e3 / counts[name] for name in names)
-        elif us[kernel] > 0 and counts[kernel] >= reps:
-            return us[kernel] / 1e3 / reps
-        time.sleep(1.0)
-    raise RuntimeError(f"the profiler recorded no device time for {kernel or fn} in three "
-                       f"sessions of {reps} calls (the last: events {counts}, us {us})")
+    if isinstance(kernel, tuple):
+        return profiling.kernel_ms(fn, reps, kernel)
+    return profiling.device_ms(fn, reps, kernel)
 
 
 def _event_ms(torch, fn) -> float:
@@ -1056,41 +1043,6 @@ def _work_rows(torch, m: int, rows):
     return torch.from_numpy(picked).cuda()
 
 
-def _boxes_plain(torch, support):
-    """B1's boxes in its scratch's layout, per cloud: tile boxes (6 rows of
-    nt: lo x, y, z, hi x, y, z), then super-tile boxes (6 rows of ns), from
-    PyTorch's min and max over tiles of 32 points and super tiles of 32
-    tiles (points past the support empty)."""
-    b, n, _ = support.shape
-    nt = -(-n // 32)
-    ns = -(-nt // 32)
-    pad = torch.full((b, ns * 1024 - n, 3), float("inf"), device=support.device)
-    lo = torch.cat([support, pad], 1).view(b, ns * 32, 32, 3).amin(2)
-    hi = torch.cat([support, -pad], 1).view(b, ns * 32, 32, 3).amax(2)
-    tiles = torch.cat([lo[:, :nt], hi[:, :nt]], 2).transpose(1, 2).reshape(b, 6 * nt)
-    supers = torch.cat([lo.view(b, ns, 32, 3).amin(2), hi.view(b, ns, 32, 3).amax(2)], 2)
-    return torch.cat([tiles, supers.transpose(1, 2).reshape(b, 6 * ns)], 1)
-
-
-def _boxes_card(torch, build, support):
-    """The boxes B1's box pass writes for ``support``: its C entry point
-    called with its own scratch (one query, k = 1, so that the walk after
-    it is short), the scratch read back; no launch is counted."""
-    b, n, _ = support.shape
-    lib = build.library()
-    scratch = torch.empty(lib.r3d_knn_topk_scratch_bytes(b, n) // 4, dtype=torch.float32,
-                          device=support.device)
-    q = support[:, :1].contiguous()
-    idx = torch.empty((b, 1, 1), dtype=torch.int32, device=support.device)
-    d2 = torch.empty((b, 1, 1), dtype=torch.float32, device=support.device)
-    status = lib.r3d_knn_topk(q.data_ptr(), support.data_ptr(), scratch.data_ptr(),
-                              idx.data_ptr(), d2.data_ptr(), b, 1, n, 1,
-                              build.stream_ptr(support.device))
-    build.check_status("r3d_knn_topk", status)
-    nt = -(-n // 32)
-    return scratch.view(b, -1)[:, : 6 * (nt + -(-nt // 32))]
-
-
 def _morton_sorted(torch, x):
     """(B, N, 3) points in their Morton order."""
     from recognizer3d_tpu_torch.ops import morton
@@ -1108,10 +1060,14 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
     whose walk culls almost nothing: the bound is the function's, not what
     the walk spends on that order)."""
     from recognizer3d_tpu_torch.ops import _build, knn_kernels, lfa_kernels
+    from recognizer3d_tpu_torch.utils import profiling
 
     # B1: exact k-NN; in its global-memory form (the wrapper's scratch
     # query says where) its box pass (knn_box_kernel) and walk
-    # (knn_cull_kernel), the box pass held and timed on its own
+    # (knn_cull_kernel), the box pass held and timed on its own, and the
+    # call timed as the route's span: the walk is a programmatic dependent
+    # launch whose recorded time includes its wait for the box pass, so
+    # the sum of the two counts the overlap twice
     for (support, query, k), _ in calls.get("knn_topk", []):
         b, m, n = query.shape[0], query.shape[1], support.shape[1]
         boxed = _build.library().r3d_knn_topk_scratch_bytes(b, n) > 0
@@ -1130,17 +1086,21 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
             )
         del idx, d2, ref_i, ref_d
         if boxed:
-            boxes, ref_boxes = _boxes_card(torch, _build, support), _boxes_plain(torch, support)
+            boxes = knn_kernels.cull_boxes(support)
+            ref_boxes = knn_kernels.cull_boxes_plain(support)
             torch.cuda.synchronize()
             if not torch.equal(boxes, ref_boxes):
                 raise RuntimeError(f"{label} knn_topk_boxes N={n}: "
                                    f"{int((boxes != ref_boxes).sum())} box components differ")
             del boxes, ref_boxes
         reps = 50 if rows is None else 5
-        times = _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k), reps,
-                           ("knn_box_kernel", "knn_cull_kernel") if boxed
-                           else ("knn_cull_kernel",))
-        box_ms, ms = (times[0], sum(times)) if boxed else (0.0, times[0])
+        if boxed:  # box pass and walk, and the route's span from their timestamps
+            (box_ms, walk_ms), ms = profiling.kernel_ms(
+                lambda: knn_kernels.knn_topk(support, query, k), reps,
+                ("knn_box_kernel", "knn_cull_kernel"), span=True)
+        else:
+            box_ms, ms = 0.0, _device_ms(torch, lambda: knn_kernels.knn_topk(support, query, k),
+                                         reps, ("knn_cull_kernel",))[0]
         step = max(1, (1 << 28) // n)  # cdist blocks of at most 1 GB
 
         def library():
@@ -1161,7 +1121,8 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
         held = "all rows" if rows is None else f"{q.shape[1]} sampled rows, times scaled"
         boxes_note = ""
         if boxed:
-            box_plain = _device_ms(torch, lambda: _boxes_plain(torch, support), plain_reps)
+            box_plain = _device_ms(torch, lambda: knn_kernels.cull_boxes_plain(support),
+                                   plain_reps)
             nt = -(-n // 32)
             # the box pass: the support read once, the boxes written once, a
             # min and a max a coordinate
@@ -1170,7 +1131,9 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
             results.add("knn_topk_boxes", 0.0, box_ms, box_plain, box_bound, None)
             boxes_note = (f"; global-memory form, boxes equal to amin/amax: box pass "
                           f"{box_ms:.4f} ms of the kernel's, plain {box_plain:.4f} ms, bound "
-                          f"{box_bound[0]:.5f} ms")
+                          f"{box_bound[0]:.5f} ms; kernel time = the route's span (box "
+                          f"start to walk end), against the sum box + walk "
+                          f"{box_ms + walk_ms:.4f} ms")
         print(f"{label} knn_topk M={m} N={n} k={k}: indices (in order) and d2 equal on "
               f"{held}; kernel {ms:.4f} ms, plain {plain:.4f} ms, cdist+topk {lib:.4f} ms, "
               f"bound {bound[0]:.5f} ms ({bound[1]}"
@@ -1439,6 +1402,8 @@ def _exact_1m(torch, knn_kernels, x):
     timed once between CUDA events (``_event_ms``), on the call whose result
     is compared. The bound is the bytes; the brute-force instruction count
     is printed beside it as a reference."""
+    from recognizer3d_tpu_torch.utils import profiling
+
     k = 32
     n = x.shape[1]
     starts = torch.zeros(1, dtype=torch.int32, device="cuda")
@@ -1453,13 +1418,15 @@ def _exact_1m(torch, knn_kernels, x):
                            f"{int((idx != s_i).sum())} indices and {int((d2 != s_d).sum())} "
                            f"distances differ")
     del idx, d2, s_i, s_d, out
-    box_ms, walk_ms = _device_ms(torch, lambda: knn_kernels.knn_topk(x, x, k), 10,
-                                 ("knn_box_kernel", "knn_cull_kernel"))
+    (box_ms, walk_ms), span = profiling.kernel_ms(
+        lambda: knn_kernels.knn_topk(x, x, k), 10, ("knn_box_kernel", "knn_cull_kernel"),
+        span=True)
     nbytes, brute = _knn_work(n, n, k)
     bound = _bound(nbytes, 0)
     print(f"exact self-KNN M=N={n} k={k} (the large-scene exact route's level 0): B1 equal to "
           f"the streaming kernel on all rows (indices in order, d2); box pass {box_ms:.4f} ms "
-          f"+ walk {walk_ms:.4f} ms = {box_ms + walk_ms:.4f} ms, streaming kernel "
+          f"+ walk {walk_ms:.4f} ms = {box_ms + walk_ms:.4f} ms (span, box start to walk end, "
+          f"{span:.4f} ms), streaming kernel "
           f"{stream_ms:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}); reference, not a bound: "
           f"9*M*N brute-force lane instructions take {brute / PEAK_F32_INSTR_PER_S * 1e3:.3f} ms",
           flush=True)
@@ -1499,8 +1466,8 @@ def _check_roll_stages(torch, results):
 
 def _select_once(torch, priority, n_out, label, reps=20):
     """B8 on one (priority, n_out): held bit-equal to its plain version (the
-    stable sort), then the device ms of the kernel (its launches and the
-    memset of its scratch), of the plain version, of ``torch.sort``
+    stable sort), then the device ms of the kernel (its one launch), of
+    the plain version, of ``torch.sort``
     (stable; the library call) and of ``torch.topk``, and the bound: the
     priorities read once and the int64 indices written once. Returns (ms,
     plain ms, sort ms, bound)."""
@@ -1514,13 +1481,19 @@ def _select_once(torch, priority, n_out, label, reps=20):
         raise RuntimeError(f"{label} B={b} N={n} n_out={n_out}: {int((got != ref).sum())} "
                            f"indices differ from the stable sort's")
     del got, ref
-    ms = _device_ms(torch, lambda: select_kernels.select_smallest(priority, n_out), reps)
+    # its one launch a call, timed by name: the mean over the launches the
+    # profiler kept (late in a long process it drops a few)
+    ms = _device_ms(torch, lambda: select_kernels.select_smallest(priority, n_out), reps,
+                    ("select_cluster_kernel",))[0]
     plain = _device_ms(torch, lambda: select_kernels.select_smallest_plain(priority, n_out), reps)
     sort_ms = _device_ms(torch, lambda: torch.sort(priority, dim=-1, stable=True), reps)
     topk_ms = _device_ms(
         torch, lambda: torch.topk(priority, n_out, dim=-1, largest=False), reps)
     bound = _bound(4 * b * n + 8 * b * n_out, 0)
-    print(f"{label} select_smallest B={b} N={n} n_out={n_out}: indices equal; kernel "
+    plan = select_kernels.select_plan(
+        b, n, n_out, torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"{label} select_smallest B={b} N={n} n_out={n_out} ({plan.cluster} blocks a row, "
+          f"{'staged' if plan.staged else 'streamed'}): indices equal; kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, torch.sort {sort_ms:.4f} ms, torch.topk "
           f"{topk_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})", flush=True)
     return ms, plain, sort_ms, bound
@@ -2981,6 +2954,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     from recognizer3d_tpu_torch import Model, Predictor
     from recognizer3d_tpu_torch.benchmarks import bench_roll_stages
+    from recognizer3d_tpu_torch.utils import profiling
     from recognizer3d_tpu_torch.data import pipeline
     from recognizer3d_tpu_torch.data.preprocessing import consistent_sample_indices
     from recognizer3d_tpu_torch.models.live import LivePredictor
@@ -3276,6 +3250,8 @@ def main() -> None:
 
     results = _Results()
     with torch.inference_mode():
+        print(f"launch floor: a one-element fill_ {profiling.launch_floor_ms():.4f} ms of device "
+              f"time", flush=True)
         _check_kernels(torch, calls, results, "app path", plain_reps=10)
         _check_kernels(torch, calls64, results, "approx64k", plain_reps=3)
         _check_kernels(torch, calls_live, results, "live", plain_reps=10)

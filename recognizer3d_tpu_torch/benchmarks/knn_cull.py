@@ -40,10 +40,11 @@ repeats its last query):
 
 Where the boxes come from: up to 2,048 support points each CUDA block
 builds them in its shared memory; above, one launch before the walk
-(``knn_box_kernel``) boxes each super tile straight from its 1,024 points,
-with its tiles' boxes on the way, into a global scratch (``box_pass``). Min
-and max are exact, so both give the walk the same boxes, and the same
-selection: the model builds them as the box pass does.
+(``knn_box_kernel``) boxes each tile in a warp and each super tile from
+its 32 tiles' boxes, into a global scratch (``box_pass``). Min and max are
+exact, so both give the walk the same boxes, and the same selection
+(the model reduces a super tile straight from its points: the same
+values).
 
 ``select(..., rows=...)`` walks only some query rows (with the other
 queries of their groups), each warm-started at its position in the whole
@@ -82,8 +83,8 @@ def tile_boxes(support: np.ndarray) -> "tuple[np.ndarray, np.ndarray]":
 
 def box_pass(support: np.ndarray):
     """The box pass (``knn_box_kernel``): (lo, hi, slo, shi), each super
-    tile's box reduced straight from its points, as the warp's running min
-    and max over its tiles."""
+    tile's box reduced straight from its points (the kernel reduces its
+    tiles' boxes: min and max are exact, so the values are the same)."""
     n = support.shape[0]
     lo, hi = tile_boxes(support)
     span = TILE * TILE

@@ -5,7 +5,8 @@ policies other than the built ones.
 
 Needs a card. Each variant is a copy of ``csrc/`` with one line of a
 launcher or one constant changed, built under
-``build/torch_kernels/launch_ab/<variant>/`` (four builds at a time):
+``build/torch_kernels/launch_ab/<variant>/`` (four builds at a time), or,
+for B8, another launch plan handed to the package's kernel:
 
 * ``group1``, ``group2``: ``knn.cu``'s ``cull_group`` gives every launch of
   the exact KNN kernel (B1) one, or two, queries a warp (as built: two where
@@ -27,9 +28,20 @@ launcher or one constant changed, built under
 * ``roll_e32``, ``roll_e64``: the bitonic stage kernel (B7) with 32, or 64,
   elements a thread at every S (as built: 32 up to S = 15, 64 beyond);
 * ``roll_threads64``: B7 in blocks of 64 threads (as built: 128);
-* ``select_tile512``, ``select_tile2048``: the sort passes of the selection
-  (B8) in tiles of 512, or 2,048, keys a block at every size (as built: 512
-  up to 4,096 selected keys a row, 2,048 above);
+* ``cull_no_pdl``: B1's global-memory form with its walk launched as a
+  plain launch after the box pass (as built: a programmatic dependent
+  launch, which starts the walk's blocks and their first warm start before
+  the box pass ends);
+* ``select_cluster8``, ``select_cluster4``, ``select_streamed``,
+  ``select_rows16384``, ``select_keys_global``: the selection (B8) under
+  another launch plan (``ops/select_kernels.select_plan`` with other
+  bounds, or ``plan_for`` of another form; no rebuild) with at most 8, or
+  4, blocks a row (the live row then no longer
+  fits their shared memory: streamed), never staged (every sweep re-reads
+  the row), a block for every 16,384 priorities (the train rows over 2
+  blocks), or the selected keys in a global scratch (as built: up to 16
+  blocks a row, a block for every 4,096 priorities, staged where the slice
+  fits, the keys in shared memory where they fit);
 * ``bf16_warps8``, ``bf16_warps4``: the bfloat16 round-1 kernel (B2-bf16)
   and pool 2 alone (B5-bf16) in blocks of 8 warps at h = 8, or of 4 at
   h = 32 (as built: 4 and 8); each warp takes one row at a time, so these
@@ -53,7 +65,7 @@ served levels' shapes (K = 32); B4 the served paths' upsamples
 TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45;
 B8 the shapes of ``benchmarks/bench_select.py`` (the live frame's 786,432
 priorities -> 16,384 under a seeded and a rounded draw, 4 x 20,000 ->
-2,500), timed as a whole call (every kernel of it);
+2,500), timed as a whole call (its one launch);
 B2-bf16, B3-bf16 and B5-bf16 the bfloat16 paths' shapes (K = 32; h = 8 at
 2,500 and 65,536 rows, h = 32 at 625 and 16,384; F = 8 and 32). Every variant is held
 to the plain version first (B1, B4 and B7 bit for bit, B2 within 1e-5, the
@@ -65,6 +77,7 @@ reversed, built, so that a drift of the card's clock shows.
 
 import argparse
 import contextlib
+import functools
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -77,6 +90,7 @@ from recognizer3d_tpu_torch.benchmarks.window_select import _mock_level0
 from recognizer3d_tpu_torch.benchmarks import bench_select
 from recognizer3d_tpu_torch.ops import (_build, bitonic_kernels, knn_kernels, lfa_kernels,
                                         select_kernels)
+from recognizer3d_tpu_torch.utils.profiling import device_ms
 
 #: variant -> (source file, line as built, line in the variant)
 VARIANTS = {
@@ -103,8 +117,7 @@ VARIANTS = {
     "roll_e64": ("bitonic.cu", "return stages <= ROLL_E32_MAX_STAGES ? 32 : 64;", "return 64;"),
     "roll_threads64": ("bitonic.cu", "constexpr int ROLL_THREADS = 128;",
                        "constexpr int ROLL_THREADS = 64;"),
-    "select_tile512": ("select.cu", "return n_out <= SORT_SMALL ? 2 : 8;", "return 2;"),
-    "select_tile2048": ("select.cu", "return n_out <= SORT_SMALL ? 2 : 8;", "return 8;"),
+    "cull_no_pdl": ("knn.cu", "constexpr int CULL_PDL = 1;", "constexpr int CULL_PDL = 0;"),
     "bf16_warps8": ("lfa.cu", "constexpr int BF_WARPS_H8 = 4;", "constexpr int BF_WARPS_H8 = 8;"),
     "bf16_warps4": ("lfa.cu", "constexpr int BF_WARPS_H32 = 8;",
                     "constexpr int BF_WARPS_H32 = 4;"),
@@ -117,13 +130,33 @@ VARIANTS = {
 }
 
 
+def _form(staged=None, keys_shared=None, select_plan=select_kernels.select_plan):
+    """B8's plan: the package's blocks a row, in the given form."""
+    def plan(b, n, n_out, sms):
+        built = select_plan(b, n, n_out, sms)
+        return select_kernels.plan_for(
+            b, n, n_out, built.cluster, built.staged if staged is None else staged,
+            built.keys_shared if keys_shared is None else keys_shared)
+    return plan
+
+
+#: variant -> B8's plan, a function of (B, N, n_out, SMs) as ``select_plan``
+PLAN_VARIANTS = {
+    "select_cluster8": functools.partial(select_kernels.select_plan, max_cluster=8),
+    "select_cluster4": functools.partial(select_kernels.select_plan, max_cluster=4),
+    "select_streamed": _form(staged=False),
+    "select_rows16384": functools.partial(select_kernels.select_plan, row_block=16_384),
+    "select_keys_global": _form(keys_shared=False),
+}
+
+
 #: the variants each section times beside the built kernels
 SECTIONS = {
-    "B1": ("group1", "group2", "cull_global_all", "cull_shared_most"),
+    "B1": ("group1", "group2", "cull_global_all", "cull_shared_most", "cull_no_pdl"),
     "B2": ("r1_full_tile",),
     "B4": ("argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256", "nn_threads1024"),
     "B7": ("roll_e32", "roll_e64", "roll_threads64"),
-    "B8": ("select_tile512", "select_tile2048"),
+    "B8": tuple(PLAN_VARIANTS),
     "bf16": ("bf16_warps8", "bf16_warps4", "bf16_tile8", "bf16_tile16", "bf16_wait_all"),
 }
 
@@ -151,27 +184,16 @@ def _using(lib):
         _build._lib = saved
 
 
-def _ms(fn, reps: int, kernel: str) -> float:
-    """Device ms a call of the kernels whose name holds ``kernel``
-    (torch.profiler), over ``reps`` calls after one warm-up call; a session
-    that recorded fewer of those kernels than calls (the card's profiler
-    now and then drops a session's activity) is taken again, up to three
-    times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-        us = sum(e.self_device_time_total for e in events)
-        if us > 0 and sum(e.count for e in events) >= reps:
-            return us / 1e3 / reps
-    raise RuntimeError(f"the profiler recorded no device time for {kernel}")
+@contextlib.contextmanager
+def _planned(name):
+    """Run B8 under the launch plan of ``name`` (``PLAN_VARIANTS``; "built":
+    the package's), handed to the wrapper in place of ``select_plan``."""
+    saved = select_kernels.select_plan
+    select_kernels.select_plan = PLAN_VARIANTS.get(name, saved)
+    try:
+        yield
+    finally:
+        select_kernels.select_plan = saved
 
 
 def _knn_cases(dev):
@@ -266,7 +288,7 @@ def main() -> None:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"gpu: {gpu}", flush=True)
-    names = [v for sec in opts.sections for v in SECTIONS[sec]]
+    names = [v for sec in opts.sections for v in SECTIONS[sec] if v in VARIANTS]
     libs = {"built": _build.library()}
     with ThreadPoolExecutor(4) as pool:
         libs.update(zip(names, pool.map(_build_variant, names)))
@@ -290,7 +312,7 @@ def main() -> None:
             def timed(name, reps, s=s, q=q, k=k):
                 # "knn_": the walk and, in the global-memory form, its box pass
                 with _using(libs[name]):
-                    return _ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_")
+                    return device_ms(lambda: knn_kernels.knn_topk(s, q, k), reps, "knn_")
 
             _line(f"B1 {label} k={k}", knn_variants, timed, 5 if n > 10_000 else 50)
 
@@ -308,8 +330,8 @@ def main() -> None:
 
             def timed(name, reps, args=args):
                 with _using(libs[name]):
-                    return _ms(lambda: lfa_kernels.lfa_round1(*args), reps,
-                               "lfa_round1_tile_kernel")
+                    return device_ms(
+                        lambda: lfa_kernels.lfa_round1(*args), reps, "lfa_round1_tile_kernel")
 
             _line(f"B2 {label} K={k}", r1_variants, timed, 50)
 
@@ -327,7 +349,7 @@ def main() -> None:
 
             def timed(name, reps, s=s, q=q):
                 with _using(libs[name]):
-                    return _ms(lambda: knn_kernels.argmin_1nn(s, q), reps, "argmin_")
+                    return device_ms(lambda: knn_kernels.argmin_1nn(s, q), reps, "argmin_")
 
             _line(f"B4 {label} (kernel + ordering)", b4_variants, timed, 50)
 
@@ -346,8 +368,8 @@ def main() -> None:
 
             def timed(name, reps, stages=stages):
                 with _using(libs[name]):
-                    return _ms(lambda: bitonic_kernels.roll_stages(x, stages), reps,
-                               "roll_stages_kernel")
+                    return device_ms(
+                        lambda: bitonic_kernels.roll_stages(x, stages), reps, "roll_stages_kernel")
 
             _line(f"B7 (512, 128, 1024) S={stages}", b7_variants, timed, 20)
 
@@ -356,15 +378,15 @@ def main() -> None:
         for label, priority, n_out in bench_select.cases(dev):
             ref = select_kernels.select_smallest_plain(priority, n_out)
             for name in b8_variants:
-                with _using(libs[name]):
+                with _planned(name):
                     if not torch.equal(select_kernels.select_smallest(priority, n_out), ref):
                         raise RuntimeError(f"B8 {label} on {name}: not equal to the plain version")
             del ref
 
             def timed(name, reps, priority=priority, n_out=n_out):
-                with _using(libs[name]):
-                    return _ms(lambda: select_kernels.select_smallest(priority, n_out), reps,
-                               "select_")
+                with _planned(name):
+                    return device_ms(
+                        lambda: select_kernels.select_smallest(priority, n_out), reps, "select_")
 
             _line(f"B8 {label}", b8_variants, timed, 50)
 
@@ -396,17 +418,20 @@ def main() -> None:
 
             def timed_r1(name, reps, r1=r1):
                 with _using(libs[name]):
-                    return _ms(lambda: lfa_kernels.lfa_round1(*r1), reps, "lfa_round1_mma_kernel")
+                    return device_ms(
+                        lambda: lfa_kernels.lfa_round1(*r1), reps, "lfa_round1_mma_kernel")
 
             def timed_p2(name, reps, p2=p2):
                 with _using(libs[name]):
-                    return _ms(lambda: lfa_kernels.attentive_pool2_residual(*p2, k=32), reps,
-                               "lfa_pool2_mma_kernel")
+                    return device_ms(
+                        lambda: lfa_kernels.attentive_pool2_residual(*p2, k=32), reps,
+                        "lfa_pool2_mma_kernel")
 
             def timed_p5(name, reps, p2=p2):
                 with _using(libs[name]):
-                    return _ms(lambda: lfa_kernels.attentive_pool2(*p2[:7], k=32), reps,
-                               "lfa_pool2_mma_kernel")
+                    return device_ms(
+                        lambda: lfa_kernels.attentive_pool2(*p2[:7], k=32), reps,
+                        "lfa_pool2_mma_kernel")
 
             _line(f"B2-bf16 {label} K=32", bf_variants, timed_r1, 50)
             _line(f"B3-bf16 {label} K=32", bf_variants, timed_p2, 50)

@@ -108,9 +108,18 @@
 // (hbm=True) and copies in only the tiles it does not cull. Here, above
 // CULL_GLOBAL_MIN_POINTS support points, one launch before the walk,
 // knn_box_kernel, computes every tile box and super-tile box once into a
-// global scratch (a warp a super tile; one set of boxes a cloud). The walk
-// is the same kernel: it copies the super-tile boxes (24 KB at 1,048,576
-// points) into shared memory and reads a tile's box from global memory,
+// global scratch (a block a super tile, a warp four tiles, read as float4s
+// and reduced through shared memory, the super tile's box from its tiles';
+// one set of boxes a cloud). The walk is the same kernel, launched after
+// the box pass as a programmatic dependent launch (PDL): the box pass lets
+// it start at once, so the walk's blocks can be resident and past their
+// prologue when the box pass ends, and wait for it (griddepcontrol.wait)
+// before they read a box. (Its first warm start before the wait, which
+// reads points only, measured slower on an H100: the restructured loop
+// cost the walk 1-3% at 16,384 to 1,048,576 points and the route no time;
+// the box pass has just read the support into L2. PERF.md.) It copies the
+// super-tile boxes (24 KB at 1,048,576 points) into shared memory and
+// reads a tile's box from global memory,
 // which L2 holds (786 KB at that size), only when the tile's super tile is
 // alive, so every block no longer rereads the support to box it; the
 // boxes of over about 300,000 points would not fit in shared memory at
@@ -211,6 +220,9 @@ constexpr int WIN_GROUP = 2;       // queries a warp scans together,
 constexpr int WIN_QUERIES = 32;    // queries per block
 constexpr int CULL_WARPS = 8;      // knn_cull_kernel: warps per block,
 constexpr int CULL_BOX_UNROLL = 4; // tiles a warp boxes at once,
+constexpr int BOX_WARPS = 8;       // knn_box_kernel: warps a block (a super
+constexpr int BOX_TILES = 4;       // tile a block), tiles a warp,
+constexpr int CULL_PDL = 1;        // the walk after the box pass launched with PDL
 constexpr int CULL_STAGE_UNROLL = 4;  // support loads in flight a thread,
 constexpr int CULL_ONE_WAVE_QUERIES_PER_SM = 64;  // see cull_group
 constexpr int CULL_STAGE_BYTES = 100 * 1024;  // support + boxes staged up to
@@ -693,54 +705,83 @@ inline size_t cull_box_stride(int N) {
   return (6 * (nt + ns) + 3) / 4 * 4;
 }
 
-// The global-memory form's box pass: warp s of the launch boxes super tile
-// s of cloud blockIdx.y, its 32 tiles CULL_BOX_UNROLL at a time (their
-// loads overlap), into the layout of cull_box_stride at scratch + b *
-// stride. Tiles past the support contribute empty boxes (+inf, -inf), as
-// knn_cull_kernel's super-tile pass reads them.
-__global__ void __launch_bounds__(CULL_WARPS * 32)
+// The global-memory form's box pass: block s of the launch boxes super
+// tile s of cloud blockIdx.y into the layout of cull_box_stride at scratch
+// + b * stride. Each warp boxes BOX_TILES tiles, its loads for all of them
+// in flight at once: a tile's 32 points are 384 contiguous bytes, 24 lanes'
+// float4s, which the warp puts in shared memory; then lane o < 24 reduces
+// component o % 6 (lo x, y, z, hi x, y, z) of tile o / 6 over its 32
+// points (tiles 100 floats apart: the 12 addresses a step read fall in 12
+// banks). A reduction by shuffles instead took 60 instructions a tile. The
+// block's 32 tile boxes meet in shared memory and one warp reduces them to
+// the super tile's box. Points past the support are NaN, which fminf and
+// fmaxf skip, so tiles past it are empty boxes (+inf, -inf), as
+// knn_cull_kernel's super-tile pass reads them. The kernel lets the walk
+// launch at once (programmatic dependent launch, CULL_PDL); the walk waits
+// for this grid before it reads a box.
+__global__ void __launch_bounds__(BOX_WARPS * 32)
 knn_box_kernel(const float* __restrict__ support, float* __restrict__ scratch, int N,
                size_t stride) {
+  static_assert(BOX_WARPS * BOX_TILES == 32, "a block boxes one super tile");
+  constexpr int TILE_FLOATS = 100;  // 96 a tile, padded
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __shared__ __align__(16) float raw[BOX_WARPS][BOX_TILES * TILE_FLOATS];
+  __shared__ float tiles[6][32];
   const int nt = (N + 31) / 32, ns = (nt + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * CULL_WARPS + (threadIdx.x >> 5);
-  if (s >= ns) return;  // uniform across the warp
-  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s = blockIdx.x, b = blockIdx.y;
   const float* pts = support + static_cast<size_t>(b) * N * 3;
   float* tbox = scratch + b * stride;
   float* sbox = tbox + 6 * static_cast<size_t>(nt);
-  float slo[3], shi[3];
+  const long long floats = 3LL * N;
+  const bool vec = (reinterpret_cast<size_t>(pts) & 15) == 0;  // tiles start 384 t bytes in
+  float4 v[BOX_TILES];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    slo[a] = CUDART_INF_F;
-    shi[a] = -CUDART_INF_F;
-  }
-  for (int u0 = 0; u0 < 32; u0 += CULL_BOX_UNROLL) {
-    float lo[CULL_BOX_UNROLL][3], hi[CULL_BOX_UNROLL][3];
-#pragma unroll
-    for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
-      const long long j = 32LL * (32LL * s + u0 + u) + lane;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float v = j < N ? pts[3 * j + a] : CUDART_INF_F;
-        lo[u][a] = v;
-        hi[u][a] = j < N ? v : -CUDART_INF_F;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < CULL_BOX_UNROLL; ++u) {
-      warp_box(lo[u], hi[u]);
-      const int t = 32 * s + u0 + u;
-      if (lane < 6 && t < nt) tbox[static_cast<size_t>(lane) * nt + t] =
-          box_component(lo[u], hi[u], lane);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        slo[a] = fminf(slo[a], lo[u][a]);
-        shi[a] = fmaxf(shi[a], hi[u][a]);
-      }
+  for (int u = 0; u < BOX_TILES; ++u) {
+    const long long f0 = 96LL * (32LL * s + BOX_TILES * warp + u) + 4 * lane;
+    if (vec && lane < 24 && f0 + 4 <= floats) {
+      v[u] = *reinterpret_cast<const float4*>(pts + f0);
+    } else {
+      const bool in = lane < 24;
+      v[u].x = in && f0 < floats ? pts[f0] : CUDART_NAN_F;
+      v[u].y = in && f0 + 1 < floats ? pts[f0 + 1] : CUDART_NAN_F;
+      v[u].z = in && f0 + 2 < floats ? pts[f0 + 2] : CUDART_NAN_F;
+      v[u].w = in && f0 + 3 < floats ? pts[f0 + 3] : CUDART_NAN_F;
     }
   }
-  if (lane < 6) sbox[lane * ns + s] = box_component(slo, shi, lane);
+  float* mine = raw[warp];
+  if (lane < 24) {
+#pragma unroll
+    for (int u = 0; u < BOX_TILES; ++u) {
+      *reinterpret_cast<float4*>(mine + u * TILE_FLOATS + 4 * lane) = v[u];
+    }
+  }
+  __syncwarp();
+  if (lane < 24) {
+    const int u = lane / 6, comp = lane % 6, axis = comp % 3;
+    const float* x = mine + u * TILE_FLOATS + axis;
+    float lo = CUDART_INF_F, hi = -CUDART_INF_F;
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      lo = fminf(lo, x[3 * j]);
+      hi = fmaxf(hi, x[3 * j]);
+    }
+    const float c = comp < 3 ? lo : hi;
+    const int ti = BOX_TILES * warp + u, t = 32 * s + ti;
+    tiles[comp][ti] = c;
+    if (t < nt) tbox[static_cast<size_t>(comp) * nt + t] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float lo[3], hi[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = tiles[a][lane];
+      hi[a] = tiles[3 + a][lane];
+    }
+    warp_box(lo, hi);
+    if (lane < 6) sbox[lane * ns + s] = box_component(lo, hi, lane);
+  }
 }
 
 // Exact k-NN with box culling, k <= 32 * R (see the design note at the
@@ -767,6 +808,10 @@ knn_cull_kernel(const float* __restrict__ query, const float* __restrict__ suppo
   const float* sbox;
   if (boxes != nullptr) {
     tbox = boxes + b * stride;
+    // the box pass's grid is complete and its boxes visible (a no-op where
+    // the walk was launched without PDL); the super-tile boxes into shared
+    // memory
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
     const float* gs = tbox + 6 * static_cast<size_t>(nt);
     for (int t = threadIdx.x; t < 6 * ns; t += blockDim.x) cull_sm[t] = gs[t];
     sbox = cull_sm;
@@ -970,10 +1015,22 @@ int launch_cull_rq(const CullLaunch& a) {
         static_cast<int>(a.smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((a.M + a.qpb - 1) / a.qpb, a.B);
-  knn_cull_kernel<R, Q><<<grid, CULL_WARPS * 32, a.smem, a.stream>>>(
-      a.query, a.support, a.boxes, a.idx, a.d2, a.M, a.N, a.k, a.qpb, a.staged, a.stride);
-  return 0;
+  // the global form's walk follows its box pass with a programmatic
+  // dependent launch: its blocks may start before the box pass ends, and
+  // wait for it (griddepcontrol.wait) before they read a box
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((a.M + a.qpb - 1) / a.qpb, a.B);
+  config.blockDim = dim3(CULL_WARPS * 32);
+  config.dynamicSmemBytes = a.smem;
+  config.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attr;
+  config.numAttrs = a.boxes != nullptr && CULL_PDL ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&config, knn_cull_kernel<R, Q>, a.query,
+                                             a.support, a.boxes, a.idx, a.d2, a.M, a.N, a.k,
+                                             a.qpb, a.staged, a.stride));
 }
 
 template <int R>
@@ -1033,8 +1090,8 @@ int launch_exact(const float* query, const float* support, float* scratch, int* 
   }
   const size_t stride = global ? cull_box_stride(N) : 0;
   if (global) {
-    const dim3 grid((static_cast<unsigned>(ns) + CULL_WARPS - 1) / CULL_WARPS, B);
-    knn_box_kernel<<<grid, CULL_WARPS * 32, 0, stream>>>(support, scratch, N, stride);
+    knn_box_kernel<<<dim3(static_cast<unsigned>(ns), B), BOX_WARPS * 32, 0, stream>>>(
+        support, scratch, N, stride);
   }
   const int group = cull_group(B * M, sms);
   // one wave: a query group a warp; else about two blocks an SM, 16 to 256

@@ -26,95 +26,158 @@
 // Bound on this card: bytes. The function must read 4·B·N bytes of
 // priorities and write 8·B·n_out bytes of indices (1 x 786,432 -> 16,384:
 // 3.28 MB, 0.00098 ms at 3.35 TB/s); it does a few integer operations an
-// element. What the design does about it: the streaming passes spread each
-// row over many blocks (at the live shape B = 1, so one block a row would
-// leave 131 of 132 SMs idle), and a row of 3 MB stays in the 50 MB L2
-// between the passes, so only the first pass reads device memory. The
-// rest is launches: 9 kernels, each a few microseconds at these sizes.
+// element. At these sizes what holds a design back is not the bytes but
+// the dependent steps between them: a pass needs the sums of the one
+// before. The design before this one ran 9 dependent launches and a
+// memset a call, a few microseconds each (0.068 ms at the live shape).
 //
-// 1. Threshold (3 launches of select_hist_kernel). The threshold key T is
-//    the n_out-th smallest key, found by radix selection on its digits from
-//    the top (11, 11 and 10 bits). Each block builds a histogram of the
-//    keys that match the digits found so far in shared memory, adds it
-//    into the row's global histogram, and the last block of the row to
-//    finish (an atomic count
-//    after a fence) reads the histogram, finds the bin that holds the
-//    rank-th key, appends its digit and keeps the rank within it, and
-//    clears the histogram for the next pass. Atomic counts are order-free:
-//    the result is the same however blocks run. After the third pass T is
-//    known, and need = the rank left: how many keys equal to T to take
-//    (n_out - #(key < T), at least 1).
-// 2. Compaction (select_count_kernel, select_scatter_kernel). Each block of
-//    4,096 consecutive elements counts its keys below T and equal to T; the
-//    last block turns the counts into exclusive prefixes over the blocks.
-//    The scatter block then ranks its elements in index order (a block
-//    scan a round) and writes each element with key < T, and each element
-//    equal to T among the first need of them, as its packed key at
-//    #(key < T before it) + min(#(key == T before it), need): the n_out
-//    selected keys in index order.
-// 3. Order (4 launches of select_sort_pass_kernel). A least-significant-
-//    digit radix sort of the n_out selected keys by the 32-bit key, 8 bits
-//    a pass. It is stable because the keys arrive in index order, so equal
-//    keys stay lowest index first. A block takes a tile of 512 consecutive
-//    keys (2,048 above 4,096 keys a row), each of its 8 warps an eighth of
-//    them: the warp counts their digits
-//    (a ballot a bit of the digit gives each key the lanes with its digit);
-//    the tile's offset for each digit, from the scanned (digit, tile) counts,
-//    and the counts of the earlier warps give each warp its offsets; the
-//    warp writes its keys, in order, each at its digit's offset plus its
-//    rank among the warp's earlier keys of that digit. Each key written is
-//    counted (a global atomic) at its next digit and the tile it lands in,
-//    and the last block of the row scans those counts for the next pass;
-//    the compaction counts the first digit the same way. So a pass is one
-//    launch, and every size of n_out takes this route over many blocks.
-//    The last pass writes the indices as int64. (One block a row for the
-//    live path's 16,384 keys, its 4 passes a barrier apart in one launch
-//    and the keys in shared memory, took 0.063 ms on an H100: ranking
-//    16,384 keys 4 times on one SM.)
+// One launch a call: a row is owned by a thread block cluster of C blocks
+// (1 to 16, a power of two; 16 is above the portable 8 and is asked for
+// with cudaFuncAttributeNonPortableClusterSizeAllowed), which run at once
+// on neighbouring SMs and reach each other's shared memory (DSMEM,
+// cluster.map_shared_rank). The cluster's phases are separated by cluster
+// barriers (arrive with release, wait with acquire, for shared and global
+// memory alike), so no state crosses a launch, nothing is cleared
+// beforehand and no block has to find out that it is the last. Block r of
+// a row takes its elements [r * chunk, +chunk) and positions [r * kpb,
+// +kpb) of the row's n_out sorted keys. A block is 16 warps.
+//
+// 1. Threshold: T, the n_out-th smallest key, by radix selection on its
+//    digits from the top (11, 11 and 10 bits). Each block histograms the
+//    keys of its slice that match the digits found so far into its shared
+//    memory (the lanes' elements in the warp's largest bin, the +inf run of
+//    a depth frame, add with one atomic). Block q keeps the cluster's sums
+//    of bins [q * L, +L) (L = 2048 / C): each block adds its nonzero bins
+//    into their owners' by DSMEM atomics, and after one cluster barrier
+//    every block reads the C range totals, finds the range of the rank,
+//    reads its L sums and picks the same digit. After the third digit,
+//    need = the rank left: how many keys equal to T to take.
+//    From the second digit on, each warp takes a contiguous part of the
+//    slice, in index order. In a staged slice the second digit's pass also
+//    keeps the candidates, the keys whose top digit is at most the first
+//    digit of T (only these can be selected or matter to the third digit;
+//    about 2.5% of a depth frame), packed with their indices, in the
+//    warp's part itself: an entry overwrites only elements the warp has
+//    read. A warp whose candidates outgrow that room puts back the keys
+//    it overwrote and goes on with its whole part. The later sweeps read
+//    each warp's candidates, or its part.
+// 2. Selection, and the first sort pass with it. Each warp counts its
+//    keys equal to T, and those below T by their lowest key byte, the
+//    first digit of a least-significant-digit sort (shared atomics). The
+//    blocks' counts of T
+//    cross a barrier: each warp then knows how many of its keys equal to T
+//    it takes (the first need of them in index order), all at T's digit.
+//    The blocks' digit counts cross a barrier (digit_offsets: the offset
+//    of each digit in each block and warp); then each warp walks its keys
+//    again and writes each one it takes, packed with its index (key << 32
+//    | index), at its place after the first stable pass: its digit's
+//    offset plus the earlier keys of that digit in index order (a round's
+//    ranks by __match_any_sync, independent of each other, the running
+//    counts through shared memory), into the shared memory of the block
+//    that owns the position.
+// 3. Order: three more stable passes, by the key's other bytes. A block's
+//    warps count the digits of contiguous parts of its keys (a ballot a
+//    bit of the digit gives each key the lanes with its digit), the counts
+//    cross a barrier, and each key goes to its digit's offset plus the
+//    earlier warps' and lanes' keys of that digit, in the other buffer;
+//    then a barrier. Stable because the keys arrive in index order, so
+//    equal keys stay lowest index first. The last pass writes the indices
+//    as int64, and its barrier keeps every block's shared memory alive
+//    until no block reads it.
+//
+// The plan, a pure function of (B, N, n_out, SMs) chosen by the caller
+// (ops/select_kernels.py::select_plan) and passed in:
+// - staged: where the block's slice fits its shared memory beside the
+//   rest, the first pass loads it once (float4 loads, 8 a lane in flight)
+//   and keeps its keys there; every later pass reads shared memory. The
+//   live row (3 MB) is 196,608 bytes a block over 16 blocks. (Loading it by
+//   TMA bulk copies, building the histogram as each piece lands on its
+//   mbarrier, measured slower on an H100 at every shape: PERF.md.)
+// - streamed: each pass re-reads the slice from global memory (a 2^21 row
+//   is 8 MB).
+// The selected keys live in the blocks' shared memory (two buffers of kpb
+// keys, one aliasing the histogram, the other the staged slice, both dead
+// by then) where they fit, else in a global scratch of 2·B·n_out keys
+// (n_out == N on a large row).
+//
+// What bounds a call, measured on an H100 (PERF.md): not the
+// bytes. A cluster lies in one GPC, which reads the live row at about 0.2
+// TB/s (the streamed form, which reads it in each of its 5 sweeps, takes
+// about 0.15 ms), so its one read takes over 10 us; then 16 SMs' second
+// sweep over 49,152 elements a block, and the dependent steps: 13 cluster
+// barriers, DSMEM round trips, the sort's 4 passes. An unlaunchable plan
+// (too much shared memory, or a cluster the card cannot place) returns an
+// error; there is no other route.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-// threshold and compaction blocks
 constexpr int SEL_THREADS = 512;
 constexpr int SEL_WARPS = SEL_THREADS / 32;
-constexpr int HIST_BINS = 2048;  // the widest digit: 11 bits
-constexpr int HIST_ITEMS = 4;    // elements a thread at least in a threshold pass
-constexpr int CT_ROUNDS = 8;     // compaction: a block takes 8 rounds of 512 elements
-constexpr int CTILE = SEL_THREADS * CT_ROUNDS;
+constexpr int SUB = 4;              // rounds of 32 elements a warp takes at once
+constexpr int VEC = 8;              // float4s a lane loads at once in the first pass
+constexpr int MAX_SMEM = 232448;    // shared memory a block may use
+constexpr int MAX_CLUSTER = 16;     // blocks a row at most (non-portable above 8)
+constexpr int HIST_BINS = 2048;     // the widest digit: 11 bits
+constexpr int BINS_PER_THREAD = HIST_BINS / SEL_THREADS;
+constexpr unsigned NO_LIST = 0xffffffffu;  // a warp whose candidates did not fit its part
+// the threshold's digits, from the top: (shift, bits) = (21, 11), (10, 11), (0, 10)
+constexpr int SEL_PASSES = 3;
+__host__ __device__ constexpr int sel_shift(int pass) {
+  return pass == 0 ? 21 : pass == 1 ? 10 : 0;
+}
+__host__ __device__ constexpr int sel_bits(int pass) { return pass == 2 ? 10 : 11; }
 // the radix sort of the selected keys
 constexpr int RADIX_BITS = 8;
 constexpr int RADIX = 1 << RADIX_BITS;
 constexpr int SORT_PASSES = 32 / RADIX_BITS;
-constexpr int SORT_WARPS = 8;
-constexpr int SORT_THREADS = 32 * SORT_WARPS;  // = RADIX: a thread a digit
-static_assert(SORT_THREADS == RADIX, "a sort block's thread d sets digit d's offsets");
-// keys a lane of a sort block: 2 (tiles of 512 keys) up to SORT_SMALL
-// selected keys a row, else 8 (tiles of 2,048). Smaller tiles put more
-// blocks on a small row; larger ones make fewer counts to scan and to add
-// atomically (benchmarks/launch_ab.py B8 times both at every size).
-constexpr int SORT_SMALL = 4096;
-int sort_rounds(int n_out) { return n_out <= SORT_SMALL ? 2 : 8; }
-constexpr int SCAN_CHUNK = 8;  // counts a thread loads at once in a scan
-// the threshold's digits, from the top: (shift, bits)
-constexpr int SEL_PASSES = 3;
-constexpr int SEL_SHIFT[SEL_PASSES] = {21, 10, 0};
-constexpr int SEL_BITS[SEL_PASSES] = {11, 11, 10};
+// shared memory, in this order: the fixed part; the cluster's bin sums of
+// the three digit passes (C > 1: L = 2048 / C of them a block and pass);
+// region 1 (the histogram, then key buffer A); the warps' digit counts;
+// region 0 (the staged slice, then key buffer B). ops/select_kernels.py
+// mirrors these sizes.
+constexpr int STATIC_BYTES = 8192;
+constexpr int HIST_BYTES = HIST_BINS * 4;
+constexpr int CNT_BYTES = SEL_WARPS * RADIX * 4;
 
-// Per row, in the scratch: the digits of T found so far, the rank of the
-// sought key among the keys that match them (from 1), and the counters by
-// which the last block of a launch knows itself.
-struct RowState {
-  unsigned prefix;
-  unsigned rank;
-  unsigned hist_done;
-  unsigned count_done;
-  unsigned scatter_done;
-  unsigned sort_done;
-  unsigned pad[2];
+struct Fixed {
+  unsigned tab[RADIX];                  // this block's keys of each digit, a sort pass
+  unsigned base[RADIX];                 // each digit's first position in this block
+  unsigned warp_sums[SEL_WARPS];
+  unsigned warp_eq[SEL_WARPS];          // keys equal to T before each warp, in the row
+  unsigned range_sum[SEL_PASSES];       // the cluster's keys in this block's bins, a pass
+  unsigned prefix, rank;                // T's digits so far, the rank left
+  unsigned range, range_before;         // the range that holds the rank
+  unsigned eq;                          // this block's keys equal to T
+  unsigned list_n[SEL_WARPS];           // each warp's candidates kept in its part, or NO_LIST
 };
+static_assert(sizeof(Fixed) <= STATIC_BYTES, "the fixed part outgrew its room");
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+struct Layout {
+  size_t red, region1, cnt, region0, total;
+};
+
+// The shared memory of a plan: C blocks a row, chunk elements and kpb keys
+// a block.
+__host__ __device__ inline Layout layout(int C, int chunk, int kpb, int staged,
+                                         int keys_shared) {
+  Layout l;
+  const size_t keys = keys_shared ? 8 * static_cast<size_t>(kpb) : 0;
+  const size_t stage = staged ? 4 * (static_cast<size_t>(chunk) + 4) : 0;
+  l.red = STATIC_BYTES;
+  l.region1 = l.red + (C > 1 ? SEL_PASSES * 4 * static_cast<size_t>(HIST_BINS / C) : 0);
+  l.cnt = l.region1 + align16(keys > HIST_BYTES ? keys : HIST_BYTES);
+  l.region0 = l.cnt + CNT_BYTES;
+  l.total = l.region0 + align16(stage > keys ? stage : keys);
+  return l;
+}
 
 __device__ __forceinline__ unsigned order_key(float v) {
   unsigned u = __float_as_uint(v);
@@ -142,14 +205,10 @@ __device__ __forceinline__ unsigned same_digit_lanes(unsigned d, bool valid) {
   return m;
 }
 
-// Exclusive prefix sum of v over the block's THREADS threads in thread
-// order; *total gets the block's sum. warp_sums holds THREADS / 32 values.
-// Every thread of the block must call it.
-template <int THREADS>
+// Exclusive prefix sum of v over the block in thread order; *total gets
+// the block's sum. Every thread of the block must call it.
 __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* warp_sums,
                                                          unsigned* total) {
-  static_assert(THREADS % 32 == 0 && THREADS <= 1024, "a block of whole warps");
-  constexpr int WARPS = THREADS / 32;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   unsigned inc = v;
 #pragma unroll
@@ -160,421 +219,667 @@ __device__ __forceinline__ unsigned block_exclusive_scan(unsigned v, unsigned* w
   if (lane == 31) warp_sums[w] = inc;
   __syncthreads();
   if (w == 0) {
-    unsigned s = lane < WARPS ? warp_sums[lane] : 0u;
+    unsigned s = lane < SEL_WARPS ? warp_sums[lane] : 0u;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const unsigned n = __shfl_up_sync(FULL, s, o);
       if (lane >= o) s += n;
     }
-    if (lane < WARPS) warp_sums[lane] = s;
+    if (lane < SEL_WARPS) warp_sums[lane] = s;
   }
   __syncthreads();
   const unsigned before = w ? warp_sums[w - 1] : 0u;
-  *total = warp_sums[WARPS - 1];
+  *total = warp_sums[SEL_WARPS - 1];
   __syncthreads();  // warp_sums free for the next call
   return before + inc - v;
 }
 
-// Whether this block is the last of its row's gridDim.x blocks to get
-// here: every thread's global writes before the call are visible to that
-// block. The counter is set back to 0 by the last block for the next
-// launch that uses it.
-__device__ __forceinline__ bool last_block(unsigned* done, bool* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const bool last = atomicAdd(done, 1u) == gridDim.x - 1;
-    if (last) *done = 0;
-    *flag = last;
-  }
-  __syncthreads();
-  if (*flag) __threadfence();
-  return *flag;
+// Split cluster barrier: every thread of every block of the cluster
+// arrives (release: its earlier writes, shared and global, are visible
+// after the wait), then waits (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// One digit of the threshold: blocks (bx, row) histogram the keys of
-// [bx * chunk, +chunk) that match the row's prefix under hi_mask; the last
-// block of the row picks the bin of the rank-th key. n_out: the rank on
-// the first pass (whose prefix is empty); later passes read it from the
-// row's state.
-__global__ void __launch_bounds__(SEL_THREADS)
-select_hist_kernel(const float* __restrict__ priority, RowState* state, unsigned* hist, int N,
-                   int chunk, int shift, int bits, unsigned hi_mask, int n_out, int first) {
-  __shared__ unsigned sh[HIST_BINS];
-  __shared__ unsigned warp_sums[SEL_WARPS];
-  __shared__ bool flag;
-  const int row = blockIdx.y;
-  const int t = threadIdx.x;
-  RowState* st = state + row;
-  unsigned* h = hist + static_cast<size_t>(row) * HIST_BINS;
-  for (int i = t; i < HIST_BINS; i += SEL_THREADS) sh[i] = 0;
-  const unsigned prefix = first ? 0u : st->prefix;
-  __syncthreads();
-  const float* p = priority + static_cast<long long>(row) * N;
-  const int lo = blockIdx.x * chunk;
-  const int hi = min(N, lo + chunk);
-  const unsigned digit_mask = (1u << bits) - 1u;
-  for (int i0 = lo; i0 < hi; i0 += SEL_THREADS) {
-    const int i = i0 + t;
-    if (i < hi) {
-      const unsigned key = order_key(p[i]);
-      if ((key & hi_mask) == prefix) atomicAdd(&sh[(key >> shift) & digit_mask], 1u);
+// Adds a warp's NB elements a lane to the histogram h, where match holds:
+// the lanes' elements in the warp's largest bin (the +inf run of a depth
+// frame) with one atomic, the others one each. Every lane must call it.
+template <int NB>
+__device__ __forceinline__ void hist_add(unsigned* h, const unsigned (&bin)[NB],
+                                         const bool (&match)[NB]) {
+  unsigned top = 0;
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    any |= match[c];
+    if (match[c]) top = max(top, bin[c]);
+  }
+  if (!__any_sync(FULL, any)) return;
+  top = __reduce_max_sync(FULL, top);
+  unsigned n = 0;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    if (match[c] && bin[c] == top) ++n;
+    else if (match[c]) atomicAdd(&h[bin[c]], 1u);
+  }
+  n = __reduce_add_sync(FULL, n);
+  if ((threadIdx.x & 31) == 0) atomicAdd(&h[top], n);
+}
+
+// The keys of a block's slice: from shared memory (staged) or converted
+// from the priorities in global memory (streamed).
+template <bool STAGED>
+struct SliceKeys {
+  const float* g;     // the slice's first priority
+  const unsigned* s;  // its first key in shared memory
+  __device__ __forceinline__ unsigned operator()(int j) const {
+    if (STAGED) return s[j];
+    return order_key(__ldg(g + j));
+  }
+};
+
+// A warp's elements after the second digit pass, in index order: its part
+// [ws, ws + n) of the slice, or (list set) its candidates, key << 32 |
+// index.
+template <bool STAGED>
+struct Sweep {
+  SliceKeys<STAGED> keys;
+  const unsigned long long* list;
+  int lo, ws, n;
+  __device__ __forceinline__ unsigned key(int i, unsigned* idx) const {
+    if (list) {
+      const unsigned long long e = list[i];
+      *idx = static_cast<unsigned>(e);
+      return static_cast<unsigned>(e >> 32);
+    }
+    *idx = static_cast<unsigned>(lo + ws + i);
+    return keys(ws + i);
+  }
+};
+
+// The staged slice's geometry: element j of the slice at s[mis + j], so
+// that elements at 16-byte aligned global addresses land at 16-byte
+// aligned words, as the float4 loads and stores need; the body [head,
+// head + body) by float4s, the rest by plain loads.
+struct Stage {
+  int mis, head, body;
+  __device__ Stage(const float* g, int len) {
+    mis = static_cast<int>((reinterpret_cast<size_t>(g) >> 2) & 3);
+    head = min(len, (4 - mis) & 3);
+    body = (len - head) & ~3;
+  }
+};
+
+// The first digit's histogram (bins by key >> shift) of the slice read
+// from global memory as float4s, VEC a lane at once, each key stored at
+// its place in shared memory where the slice is staged (s: its first
+// key); the head and tail by plain loads.
+template <bool STAGED>
+__device__ void first_histogram(const float* g, int len, const Stage& st, unsigned* s,
+                                unsigned* h, int shift) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (w == 0) {  // the head and tail: at most 3 elements each
+    int j = -1;
+    if (lane < st.head) j = lane;
+    else if (lane >= 8 && lane - 8 < len - st.head - st.body) j = st.head + st.body + lane - 8;
+    unsigned bin[1] = {0};
+    bool match[1] = {j >= 0};
+    if (j >= 0) {
+      const unsigned key = order_key(g[j]);
+      if (STAGED) s[j] = key;
+      bin[0] = key >> shift;
+    }
+    hist_add(h, bin, match);
+  }
+  const int units = st.body / 4;
+  const float4* g4 = reinterpret_cast<const float4*>(g + st.head);
+  uint4* s4 = reinterpret_cast<uint4*>(s + st.head);
+  for (int u0 = w * 32 * VEC; u0 < units; u0 += SEL_THREADS * VEC) {
+    float4 x[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      const int u = u0 + 32 * c + lane;
+      if (u < units) x[c] = __ldg(g4 + u);
+    }
+    unsigned bin[4 * VEC];
+    bool match[4 * VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      const int u = u0 + 32 * c + lane;
+      const uint4 k = make_uint4(order_key(x[c].x), order_key(x[c].y), order_key(x[c].z),
+                                 order_key(x[c].w));
+      if (STAGED && u < units) s4[u] = k;
+      bin[4 * c] = k.x >> shift;
+      bin[4 * c + 1] = k.y >> shift;
+      bin[4 * c + 2] = k.z >> shift;
+      bin[4 * c + 3] = k.w >> shift;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) match[4 * c + e] = u < units;
+    }
+    hist_add(h, bin, match);
+  }
+}
+
+// The second digit's histogram (bins by the key's bits 10..20, of the keys
+// whose top 11 bits are d0) of a staged slice, each warp over its part
+// [ws, we) in index order; and the candidates, the keys whose top 11 bits
+// are at most d0 (the only ones the later passes need), packed with their
+// indices into the warp's part itself, from its start, 8-byte aligned: an
+// entry overwrites only elements the warp has already read. A warp whose
+// candidates outgrow what it has read stops keeping them and puts back the
+// keys it overwrote (from global memory): f.list_n[w] = NO_LIST, else the
+// number it kept.
+template <bool STAGED>
+__device__ void candidates_histogram(SliceKeys<STAGED> keys, int lo, int ws, int we,
+                                     unsigned* h, unsigned d0, Fixed& f) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned* part = const_cast<unsigned*>(keys.s) + ws;
+  const int off = static_cast<int>((reinterpret_cast<size_t>(part) >> 2) & 1);
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(part + off);
+  const int n = we - ws;
+  unsigned kept = 0;
+  bool full = false;
+  for (int i0 = 0; i0 < n; i0 += 32 * SUB) {
+    unsigned key[SUB], bin[SUB];
+    bool match[SUB];
+#pragma unroll
+    for (int c = 0; c < SUB; ++c) {
+      const int i = i0 + 32 * c + lane;
+      key[c] = i < n ? keys(ws + i) : FULL;
+      match[c] = i < n && (key[c] >> 21) == d0;
+      bin[c] = (key[c] >> 10) & (HIST_BINS - 1);
+    }
+    hist_add(h, bin, match);
+    const int read = min(i0 + 32 * SUB, n);  // elements read: all of this round's
+#pragma unroll
+    for (int c = 0; c < SUB; ++c) {
+      const int i = i0 + 32 * c + lane;
+      const bool cand = i < n && (key[c] >> 21) <= d0;
+      const unsigned b = __ballot_sync(FULL, cand);
+      if (full || !b) continue;
+      if (off + 2 * static_cast<int>(kept + __popc(b)) > read) {
+        full = true;
+        continue;
+      }
+      if (cand) {
+        list[kept + __popc(b & lanemask_lt())] =
+            (static_cast<unsigned long long>(key[c]) << 32) | static_cast<unsigned>(lo + ws + i);
+      }
+      kept += __popc(b);
     }
   }
-  __syncthreads();
-  for (int i = t; i < HIST_BINS; i += SEL_THREADS) {
-    if (sh[i]) atomicAdd(&h[i], sh[i]);
-  }
-  if (!last_block(&st->hist_done, &flag)) return;
-  // the row's histogram is complete: thread t holds bins [4t, 4t + 4)
-  constexpr int PER = HIST_BINS / SEL_THREADS;
-  unsigned c[PER], s = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    c[j] = __ldcg(&h[PER * t + j]);
-    s += c[j];
-    h[PER * t + j] = 0;  // clear for the next pass
-  }
-  const unsigned rank = first ? static_cast<unsigned>(n_out) : st->rank;
-  unsigned total;
-  const unsigned before = block_exclusive_scan<SEL_THREADS>(s, warp_sums, &total);
-  // exactly one thread holds the rank-th key (total >= rank >= 1)
-  if (before < rank && rank <= before + s) {
-    unsigned cum = before;
-    int j = 0;
-    while (cum + c[j] < rank) cum += c[j++];
-    st->prefix = prefix | (static_cast<unsigned>(PER * t + j) << shift);
-    st->rank = rank - cum;
-  }
-}
-
-// Compaction, first half: per block of CTILE elements the counts of keys
-// below T and equal to T, into blk_lt / blk_eq (row-major, nblk a row); the
-// last block of the row makes them exclusive prefixes over the blocks.
-__global__ void __launch_bounds__(SEL_THREADS)
-select_count_kernel(const float* __restrict__ priority, RowState* state, unsigned* blk_lt,
-                    unsigned* blk_eq, int N) {
-  __shared__ unsigned warp_sums[SEL_WARPS];
-  __shared__ bool flag;
-  const int row = blockIdx.y;
-  const int t = threadIdx.x;
-  const int nblk = gridDim.x;
-  RowState* st = state + row;
-  const unsigned T = st->prefix;
-  const float* p = priority + static_cast<long long>(row) * N;
-  const int lo = blockIdx.x * CTILE;
-  const int hi = min(N, lo + CTILE);
-  unsigned lt = 0, eq = 0;
-  for (int i = lo + t; i < hi; i += SEL_THREADS) {
-    const unsigned key = order_key(p[i]);
-    lt += key < T;
-    eq += key == T;
-  }
-  unsigned total_lt, total_eq;
-  block_exclusive_scan<SEL_THREADS>(lt, warp_sums, &total_lt);
-  block_exclusive_scan<SEL_THREADS>(eq, warp_sums, &total_eq);
-  unsigned* row_lt = blk_lt + static_cast<size_t>(row) * nblk;
-  unsigned* row_eq = blk_eq + static_cast<size_t>(row) * nblk;
-  if (t == 0) {
-    row_lt[blockIdx.x] = total_lt;
-    row_eq[blockIdx.x] = total_eq;
-  }
-  if (!last_block(&st->count_done, &flag)) return;
-  unsigned carry_lt = 0, carry_eq = 0;
-  for (int b0 = 0; b0 < nblk; b0 += SEL_THREADS) {
-    const int b = b0 + t;
-    const unsigned a = b < nblk ? __ldcg(&row_lt[b]) : 0u;
-    const unsigned e = b < nblk ? __ldcg(&row_eq[b]) : 0u;
-    unsigned sum_lt, sum_eq;
-    const unsigned ex_lt = block_exclusive_scan<SEL_THREADS>(a, warp_sums, &sum_lt);
-    const unsigned ex_eq = block_exclusive_scan<SEL_THREADS>(e, warp_sums, &sum_eq);
-    if (b < nblk) {
-      row_lt[b] = carry_lt + ex_lt;
-      row_eq[b] = carry_eq + ex_eq;
-    }
-    carry_lt += sum_lt;
-    carry_eq += sum_eq;
-  }
-}
-
-__device__ __forceinline__ unsigned sort_digit(unsigned long long key, int shift) {
-  return static_cast<unsigned>(key >> shift) & (RADIX - 1);
-}
-
-// The last block of a row turns the row's RADIX * ntiles digit counts c,
-// (digit, tile) order, into exclusive offsets: thread t takes a run of
-// consecutive counts, loaded SCAN_CHUNK at a time (the loads of a chunk
-// overlap).
-template <int THREADS>
-__device__ __forceinline__ void scan_digit_counts(unsigned* c, int ntiles, unsigned* warp_sums) {
-  const int total_n = RADIX * ntiles;
-  const int per = (total_n + THREADS - 1) / THREADS;
-  const int a = min(total_n, static_cast<int>(threadIdx.x) * per);
-  const int b = min(total_n, a + per);
-  unsigned sum = 0;
-  for (int i0 = a; i0 < b; i0 += SCAN_CHUNK) {
-    unsigned v[SCAN_CHUNK];
-#pragma unroll
-    for (int j = 0; j < SCAN_CHUNK; ++j) v[j] = i0 + j < b ? __ldcg(&c[i0 + j]) : 0u;
-#pragma unroll
-    for (int j = 0; j < SCAN_CHUNK; ++j) sum += v[j];
-  }
-  unsigned total;
-  unsigned run = block_exclusive_scan<THREADS>(sum, warp_sums, &total);
-  for (int i0 = a; i0 < b; i0 += SCAN_CHUNK) {
-    unsigned v[SCAN_CHUNK];
-#pragma unroll
-    for (int j = 0; j < SCAN_CHUNK; ++j) v[j] = i0 + j < b ? __ldcg(&c[i0 + j]) : 0u;
-#pragma unroll
-    for (int j = 0; j < SCAN_CHUNK; ++j) {
-      if (i0 + j < b) c[i0 + j] = run;
-      run += v[j];
+  if (full) {
+    __syncwarp();
+    for (int i = off + lane; i < off + 2 * static_cast<int>(kept); i += 32) {
+      part[i] = order_key(__ldg(keys.g + ws + i));
     }
   }
+  if (lane == 0) f.list_n[w] = full ? NO_LIST : kept;
 }
 
-// Compaction, second half: every selected element of the block's tile as
-// its packed key (key << 32 | index) at its place in index order among
-// the row's n_out selected elements; each counted in counts, at its first
-// sort digit and the sort tile it lands in, and the last block of the row
-// scans those counts for the first sort pass.
-__global__ void __launch_bounds__(SEL_THREADS)
-select_scatter_kernel(const float* __restrict__ priority, RowState* state,
-                      const unsigned* blk_lt, const unsigned* blk_eq,
-                      unsigned long long* keys, unsigned* counts, int N, int n_out, int ntiles,
-                      int tile_keys) {
-  __shared__ unsigned warp_sums[SEL_WARPS];
-  __shared__ bool flag;
-  const int row = blockIdx.y;
-  const int t = threadIdx.x;
-  const int nblk = gridDim.x;
-  const unsigned T = state[row].prefix;
-  const unsigned need = state[row].rank;
-  const float* p = priority + static_cast<long long>(row) * N;
-  unsigned long long* out = keys + static_cast<long long>(row) * n_out;
-  unsigned* c = counts + static_cast<size_t>(row) * RADIX * ntiles;
-  unsigned lt_base = blk_lt[static_cast<size_t>(row) * nblk + blockIdx.x];
-  unsigned eq_base = blk_eq[static_cast<size_t>(row) * nblk + blockIdx.x];
-  const int lo = blockIdx.x * CTILE;
-  const int hi = min(N, lo + CTILE);
-  // round r takes elements lo + r * SEL_THREADS + t: index order is (r, t)
-  for (int r = 0; r < CT_ROUNDS; ++r) {
-    const int i = lo + r * SEL_THREADS + t;
-    unsigned key = 0;
-    bool is_lt = false, is_eq = false;
-    if (i < hi) {
-      key = order_key(p[i]);
-      is_lt = key < T;
-      is_eq = key == T;
+// The histogram, by the digit at shift, of a warp's elements (Sweep) that
+// match prefix under hi_mask.
+template <bool STAGED>
+__device__ void sweep_histogram(const Sweep<STAGED>& src, unsigned* h, unsigned prefix,
+                                unsigned hi_mask, int shift, unsigned dmask) {
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < src.n; i0 += 32 * SUB) {
+    unsigned bin[SUB];
+    bool match[SUB];
+#pragma unroll
+    for (int c = 0; c < SUB; ++c) {
+      const int i = i0 + 32 * c + lane;
+      unsigned idx;
+      const unsigned key = i < src.n ? src.key(i, &idx) : 0u;
+      match[c] = i < src.n && (key & hi_mask) == prefix;
+      bin[c] = (key >> shift) & dmask;
     }
-    // both counts in one scan: below T in the low half, equal in the high
-    unsigned total;
-    const unsigned ex = block_exclusive_scan<SEL_THREADS>(
-        static_cast<unsigned>(is_lt) | (static_cast<unsigned>(is_eq) << 16), warp_sums, &total);
-    const unsigned lt_before = lt_base + (ex & 0xffffu);
-    const unsigned eq_before = eq_base + (ex >> 16);
-    if (is_lt || (is_eq && eq_before < need)) {
-      const unsigned pos = lt_before + min(eq_before, need);
-      const unsigned long long packed =
-          (static_cast<unsigned long long>(key) << 32) | static_cast<unsigned>(i);
-      out[pos] = packed;
-      atomicAdd(&c[sort_digit(packed, 32) * ntiles + pos / tile_keys], 1u);
-    }
-    lt_base += total & 0xffffu;
-    eq_base += total >> 16;
+    hist_add(h, bin, match);
   }
-  if (!last_block(&state[row].scatter_done, &flag)) return;
-  scan_digit_counts<SEL_THREADS>(c, ntiles, warp_sums);
 }
 
-// One stable radix pass over the row's n selected keys, by the digit at
-// shift: block j takes the TILE = SORT_THREADS * ROUNDS keys [j * TILE,
-// +TILE) of src, warp w of it the 32 * ROUNDS consecutive keys from
-// j * TILE + w * 32 * ROUNDS. Each warp counts its keys' digits;
-// thread d of the block turns them into the warps' offsets, from the tile's
-// offset for digit d in cur (the scanned (digit, tile) counts); each warp
-// writes its keys, in order, at their digit's offset plus their rank among
-// the warp's earlier keys of that digit. Each written key is counted in next
-// at its next digit and the tile of dst it lands in, and the last block of
-// the row scans those counts for the next pass. The last pass writes the
-// indices as int64 instead.
-template <int ROUNDS>
-__global__ void __launch_bounds__(SORT_THREADS)
-select_sort_pass_kernel(const unsigned long long* __restrict__ src, unsigned long long* dst,
-                        long long* idx, const unsigned* cur, unsigned* next, RowState* state,
-                        int n, int shift) {
-  __shared__ unsigned cnt[SORT_WARPS][RADIX];  // counts, then offsets
-  __shared__ unsigned warp_sums[SORT_WARPS];
-  __shared__ bool flag;
-  const int row = blockIdx.y;
+// One digit of the threshold, once this block's histogram h is complete:
+// the digit of the rank-th key among those that match f.prefix, into
+// f.prefix and f.rank, the same in every block; on the last pass this
+// block's keys at it, which are T, into f.eq. Where C > 1 the cluster's
+// sums of bins [q * L, +L) are kept by block q in red (this pass's L
+// words, cleared at the start): each block
+// adds its nonzero bins into their owners' (DSMEM atomics), a cluster
+// barrier, then every block reads the C range totals, finds the range of
+// the rank and reads its owner's L sums.
+__device__ void pick_digit(cg::cluster_group& cluster, Fixed& f, unsigned* h, unsigned* red,
+                           int pass, unsigned dmask, bool last) {
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int ntiles = gridDim.x;
-  constexpr int TILE = SORT_THREADS * ROUNDS;
-  const int base = blockIdx.x * TILE + w * 32 * ROUNDS;
-  const long long row_keys = static_cast<long long>(row) * n;
-  const size_t row_counts = static_cast<size_t>(row) * RADIX * ntiles;
-  unsigned long long k[ROUNDS];
-  unsigned peers[ROUNDS];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int L = HIST_BINS / C;
+  const int shift = sel_shift(pass);
+  const unsigned* sums = h;  // the range's sums: the whole histogram for C = 1
+  unsigned before = 0;
+  if (C > 1) {
+    // bins [4t, 4t + 4) lie in one owner's range (L >= 128)
+    unsigned v[BINS_PER_THREAD], s = 0;
 #pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const int e = base + r * 32 + lane;
-    k[r] = e < n ? src[row_keys + e] : 0ull;
-  }
-  for (int d = lane; d < RADIX; d += 32) cnt[w][d] = 0;
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const bool valid = base + r * 32 + lane < n;
-    const unsigned d = sort_digit(k[r], shift);
-    peers[r] = same_digit_lanes<RADIX_BITS>(d, valid);
-    if (valid && __ffs(peers[r]) - 1 == lane) cnt[w][d] += __popc(peers[r]);
-    __syncwarp();
-  }
-  __syncthreads();
-  {
-    unsigned run = cur[row_counts + static_cast<size_t>(t) * ntiles + blockIdx.x];
-#pragma unroll
-    for (int v = 0; v < SORT_WARPS; ++v) {
-      const unsigned c = cnt[v][t];
-      cnt[v][t] = run;
-      run += c;
+    for (int e = 0; e < BINS_PER_THREAD; ++e) {
+      v[e] = h[BINS_PER_THREAD * t + e];
+      s += v[e];
     }
+    if (s) {
+      const int owner = BINS_PER_THREAD * t / L;
+      unsigned* o = cluster.map_shared_rank(red, owner);
+#pragma unroll
+      for (int e = 0; e < BINS_PER_THREAD; ++e) {
+        if (v[e]) atomicAdd(o + BINS_PER_THREAD * t + e - owner * L, v[e]);
+      }
+      atomicAdd(cluster.map_shared_rank(&f.range_sum[pass], owner), s);
+    }
+    cluster.sync();  // every block's bins are added
+    if (w == 0) {    // the range that holds the rank
+      const unsigned s = lane < C ? *cluster.map_shared_rank(&f.range_sum[pass], lane) : 0u;
+      unsigned inc = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned n = __shfl_up_sync(FULL, inc, o);
+        if (lane >= o) inc += n;
+      }
+      if (lane < C && inc - s < f.rank && f.rank <= inc) {
+        f.range = lane;
+        f.range_before = inc - s;
+      }
+    }
+    __syncthreads();
+    sums = cluster.map_shared_rank(red, static_cast<int>(f.range));
+    before = f.range_before;
+  }
+  // the bin within the range: thread t holds sums [E t, E t + E)
+  const int E = (L + SEL_THREADS - 1) / SEL_THREADS;
+  unsigned c[BINS_PER_THREAD], s = 0;
+#pragma unroll
+  for (int e = 0; e < BINS_PER_THREAD; ++e) {
+    const int i = E * t + e;
+    c[e] = e < E && i < L ? sums[i] : 0u;
+    s += c[e];
+  }
+  const unsigned rank = f.rank - before, prefix = f.prefix;
+  unsigned total;
+  const unsigned ex = block_exclusive_scan(s, f.warp_sums, &total);
+  if (ex < rank && rank <= ex + s) {  // exactly one thread
+    unsigned cum = ex;
+    int e = 0;
+    while (cum + c[e] < rank) cum += c[e++];
+    const unsigned digit = static_cast<unsigned>((C > 1 ? f.range * L : 0) + E * t + e);
+    f.prefix = prefix | (digit << shift);
+    f.rank = rank - cum;
   }
   __syncthreads();
-  const bool final_pass = idx != nullptr;
+  if (last && t == 0) f.eq = h[(f.prefix >> shift) & dmask];
+}
+
+// A key's place in the buffer of the selected keys: block pos / kpb's
+// shared memory, or the global buffer.
+__device__ __forceinline__ unsigned long long* key_slot(cg::cluster_group& cluster,
+                                                        unsigned long long* local,
+                                                        unsigned long long* global, int pos,
+                                                        int kpb) {
+  if (global) return global + pos;
+  return cluster.map_shared_rank(local, pos / kpb) + pos % kpb;
+}
+
+__device__ __forceinline__ unsigned sort_digit(unsigned long long key, int pass) {
+  return static_cast<unsigned>(key >> (32 + RADIX_BITS * pass)) & (RADIX - 1);
+}
+
+// The positions of a sort pass's digits, once each warp's digit counts
+// cnt[w][d] (the keys it takes, in order) are complete: f.tab gets this
+// block's count of each digit, a cluster barrier, then f.base[d] the
+// first position of digit d in this block (the keys of smaller digits in
+// the cluster, and of digit d in the blocks before it), and cnt[w][d] the
+// keys of digit d in the warps before w.
+__device__ void digit_offsets(cg::cluster_group& cluster, Fixed& f, unsigned (*cnt)[RADIX]) {
+  const int t = threadIdx.x;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  __syncthreads();
+  if (t < RADIX) {
+    unsigned s = 0;
 #pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const bool valid = base + r * 32 + lane < n;
-    const unsigned d = sort_digit(k[r], shift);
-    unsigned pos = 0;
-    if (valid) pos = cnt[w][d] + __popc(peers[r] & lanemask_lt());
-    __syncwarp();
-    if (valid && __ffs(peers[r]) - 1 == lane) cnt[w][d] += __popc(peers[r]);
-    __syncwarp();
-    if (valid) {
-      if (final_pass) {
-        idx[row_keys + pos] = static_cast<long long>(k[r] & 0xffffffffull);
-      } else {
-        dst[row_keys + pos] = k[r];
-        atomicAdd(&next[row_counts + sort_digit(k[r], shift + RADIX_BITS) * ntiles +
-                        pos / TILE], 1u);
+    for (int v = 0; v < SEL_WARPS; ++v) s += cnt[v][t];
+    f.tab[t] = s;
+  }
+  cluster.sync();  // every block's counts
+  unsigned total = 0, run = 0;
+  if (t < RADIX) {
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q) {  // the loads in flight together
+      if (q < C) {
+        const unsigned c = cluster.map_shared_rank(f.tab, q)[t];
+        total += c;
+        if (q < r) run += c;
       }
     }
   }
-  if (final_pass) return;  // the same on every thread
-  if (!last_block(&state[row].sort_done, &flag)) return;
-  scan_digit_counts<SORT_THREADS>(next + row_counts, ntiles, warp_sums);
+  unsigned all;
+  run += block_exclusive_scan(total, f.warp_sums, &all);
+  if (t < RADIX) {
+    f.base[t] = run;
+    unsigned before = 0;
+#pragma unroll
+    for (int v = 0; v < SEL_WARPS; ++v) {
+      const unsigned c = cnt[v][t];
+      cnt[v][t] = before;
+      before += c;
+    }
+  }
+  __syncthreads();
 }
 
-size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
-
-struct Layout {
-  size_t state, hist, counts, head, blk_lt, blk_eq, keys_a, keys_b, total;
-  int nblk, ntiles;
-};
-
-Layout layout(int B, int N, int n_out) {
-  Layout l;
-  l.nblk = (N + CTILE - 1) / CTILE;
-  const int tile_keys = SORT_THREADS * sort_rounds(n_out);
-  l.ntiles = (n_out + tile_keys - 1) / tile_keys;
-  size_t at = 0;
-  l.state = at;
-  at = align_up(at + sizeof(RowState) * B);
-  l.hist = at;
-  at = align_up(at + sizeof(unsigned) * HIST_BINS * B);
-  l.counts = at;  // a (B, RADIX, ntiles) table of digit counts for each sort pass
-  at = align_up(at + sizeof(unsigned) * SORT_PASSES * RADIX * static_cast<size_t>(l.ntiles) * B);
-  l.head = at;  // set to 0 before each call: states, histograms, digit counts
-  l.blk_lt = at;
-  at = align_up(at + sizeof(unsigned) * static_cast<size_t>(l.nblk) * B);
-  l.blk_eq = at;
-  at = align_up(at + sizeof(unsigned) * static_cast<size_t>(l.nblk) * B);
-  l.keys_a = at;
-  at = align_up(at + sizeof(unsigned long long) * static_cast<size_t>(n_out) * B);
-  l.keys_b = at;
-  at = align_up(at + sizeof(unsigned long long) * static_cast<size_t>(n_out) * B);
-  l.total = at;
-  return l;
+// A warp's round of keys in a sort: the position of each key with sel set,
+// its digit d's place (f.base[d] + cnt[w][d]) plus its rank among the
+// round's earlier keys of that digit, which it then adds to cnt[w][d].
+__device__ __forceinline__ unsigned sort_position(Fixed& f, unsigned* cnt_w, unsigned d,
+                                                  bool sel) {
+  const unsigned peers = same_digit_lanes<RADIX_BITS>(d, sel);
+  const unsigned pos = sel ? f.base[d] + cnt_w[d] + __popc(peers & lanemask_lt()) : 0u;
+  __syncwarp();
+  if (sel && __ffs(peers) - 1 == static_cast<int>(threadIdx.x & 31)) cnt_w[d] += __popc(peers);
+  __syncwarp();
+  return pos;
 }
 
-bool valid_shape(int B, int N, int n_out) {
-  return B >= 0 && B <= 65535 && N >= 1 && n_out >= 1 && n_out <= N;
+// A warp's round of keys counted at their digits.
+__device__ __forceinline__ void count_digits(unsigned* cnt_w, unsigned d, bool sel) {
+  const unsigned peers = same_digit_lanes<RADIX_BITS>(d, sel);
+  if (sel && __ffs(peers) - 1 == static_cast<int>(threadIdx.x & 31)) cnt_w[d] += __popc(peers);
+  __syncwarp();
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(SEL_THREADS, 1)
+select_cluster_kernel(const float* __restrict__ priority, unsigned long long* gkeys,
+                      long long* __restrict__ order, int B, int N, int n_out, int chunk,
+                      int kpb, int keys_shared) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Fixed& f = *reinterpret_cast<Fixed*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  const int row = blockIdx.x / C;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int lo = min(N, r * chunk);
+  const int len = min(N, lo + chunk) - lo;
+  const Layout l = layout(C, chunk, kpb, STAGED, keys_shared);
+  unsigned* red = reinterpret_cast<unsigned*>(smem + l.red);
+  unsigned* h = reinterpret_cast<unsigned*>(smem + l.region1);
+  unsigned long long* keys_a = reinterpret_cast<unsigned long long*>(smem + l.region1);
+  unsigned(*cnt)[RADIX] = reinterpret_cast<unsigned(*)[RADIX]>(smem + l.cnt);
+  unsigned* staged = reinterpret_cast<unsigned*>(smem + l.region0);
+  unsigned long long* keys_b = reinterpret_cast<unsigned long long*>(smem + l.region0);
+  unsigned long long* g_a = keys_shared ? nullptr : gkeys + static_cast<size_t>(row) * n_out;
+  unsigned long long* g_b =
+      keys_shared ? nullptr : gkeys + (static_cast<size_t>(B) + row) * n_out;
+  const float* g = priority + static_cast<size_t>(row) * N + lo;
+  const int L = HIST_BINS / C;
+
+  Stage st(g, len);
+  for (int i = t; i < HIST_BINS; i += SEL_THREADS) h[i] = 0;
+  if (C > 1) {
+    for (int i = t; i < SEL_PASSES * L; i += SEL_THREADS) red[i] = 0;
+  }
+  for (int i = t; i < SEL_WARPS * RADIX; i += SEL_THREADS) (&cnt[0][0])[i] = 0;
+  if (t < SEL_PASSES) f.range_sum[t] = 0;
+  if (t == 0) {
+    f.prefix = 0;
+    f.rank = static_cast<unsigned>(n_out);
+  }
+  // every block of the cluster runs and has cleared what the others add
+  // into before any DSMEM access
+  cluster_arrive();
+  __syncthreads();
+
+  // 1. the threshold
+  SliceKeys<STAGED> keys{g, staged + st.mis};
+  // a warp's part of the slice, in index order, from the second digit on
+  const int per_warp = ((len + SEL_WARPS - 1) / SEL_WARPS + 32 * SUB - 1) & ~(32 * SUB - 1);
+  const int ws = min(len, w * per_warp), we = min(len, ws + per_warp);
+  Sweep<STAGED> sweep{keys, nullptr, lo, ws, we - ws};
+  unsigned hi_mask = 0;
+  for (int pass = 0; pass < SEL_PASSES; ++pass) {
+    const int shift = sel_shift(pass);
+    const unsigned dmask = (1u << sel_bits(pass)) - 1u;
+    if (pass > 0) {
+      __syncthreads();  // the last pass's reads of h are done
+      for (int i = t; i < HIST_BINS; i += SEL_THREADS) h[i] = 0;
+      __syncthreads();
+    }
+    if (STAGED && pass == 1) {
+      candidates_histogram(keys, lo, ws, we, h, f.prefix >> 21, f);
+    } else if (pass > 0) {
+      sweep_histogram(sweep, h, f.prefix, hi_mask, shift, dmask);
+    } else {
+      first_histogram<STAGED>(g, len, st, staged + st.mis, h, shift);
+    }
+    if (pass == 0) cluster_wait();
+    __syncthreads();  // this block's histogram is complete
+    pick_digit(cluster, f, h, red + pass * L, pass, dmask, pass == SEL_PASSES - 1);
+    hi_mask |= dmask << shift;
+    if (STAGED && pass == 1 && f.list_n[w] != NO_LIST) {  // the candidates from here on
+      const int off = static_cast<int>((reinterpret_cast<size_t>(staged + st.mis + ws) >> 2) & 1);
+      sweep.list = reinterpret_cast<const unsigned long long*>(staged + st.mis + ws + off);
+      sweep.n = static_cast<int>(f.list_n[w]);
+    }
+  }
+  const unsigned T = f.prefix, need = f.rank;
+  __syncthreads();   // f.eq complete
+  cluster_arrive();  // every block's f.eq, waited for after the count
+
+  // 2. the selected keys: each key below T, and each key equal to it among
+  // the first need of them, in index order; counted by warp and first sort
+  // digit, then written at their places after the first sort pass
+  const unsigned dT = T & (RADIX - 1);
+  const int sn = sweep.n;
+  {
+    unsigned eq = 0;
+    for (int i0 = 0; i0 < sn; i0 += 32 * SUB) {
+      unsigned key[SUB];
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        const int i = i0 + 32 * c + lane;
+        unsigned idx;
+        key[c] = i < sn ? sweep.key(i, &idx) : FULL;
+      }
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        const int i = i0 + 32 * c + lane;
+        if (i < sn && key[c] < T) atomicAdd(&cnt[w][key[c] & (RADIX - 1)], 1u);
+        eq += __popc(__ballot_sync(FULL, i < sn && key[c] == T));
+      }
+    }
+    if (lane == 0) f.warp_sums[w] = eq;
+  }
+  cluster_wait();
+  __syncthreads();
+  if (w == 0) {
+    // the keys equal to T in the earlier blocks, and in the earlier warps
+    const unsigned e = lane < C ? cluster.map_shared_rank(&f.eq, lane)[0] : 0u;
+    unsigned ie = e;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned n = __shfl_up_sync(FULL, ie, o);
+      if (lane >= o) ie += n;
+    }
+    const unsigned eq_block = __shfl_sync(FULL, ie - e, r);
+    const unsigned v = lane < SEL_WARPS ? f.warp_sums[lane] : 0u;
+    unsigned inc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned n = __shfl_up_sync(FULL, inc, o);
+      if (lane >= o) inc += n;
+    }
+    if (lane < SEL_WARPS) {
+      // the warp's keys equal to T before it in the row, and how many of
+      // its own it takes: all at digit dT
+      const unsigned eqb = eq_block + inc - v;
+      f.warp_eq[lane] = eqb;
+      cnt[lane][dT] += need > eqb ? min(need - eqb, v) : 0u;
+    }
+  }
+  digit_offsets(cluster, f, cnt);
+  {
+    // a round's SUB rankings are independent; only the running counts
+    // cnt[w][d] pass from one to the next
+    unsigned eq_run = f.warp_eq[w];
+    for (int i0 = 0; i0 < sn; i0 += 32 * SUB) {
+      unsigned key[SUB], idx[SUB], bs[SUB], peers[SUB];
+      bool sel[SUB];
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        const int i = i0 + 32 * c + lane;
+        key[c] = i < sn ? sweep.key(i, &idx[c]) : FULL;
+      }
+      unsigned any = 0;
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        const int i = i0 + 32 * c + lane;
+        const bool is_eq = i < sn && key[c] == T;
+        const unsigned be = __ballot_sync(FULL, is_eq);
+        sel[c] = (i < sn && key[c] < T) || (is_eq && eq_run + __popc(be & lanemask_lt()) < need);
+        eq_run += __popc(be);
+        bs[c] = __ballot_sync(FULL, sel[c]);
+        any |= bs[c];
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        peers[c] = sel[c] ? __match_any_sync(bs[c], key[c] & (RADIX - 1)) : 0u;
+      }
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) {
+        if (!bs[c]) continue;
+        const unsigned d = key[c] & (RADIX - 1);
+        const unsigned pos =
+            sel[c] ? f.base[d] + cnt[w][d] + __popc(peers[c] & lanemask_lt()) : 0u;
+        __syncwarp();
+        if (sel[c] && __ffs(peers[c]) - 1 == lane) cnt[w][d] += __popc(peers[c]);
+        __syncwarp();
+        if (sel[c]) {
+          *key_slot(cluster, keys_a, g_a, static_cast<int>(pos), kpb) =
+              (static_cast<unsigned long long>(key[c]) << 32) | idx[c];
+        }
+      }
+    }
+  }
+  if (!keys_shared) __threadfence();
+  cluster.sync();  // the keys, ordered by their first digit, are in place
+
+  // 3. the other three sort passes over this block's keys
+  const int k_lo = min(n_out, r * kpb);
+  const int m = min(n_out, k_lo + kpb) - k_lo;
+  const int kpw = ((m + SEL_WARPS - 1) / SEL_WARPS + 31) & ~31;
+  const int ks = min(m, w * kpw), ke = min(m, ks + kpw);
+  for (int pass = 1; pass < SORT_PASSES; ++pass) {
+    const unsigned long long* src = (pass & 1) ? (g_a ? g_a + k_lo : keys_a)
+                                               : (g_b ? g_b + k_lo : keys_b);
+    unsigned long long* dst_local = (pass & 1) ? keys_b : keys_a;
+    unsigned long long* dst_global = (pass & 1) ? g_b : g_a;
+    for (int d = lane; d < RADIX; d += 32) cnt[w][d] = 0;
+    __syncwarp();
+    for (int i0 = ks; i0 < ke; i0 += 32) {
+      const int i = i0 + lane;
+      count_digits(cnt[w], i < ke ? sort_digit(src[i], pass) : 0u, i < ke);
+    }
+    digit_offsets(cluster, f, cnt);
+    for (int i0 = ks; i0 < ke; i0 += 32) {
+      const int i = i0 + lane;
+      const bool valid = i < ke;
+      const unsigned long long key = valid ? src[i] : 0ull;
+      const unsigned pos = sort_position(f, cnt[w], sort_digit(key, pass), valid);
+      if (!valid) continue;
+      if (pass == SORT_PASSES - 1) {
+        order[static_cast<size_t>(row) * n_out + pos] =
+            static_cast<long long>(key & 0xffffffffull);
+      } else {
+        *key_slot(cluster, dst_local, dst_global, static_cast<int>(pos), kpb) = key;
+      }
+    }
+    if (!keys_shared) __threadfence();
+    cluster.sync();  // the next pass's keys are in place; at the end, no
+                     // block reads another's shared memory any more
+  }
+}
+
+bool valid_plan(int B, int N, int n_out, int cluster, int staged, int keys_shared) {
+  return B >= 0 && N >= 1 && n_out >= 1 && n_out <= N && cluster >= 1 &&
+         cluster <= MAX_CLUSTER && (cluster & (cluster - 1)) == 0 && (staged == 0 || staged == 1) &&
+         (keys_shared == 0 || keys_shared == 1) &&
+         static_cast<long long>(B) * cluster <= 0x7fffffffLL;
+}
+
+template <bool STAGED>
+int launch(const float* priority, unsigned long long* gkeys, long long* order, int B, int N,
+           int n_out, int cluster, int keys_shared, cudaStream_t stream) {
+  const int chunk = ((N + cluster - 1) / cluster + 3) & ~3;
+  const int kpb = (n_out + cluster - 1) / cluster;
+  const Layout l = layout(cluster, chunk, kpb, STAGED, keys_shared);
+  if (l.total > static_cast<size_t>(MAX_SMEM)) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(select_cluster_kernel<STAGED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(select_cluster_kernel<STAGED>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(B) * cluster);
+  config.blockDim = dim3(SEL_THREADS);
+  config.dynamicSmemBytes = l.total;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, select_cluster_kernel<STAGED>, &config);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  err = cudaLaunchKernelEx(&config, select_cluster_kernel<STAGED>, priority, gkeys, order, B, N,
+                           n_out, chunk, kpb, keys_shared);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Bytes of scratch r3d_select_smallest needs for B rows of N priorities
-// selecting n_out; -1 for a shape it refuses.
-extern "C" long long r3d_select_scratch_bytes(int B, int N, int n_out) {
-  if (!valid_shape(B, N, n_out)) return -1;
-  return static_cast<long long>(layout(B, N, n_out).total);
-}
-
-// priority (B, N) float32; scratch of r3d_select_scratch_bytes(B, N, n_out)
-// bytes, 256-byte aligned; order (B, n_out) int64 out: each row's n_out
-// smallest priorities' indices in ascending priority, ties to the lower
-// index. B <= 65,535, 1 <= n_out <= N. Returns cudaGetLastError().
+// priority (B, N) float32; scratch: null where the plan keeps the selected
+// keys in shared memory (keys_shared = 1), else 2·B·n_out 8-byte keys;
+// order (B, n_out) int64 out: each row's n_out smallest priorities'
+// indices in ascending priority, ties to the lower index. The plan
+// (ops/select_kernels.py::select_plan): cluster blocks a row (1 to 16, a
+// power of two), staged (the slice loaded into shared memory once) or
+// streamed, keys_shared. Returns a CUDA error for a plan it cannot launch,
+// else cudaGetLastError().
 extern "C" int r3d_select_smallest(const float* priority, void* scratch, long long* order,
-                                   int B, int N, int n_out, void* stream) {
-  if (!valid_shape(B, N, n_out)) return static_cast<int>(cudaErrorInvalidValue);
+                                   int B, int N, int n_out, int cluster, int staged,
+                                   int keys_shared, void* stream) {
+  if (!valid_plan(B, N, n_out, cluster, staged, keys_shared) ||
+      (!keys_shared && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout l = layout(B, N, n_out);
-  char* base = static_cast<char*>(scratch);
-  RowState* state = reinterpret_cast<RowState*>(base + l.state);
-  unsigned* hist = reinterpret_cast<unsigned*>(base + l.hist);
-  unsigned* blk_lt = reinterpret_cast<unsigned*>(base + l.blk_lt);
-  unsigned* blk_eq = reinterpret_cast<unsigned*>(base + l.blk_eq);
-  unsigned long long* keys_a = reinterpret_cast<unsigned long long*>(base + l.keys_a);
-  unsigned long long* keys_b = reinterpret_cast<unsigned long long*>(base + l.keys_b);
-  cudaError_t err = cudaMemsetAsync(base, 0, l.head, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // 1. the threshold: blocks of at least HIST_ITEMS elements a thread,
-  // about four blocks an SM over all rows
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int by_size = (N + SEL_THREADS * HIST_ITEMS - 1) / (SEL_THREADS * HIST_ITEMS);
-  const int by_card = max(1, (4 * sms + B - 1) / B);
-  int per_row = min(by_size, by_card);
-  const int chunk = (N + per_row - 1) / per_row;
-  per_row = (N + chunk - 1) / chunk;
-  unsigned hi_mask = 0;
-  for (int pass = 0; pass < SEL_PASSES; ++pass) {
-    select_hist_kernel<<<dim3(per_row, B), SEL_THREADS, 0, s>>>(priority, state, hist, N, chunk, SEL_SHIFT[pass], SEL_BITS[pass], hi_mask, n_out, pass == 0);
-    hi_mask |= ((1u << SEL_BITS[pass]) - 1u) << SEL_SHIFT[pass];
-  }
-  // 2. the selected keys, in index order, and their first digits' counts
-  const size_t pass_counts = static_cast<size_t>(RADIX) * l.ntiles * B;
-  unsigned* counts = reinterpret_cast<unsigned*>(base + l.counts);
-  select_count_kernel<<<dim3(l.nblk, B), SEL_THREADS, 0, s>>>(priority, state, blk_lt, blk_eq, N);
-  const int rounds = sort_rounds(n_out);
-  select_scatter_kernel<<<dim3(l.nblk, B), SEL_THREADS, 0, s>>>(priority, state, blk_lt, blk_eq, keys_a, counts, N, n_out, l.ntiles, SORT_THREADS * rounds);
-  // 3. their order: four stable passes over the 32-bit key
-  unsigned long long* src = keys_a;
-  unsigned long long* dst = keys_b;
-  for (int pass = 0; pass < SORT_PASSES; ++pass) {
-    const bool final_pass = pass == SORT_PASSES - 1;
-    const unsigned* cur = counts + pass * pass_counts;
-    unsigned* next = final_pass ? nullptr : counts + (pass + 1) * pass_counts;
-    long long* idx = final_pass ? order : nullptr;
-    const int shift = 32 + RADIX_BITS * pass;
-    switch (rounds) {
-      case 2:
-        select_sort_pass_kernel<2><<<dim3(l.ntiles, B), SORT_THREADS, 0, s>>>(src, dst, idx, cur, next, state, n_out, shift);
-        break;
-      case 8:
-        select_sort_pass_kernel<8><<<dim3(l.ntiles, B), SORT_THREADS, 0, s>>>(src, dst, idx, cur, next, state, n_out, shift);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    unsigned long long* t = src;
-    src = dst;
-    dst = t;
-  }
+  unsigned long long* gkeys = static_cast<unsigned long long*>(scratch);
+  const int err = staged ? launch<true>(priority, gkeys, order, B, N, n_out, cluster,
+                                        keys_shared, s)
+                         : launch<false>(priority, gkeys, order, B, N, n_out, cluster,
+                                         keys_shared, s);
+  if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }

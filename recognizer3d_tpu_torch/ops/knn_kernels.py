@@ -136,6 +136,45 @@ def knn_topk(
     return idx, d2
 
 
+
+def cull_boxes_plain(support: torch.Tensor) -> torch.Tensor:
+    """Plain version of the global-memory form's box pass, in its scratch's
+    layout, per cloud: tile boxes (6 rows of nt: lo x, y, z, hi x, y, z),
+    then super-tile boxes (6 rows of ns), by ``amin``/``amax`` over tiles of
+    32 points and super tiles of 32 tiles (points past the support empty)."""
+    b, n, _ = support.shape
+    nt = -(-n // 32)
+    ns = -(-nt // 32)
+    pad = torch.full((b, ns * 1024 - n, 3), float("inf"), device=support.device)
+    lo = torch.cat([support, pad], 1).view(b, ns * 32, 32, 3).amin(2)
+    hi = torch.cat([support, -pad], 1).view(b, ns * 32, 32, 3).amax(2)
+    tiles = torch.cat([lo[:, :nt], hi[:, :nt]], 2).transpose(1, 2).reshape(b, 6 * nt)
+    supers = torch.cat([lo.view(b, ns, 32, 3).amin(2), hi.view(b, ns, 32, 3).amax(2)], 2)
+    return torch.cat([tiles, supers.transpose(1, 2).reshape(b, 6 * ns)], 1)
+
+
+def cull_boxes(support: torch.Tensor) -> torch.Tensor:
+    """The boxes the global-memory form's box pass writes for ``support``
+    on the card, in :func:`cull_boxes_plain`'s layout: the route run on one
+    query at k = 1 (a short walk) with a scratch of its own, read back. A
+    check of the box pass, not a path: no launch is counted."""
+    b, n, _ = support.shape
+    lib = _build.library()
+    scratch_bytes = lib.r3d_knn_topk_scratch_bytes(b, n)
+    if not scratch_bytes:
+        raise ValueError(f"a support of {n} points takes the shared-memory form: no box pass")
+    scratch = torch.empty(scratch_bytes // 4, dtype=torch.float32, device=support.device)
+    q = support[:, :1].contiguous()
+    idx = torch.empty((b, 1, 1), dtype=torch.int32, device=support.device)
+    d2 = torch.empty((b, 1, 1), dtype=torch.float32, device=support.device)
+    status = lib.r3d_knn_topk(q.data_ptr(), support.data_ptr(), scratch.data_ptr(),
+                              idx.data_ptr(), d2.data_ptr(), b, 1, n, 1,
+                              _build.stream_ptr(support.device))
+    _build.check_status("r3d_knn_topk", status)
+    nt = -(-n // 32)
+    return scratch.view(b, -1)[:, : 6 * (nt + -(-nt // 32))]
+
+
 def argmin_1nn(
     support: torch.Tensor, query: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,14 +15,96 @@ train batch assembled on the device).
 What bounds the kernel on the card is bytes: 4·B·N read and 8·B·n_out
 written. A CPU tensor runs the plain version, a stable sort; a CUDA tensor
 launches the kernel or raises. The two agree bit for bit.
+
+The kernel is one launch a call, a thread block cluster a row; its launch
+plan (:func:`select_plan`: blocks a row, whether a block stages its slice
+of the row in shared memory, whether the selected keys stay in shared
+memory) is chosen here from the shapes and the card's SM count, and
+passed to the kernel, which refuses a plan it cannot launch.
 """
+
+import dataclasses
 
 import torch
 
 from recognizer3d_tpu_torch.ops import _build
 
-#: rows the kernel takes (its launch grid's second dimension)
-MAX_ROWS = 65_535
+#: the plan's limits and sizes, as ``csrc/select.cu`` lays out shared memory
+MAX_SMEM = 232_448          # bytes a block may use
+MAX_CLUSTER = 16            # blocks a row (a cluster; above 8 non-portable)
+ROW_BLOCK = 4_096           # priorities a block takes at least, below MAX_CLUSTER blocks
+STATIC_BYTES = 8_192        # the kernel's fixed part
+HIST_BINS = 2048            # a block's histogram (the widest digit: 11 bits)
+CNT_BYTES = 16 * 256 * 4    # the sort's digit counts, a row for each of 16 warps
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectPlan:
+    """How the kernel selects from (B, N) -> n_out: ``cluster`` blocks a
+    row; ``staged``: each block loads its slice of the row into shared
+    memory once (else every pass re-reads it from global memory);
+    ``keys_shared``: the selected keys stay in the blocks' shared memory
+    (else in a global scratch of ``scratch_bytes``); ``smem_bytes`` a
+    block."""
+
+    cluster: int
+    staged: bool
+    keys_shared: bool
+    smem_bytes: int
+    scratch_bytes: int
+
+
+def _smem_bytes(cluster: int, chunk: int, kpb: int, staged: bool, keys_shared: bool) -> int:
+    """The fixed part; the cluster's bin sums of the 3 digit passes, 2048 /
+    cluster a block and pass; the histogram or key buffer A; the digit
+    counts; the staged slice or key buffer B."""
+    def align(x):
+        return (x + 15) // 16 * 16
+
+    keys = 8 * kpb if keys_shared else 0
+    stage = 4 * (chunk + 4) if staged else 0
+    red = 3 * 4 * (HIST_BINS // cluster) if cluster > 1 else 0
+    return (STATIC_BYTES + red + align(max(keys, 4 * HIST_BINS)) + CNT_BYTES
+            + align(max(stage, keys)))
+
+
+def plan_for(b: int, n: int, n_out: int, cluster: int, staged: bool,
+             keys_shared: bool) -> SelectPlan:
+    """The plan of the given form, its shared memory and scratch sized as
+    the kernel lays them out (whether it fits is the caller's question)."""
+    chunk = -(-(-(-n // cluster)) // 4) * 4
+    kpb = -(-n_out // cluster)
+    return SelectPlan(cluster, staged, keys_shared,
+                      _smem_bytes(cluster, chunk, kpb, staged, keys_shared),
+                      0 if keys_shared else 2 * b * n_out * 8)
+
+
+def select_plan(b: int, n: int, n_out: int, sms: int, max_cluster: int = MAX_CLUSTER,
+                row_block: int = ROW_BLOCK) -> SelectPlan:
+    """The kernel's launch plan for ``b`` rows of ``n`` priorities -> ``n_out``
+    on a card of ``sms`` SMs. Blocks a row: the fewest (a power of two) that
+    give each at most ``row_block`` priorities, up to ``max_cluster``, while
+    ``b`` rows fill no more than half the card; more where the selected
+    keys do not fit the blocks' shared memory. Then the first that fits:
+    staged with the keys in shared memory, streamed with them, and (at
+    ``max_cluster`` blocks) with the keys in a global scratch staged,
+    streamed. The live frame's 786,432 -> 16,384 takes 16 blocks, staged; a
+    train batch's 4 x 20,000 -> 2,500 eight a row, staged (on an H100
+    faster than two or four: ``benchmarks/launch_ab.py B8``, which also
+    times other bounds)."""
+    cluster = 1
+    while (cluster < max_cluster and cluster * row_block < n
+           and b * cluster * 2 <= max(sms, 1)):
+        cluster *= 2
+    while True:
+        forms = ((True, True), (False, True))
+        if cluster >= max_cluster:
+            forms += ((True, False), (False, False))
+        for staged, keys_shared in forms:
+            plan = plan_for(b, n, n_out, cluster, staged, keys_shared)
+            if plan.smem_bytes <= MAX_SMEM:
+                return plan
+        cluster *= 2
 
 
 def select_smallest_plain(priority: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -54,14 +136,17 @@ def select_smallest(priority: torch.Tensor, n_out: int) -> torch.Tensor:
     if priority.device.type != "cuda":
         raise ValueError(f"unsupported device {priority.device}")
     b, n = priority.shape
-    if b > MAX_ROWS:
-        raise ValueError(f"priority: {b} rows, the kernel takes at most {MAX_ROWS}")
+    plan = select_plan(b, n, n_out,
+                       torch.cuda.get_device_properties(priority.device).multi_processor_count)
     order = torch.empty((b, n_out), dtype=torch.int64, device=priority.device)
     lib = _build.library()
-    scratch = torch.empty(lib.r3d_select_scratch_bytes(b, n, n_out), dtype=torch.uint8,
-                          device=priority.device)
+    scratch = None
+    if plan.scratch_bytes:
+        scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=priority.device)
     _build.LAUNCHES["select_smallest"] += 1
-    status = lib.r3d_select_smallest(priority.data_ptr(), scratch.data_ptr(), order.data_ptr(),
-                                     b, n, n_out, _build.stream_ptr(priority.device))
-    _build.check_status("r3d_select_smallest", status)
+    status = lib.r3d_select_smallest(
+        priority.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        order.data_ptr(), b, n, n_out, plan.cluster, int(plan.staged), int(plan.keys_shared),
+        _build.stream_ptr(priority.device))
+    _build.check_status(f"r3d_select_smallest {plan}", status)
     return order

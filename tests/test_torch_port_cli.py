@@ -219,3 +219,18 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
         fn(x)
     assert list((tmp_path / "trace").glob("*.json"))
+
+
+def test_profiling_spans_pair_each_call_s_first_and_last_kernel():
+    """A route's span (``profiling.kernel_ms(..., span=True)``): each launch
+    of the first kernel with the first launch of the last kernel after it
+    and before the first's next launch; a call whose last launch the
+    profiler dropped has no span, and a launch of the last kernel before
+    any first is no call's."""
+    from types import SimpleNamespace as R
+
+    first = [R(start=0.0, end=2.0), R(start=10.0, end=12.0), R(start=20.0, end=22.0)]
+    last = [R(start=-3.0, end=-1.0), R(start=1.0, end=8.0), R(start=4.0, end=9.0),
+            R(start=11.0, end=17.0)]
+    assert profiling._spans(first, last) == [8.0, 7.0]
+    assert profiling._spans(first, []) == []

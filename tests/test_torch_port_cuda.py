@@ -22,10 +22,16 @@ launch), the bitonic stage kernel at other shapes and stage counts, the
 selection kernel B8 (the n smallest priorities of each row) at shapes the
 live and train paths do not reach (65,536 of 262,144, 8 rows of different
 valid counts, N = 1, odd N and N beside a tile, n_out = 1 and n_out = N,
-n_out beside a multiple of the sort's tile and on both sides of its
-choice of tile,
-rows whose values are all tied or all +inf, negative values) and twice on
-the same input, one small live depth frame
+n_out beside a multiple of the sort's tile,
+rows whose values are all tied or all +inf, negative values, rows past
+the staged capacity and n_out = N on them, 70,000 rows in one launch) and
+twice on the same input,
+under every launch plan forced on one shape (1 to 16 blocks a row, staged
+or streamed, the selected keys in shared or global memory; the cluster
+barriers' faults show as bits that differ between two runs), and its
+refusal of plans it cannot launch; B1's global-memory route (the box
+pass, then the walk as a programmatic dependent launch) at 2,049 to
+1,048,576 points, its boxes against amin/amax; one small live depth frame
 on the card against the CPU, one small train step on the card against the CPU, and the
 wrappers' refusals (inputs that require grad among them). The file imports neither JAX nor the JAX package, so it also
 runs where only the port is installed:
@@ -707,6 +713,11 @@ def _select_priorities(seed, b, n, kind):
         (2, 9_000, 4_096, "rounded"),      # the most keys sorted in tiles of 512
         (1, 9_000, 4_097, "uniform"),      # one more: tiles of 2,048
         (1, 786_432, 16_384, "rounded"),   # the live shape, every valid value tied
+        (1, 786_432, 16_384, "inf_tails"),
+        (1, 2_097_152, 16_384, "uniform"),    # past the staged capacity: streamed
+        (1, 2_097_152, 2_097_152, "rounded"),  # and the keys in a global scratch
+        (2, 262_144, 262_144, "tied"),      # staged, the keys in a global scratch
+        (70_000, 100, 10, "rounded"),       # more rows than a grid's y or z dimension takes
     ],
 )
 def test_select_smallest_kernel_matches_plain(dev, b, n, n_out, kind):
@@ -739,3 +750,69 @@ def test_select_smallest_refuses_on_the_card(dev):
     with torch.no_grad():
         select_kernels.select_smallest(x.clone().requires_grad_(), 10)
     assert _build.LAUNCHES == {"select_smallest": 1}
+
+
+def _forms():
+    return [(c, st, ks) for c in (1, 2, 4, 8, 16) for st in (True, False) for ks in (True, False)]
+
+
+@pytest.mark.parametrize("kind", ["rounded", "inf_tails"])
+@pytest.mark.parametrize("cluster,staged,keys_shared", _forms())
+def test_select_smallest_kernel_on_every_form(dev, monkeypatch, cluster, staged, keys_shared,
+                                              kind):
+    """B8 under every plan (blocks a row, staged or streamed, keys in shared
+    or global memory) forced on 3 rows of 30,001 -> 4,099 (tied values,
+    rows of different valid counts, the tie at the threshold split over
+    blocks), bit-equal to the stable sort, twice."""
+    b, n, n_out = 3, 30_001, 4_099
+    plan = select_kernels.plan_for(b, n, n_out, cluster, staged, keys_shared)
+    monkeypatch.setattr(select_kernels, "select_plan", lambda *args: plan)
+    x = _select_priorities(cluster, b, n, kind).to(dev)
+    got = select_kernels.select_smallest(x, n_out)
+    again = select_kernels.select_smallest(x, n_out)
+    ref = select_kernels.select_smallest_plain(x, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("plan", [
+    select_kernels.SelectPlan(1, True, True, 0, 0),     # 2^21 priorities staged in one block
+    select_kernels.SelectPlan(32, False, True, 0, 0),   # more blocks than a cluster takes
+    select_kernels.SelectPlan(3, False, True, 0, 0),    # not a power of two
+])
+def test_select_smallest_refuses_an_unlaunchable_plan(dev, monkeypatch, plan):
+    """The kernel refuses a plan it cannot launch and the wrapper raises:
+    there is no other route."""
+    monkeypatch.setattr(select_kernels, "select_plan", lambda *args: plan)
+    x = torch.rand(1, 1 << 21, device=dev)
+    with pytest.raises(RuntimeError, match="r3d_select_smallest"):
+        select_kernels.select_smallest(x, 16_384)
+
+
+@pytest.mark.parametrize("b,n", [(1, 2_049), (1, 2_500), (1, 16_384), (1, 262_144),
+                                 (1, 1_048_576), (2, 2_049), (3, 5_001)])
+def test_knn_global_route_boxes_and_walk(dev, b, n):
+    """B1's global-memory form (box pass, then the walk as a programmatic
+    dependent launch) on clustered Morton-sorted self-searches with
+    duplicates: two launches counted, the indices and distances bit-equal
+    to the plain version (on 2,048 seeded rows above 65,536 points) and to
+    a second call, the boxes equal to ``amin``/``amax`` over tiles and super
+    tiles. Batches of 2,049 and 5,001 points put every cloud but the first
+    off a 16-byte boundary (the box pass's scalar loads)."""
+    k = 32
+    s = _clustered(n + 5, b, n, dev)
+    _build.reset_launches()
+    idx, d2 = knn_kernels.knn_topk(s, s, k)
+    assert _build.LAUNCHES == {"knn_topk": 1, "knn_topk_boxes": 1}
+    idx2, d22 = knn_kernels.knn_topk(s, s, k)
+    rows = torch.arange(n, device=dev)
+    if n > 65_536:
+        rows = torch.from_numpy(np.sort(
+            np.random.RandomState(n).choice(n, 2048, replace=False))).to(dev)
+    ref_i, ref_d = knn_kernels.knn_topk_plain(s, s[:, rows].contiguous(), k)
+    torch.cuda.synchronize()
+    assert torch.equal(d2[:, rows], ref_d)
+    assert torch.equal(idx[:, rows], ref_i)
+    assert torch.equal(idx2, idx) and torch.equal(d22, d2)
+    assert torch.equal(knn_kernels.cull_boxes(s), knn_kernels.cull_boxes_plain(s))

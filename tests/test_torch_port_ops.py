@@ -133,6 +133,36 @@ def test_argmin_plain_matches_pallas_kernel(b, n, m):
     np.testing.assert_array_equal(idx_p.numpy()[untied], np.asarray(idx_j)[untied])
 
 
+
+@pytest.mark.parametrize("b,n", [(1, 2_048), (2, 3_072)])
+def test_cull_boxes_plain_matches_the_pallas_tile_boxes(b, n):
+    """The global-memory form's boxes (``knn_kernels.cull_boxes_plain``, what
+    the box pass is held to on the card) are the TPU kernel's tile boxes
+    (``knn_pallas._tile_prep``) over tiles of 32 points, then over super
+    tiles of 1,024."""
+    x = np.random.RandomState(n).rand(b, n, 3).astype(np.float32)
+    got = knn_kernels.cull_boxes_plain(torch.from_numpy(x)).numpy()
+    nt = n // 32
+    for ts, part in ((32, got[:, :6 * nt]), (1024, got[:, 6 * nt:])):
+        ref = np.asarray(jkp._tile_prep(jnp.asarray(x), ts)[0])[:, :6]
+        np.testing.assert_array_equal(part.reshape(b, 6, n // ts), ref)
+
+
+def test_cull_boxes_plain_leaves_out_points_past_the_support():
+    """A ragged last tile and super tile box only the points there are."""
+    b, n = 2, 2_049
+    x = np.random.RandomState(1).rand(b, n, 3).astype(np.float32)
+    got = knn_kernels.cull_boxes_plain(torch.from_numpy(x)).numpy()
+    nt, ns = 65, 3
+    assert got.shape == (b, 6 * (nt + ns))
+    tiles, supers = got[:, :6 * nt].reshape(b, 6, nt), got[:, 6 * nt:].reshape(b, 6, ns)
+    for t, rows in ((nt - 1, x[:, 2_048:]), (0, x[:, :32])):
+        np.testing.assert_array_equal(tiles[:, :3, t], rows.min(1))
+        np.testing.assert_array_equal(tiles[:, 3:, t], rows.max(1))
+    np.testing.assert_array_equal(supers[:, :3, ns - 1], x[:, 2_048:].min(1))
+    np.testing.assert_array_equal(supers[:, 3:, 1], x[:, 1_024:2_048].max(1))
+
+
 def test_knn_kernel_wrappers_reject_bad_arguments():
     s = _t(_cloud(0, 1, 200))
     with pytest.raises(ValueError):

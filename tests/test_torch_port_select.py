@@ -143,3 +143,84 @@ def test_select_smallest_refuses(bad):
         x = x.to("meta")
     with pytest.raises(error):
         select_smallest(x, n_out)
+
+
+# B8's launch plan (``select_kernels.select_plan``), a pure function of the
+# shapes and the card's SM count (an H100 SXM has 132, the PCIe card 114)
+
+
+def test_select_plan_stages_the_live_row_over_16_blocks():
+    plan = select_kernels.select_plan(1, 786_432, 16_384, 132)
+    assert (plan.cluster, plan.staged, plan.keys_shared) == (16, True, True)
+    assert plan.scratch_bytes == 0
+    # the slice a block stages: 49,152 priorities
+    assert plan.smem_bytes >= 786_432 // 16 * 4
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_select_plan_spreads_a_train_row_over_8_blocks(b):
+    """A train row of 20,000 priorities fits one block, but its passes run
+    faster over 8 (a block for every 4,096 priorities)."""
+    plan = select_kernels.select_plan(b, 20_000, 2_500, 132)
+    assert plan.cluster == 8
+    assert plan.staged and plan.keys_shared and plan.scratch_bytes == 0
+
+
+@pytest.mark.parametrize("n_out,keys_shared", [(16_384, True), (1 << 21, False)])
+def test_select_plan_streams_rows_past_the_staged_capacity(n_out, keys_shared):
+    """A 2^21 row does not fit 16 blocks' shared memory: every pass re-reads
+    it; with n_out == N the selected keys go to a global scratch too."""
+    plan = select_kernels.select_plan(1, 1 << 21, n_out, 132)
+    assert plan.cluster == select_kernels.MAX_CLUSTER and not plan.staged
+    assert plan.keys_shared == keys_shared
+    assert plan.scratch_bytes == (0 if keys_shared else 2 * n_out * 8)
+
+
+@pytest.mark.parametrize("b,n,n_out", [
+    (1, 786_432, 16_384), (4, 20_000, 2_500), (2, 20_000, 2_500), (1, 1, 1), (3, 4_097, 1),
+    (2, 12_345, 12_345), (1, 262_144, 65_536), (1, 262_144, 262_144), (2, 70_001, 70_001),
+    (8, 5_000, 700), (1, 1 << 21, 1 << 21), (1, 1 << 24, 1 << 24), (65_535, 100, 10),
+    (70_000, 100, 10), (1, 4_095, 4_000),
+])
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_select_plan_fits_the_card(b, n, n_out, sms):
+    """No plan asks for more shared memory than a block may use or more than
+    16 blocks a cluster; its sizes are the kernel's layout of them."""
+    plan = select_kernels.select_plan(b, n, n_out, sms)
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    assert plan.smem_bytes <= 232_448
+    chunk = -(-(-(-n // plan.cluster)) // 4) * 4
+    kpb = -(-n_out // plan.cluster)
+    # csrc/select.cu's layout: 8,192 bytes of fixed state; the cluster's bin
+    # sums, 3 passes of 2,048 / cluster words; the histogram (8 KB) or key
+    # buffer A; the sort's 16 x 256 digit counts; the staged slice or key
+    # buffer B
+    keys = 8 * kpb if plan.keys_shared else 0
+    stage = 4 * (chunk + 4) if plan.staged else 0
+    red = 12 * 2048 // plan.cluster if plan.cluster > 1 else 0
+    assert plan.smem_bytes == (8_192 + red + -(-max(keys, 8_192) // 16) * 16 + 16_384
+                               + -(-max(stage, keys) // 16) * 16)
+    if plan.staged:  # the block's slice, and a 16-byte alignment's room
+        assert plan.smem_bytes >= 4 * (chunk + 4)
+    if plan.keys_shared:  # two buffers of the block's keys
+        assert plan.smem_bytes >= 2 * 8 * kpb
+    else:
+        assert plan.scratch_bytes == 2 * b * n_out * 8
+    assert plan == select_kernels.select_plan(b, n, n_out, sms)
+
+
+@pytest.mark.parametrize("max_cluster,row_block,b,n,n_out,expected", [
+    (8, 4_096, 1, 786_432, 16_384, (8, False, True)),    # the live row no longer fits 8 blocks
+    (4, 4_096, 1, 786_432, 16_384, (4, False, True)),
+    (4, 4_096, 1, 1 << 21, 1 << 21, (4, False, False)),  # nor its keys 4 blocks' memory
+    (16, 16_384, 4, 20_000, 2_500, (2, True, True)),     # a train row over 2 blocks
+    (16, 16_384, 1, 786_432, 16_384, (16, True, True)),
+])
+def test_select_plan_under_other_bounds(max_cluster, row_block, b, n, n_out, expected):
+    """``select_plan`` under other bounds than the package's (what
+    ``benchmarks/launch_ab.py B8`` times): the first form that fits, the
+    keys in a global scratch only at ``max_cluster`` blocks."""
+    plan = select_kernels.select_plan(b, n, n_out, 132, max_cluster=max_cluster,
+                                      row_block=row_block)
+    assert (plan.cluster, plan.staged, plan.keys_shared) == expected
+    assert plan.smem_bytes <= select_kernels.MAX_SMEM
