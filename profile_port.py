@@ -60,6 +60,7 @@ both sides at one window.
 """
 
 import argparse
+import bisect
 import statistics
 import subprocess
 import time
@@ -93,6 +94,9 @@ LARGE_FRAMES = 3
 TOP = 25
 # the port's profiler ranges around the ranks' exchanges
 RANGES = ("r3d.all_reduce_sum", "r3d.rotate", "r3d.constrain")
+# the host's kernel-launch calls, runtime and driver, plain and extended
+# (B8 and B1's walk launch through the extended forms)
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def _time(torch, predict, frames, label: str) -> None:
@@ -122,12 +126,13 @@ def _profile(torch, predict, frames, label: str) -> None:
         traced_wall = (time.perf_counter() - t) * 1e3 / len(frames)
     events = prof.key_averages()
     # kernels and copies; a user annotation's device range (the optimizer
-    # step's ``Optimizer.step#Adam.step``) spans its kernels and the gaps
-    # between them, and is no device work of its own
+    # step's ``Optimizer.step#Adam.step``, the port's ``r3d.`` ranges) spans
+    # its kernels and the gaps between them, and is no device work of its own
     device = [
         e for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
         and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith("r3d.")
     ]
     device_us = sum(e.self_device_time_total for e in device)
     if device_us == 0:
@@ -140,10 +145,36 @@ def _profile(torch, predict, frames, label: str) -> None:
           f"{device_ms:.3f} ms; device idle share {1 - device_ms / traced_wall:.3f}; "
           f"{device_ops / len(frames):.1f} device kernels and copies per frame; "
           f"{launches / len(frames):.1f} cudaLaunchKernel per frame", flush=True)
+    print(f"{label}: the port's ranges per frame: {_port_ranges(torch, prof, len(frames))}",
+          flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
     print(events.table(sort_by="self_cpu_time_total", row_limit=TOP,
                        max_name_column_width=60), flush=True)
+
+
+def _port_ranges(torch, prof, frames: int) -> str:
+    """For each ``r3d.`` range the host recorded: its count, the ms inside it
+    in which no kernel or copy runs on the device, and the kernel launches
+    that start inside it from any host thread (the backward's come from the
+    autograd engine's), each a frame."""
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    busy = _union([(e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("r3d.")])
+    launches = sorted(e.time_range.start for e in cpu if e.name in LAUNCHES)
+    parts = []
+    for name in sorted({e.name for e in cpu if e.name.startswith("r3d.")}):
+        count = sum(e.name == name for e in cpu)
+        spans = _union([(e.time_range.start, e.time_range.end) for e in cpu if e.name == name])
+        busy_in = sum(max(0, min(b, d) - max(a, c)) for a, b in spans for c, d in busy)
+        idle_us = sum(b - a for a, b in spans) - busy_in
+        n = sum(bisect.bisect_left(launches, b) - bisect.bisect_left(launches, a)
+                for a, b in spans)
+        parts.append(f"{name} {count / frames:.1f}x, device idle {idle_us / 1e3 / frames:.3f} ms, "
+                     f"{n / frames:.1f} launches")
+    return "; ".join(parts) or "none"
 
 
 def _rank_profile(fn, calls: int, args, root=None):
@@ -170,10 +201,11 @@ def _rank_profile(fn, calls: int, args, root=None):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / calls
     events = prof.key_averages()
-    # a user annotation's device range (the port's exchange ranges, the
+    # a user annotation's device range (the port's ``r3d.`` ranges, the
     # optimizer step) spans its kernels and the gaps between them: no
     # device work of its own
-    annotations = set(RANGES) | {e.key for e in events if getattr(e, "is_user_annotation", False)}
+    annotations = {e.key for e in events
+                   if e.key.startswith("r3d.") or getattr(e, "is_user_annotation", False)}
     device = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.key not in annotations),
                     key=lambda e: -e.self_device_time_total)
@@ -191,16 +223,19 @@ def _rank_profile(fn, calls: int, args, root=None):
     return wall, device_ms, launches, top, spans, ranges
 
 
-def _union_ns(spans) -> int:
-    total, end = 0, None
+def _union(spans) -> list:
+    """The sorted, disjoint union of (start, end) spans."""
+    out = []
     for a, b in sorted(spans):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _union_ns(spans) -> int:
+    return sum(b - a for a, b in _union(spans))
 
 
 def _profile_ranks(pool, fn, args, root, label: str, calls: int = LARGE_FRAMES) -> None:

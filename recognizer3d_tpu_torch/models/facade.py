@@ -365,9 +365,10 @@ class Model:
         :param xyz: (N, 3) or (B, N, 3) coordinates.
         :return: (N,) or (B, N) bool, class-1 confidence > threshold.
         """
-        inputs, batched = self._batch_inputs(xyz, features)
-        self._maybe_run_recall_guard(inputs[0])
-        padded, indices, permutation, n_full = self._prepare_full(inputs)
+        with torch.profiler.record_function("r3d.prep"):
+            inputs, batched = self._batch_inputs(xyz, features)
+            self._maybe_run_recall_guard(inputs[0])
+            padded, indices, permutation, n_full = self._prepare_full(inputs)
         with torch.inference_mode():
             conf = self._predict_full(padded, indices, permutation)
             mask = (conf[:, 1, :] > threshold)[:, :n_full].cpu().numpy()
@@ -388,22 +389,23 @@ class Model:
         :return: Per-class confidences (B, C, N) or (C, N) as numpy.
         """
         self._knn_regime_warnings()
-        inputs, batched = self._batch_inputs(xyz, features)
-        self._maybe_run_recall_guard(inputs[0])
         if self.settings.upsampling == "none":
             prepostprocess = False
-        with torch.inference_mode():
+        with torch.profiler.record_function("r3d.prep"):
+            inputs, batched = self._batch_inputs(xyz, features)
+            self._maybe_run_recall_guard(inputs[0])
             if prepostprocess:
                 padded, indices, permutation, n_full = self._prepare_full(inputs)
+            else:
+                permutation = np.random.permutation(inputs.shape[1]).astype(np.int64)
+                inputs = torch.from_numpy(inputs).to(self.device)
+                permutation = torch.from_numpy(permutation).to(self.device)
+        with torch.inference_mode():
+            if prepostprocess:
                 predictions = self._predict_full(padded, indices, permutation)
                 predictions = predictions[:, :, :n_full]
             else:
-                permutation = np.random.permutation(inputs.shape[1]).astype(np.int64)
-                logits = self._forward(
-                    torch.from_numpy(inputs).to(self.device),
-                    torch.from_numpy(permutation).to(self.device),
-                )
-                predictions = torch.softmax(logits, dim=-2)
+                predictions = torch.softmax(self._forward(inputs, permutation), dim=-2)
             predictions = predictions.cpu().numpy()
         return predictions if batched else predictions[0]
 

@@ -249,6 +249,7 @@ def forward_eval_large(net: RandLANet, inputs: torch.Tensor, permutation: torch.
     reads running statistics, so they are independent)."""
     if net.training:
         raise RuntimeError("forward_eval_large is eval only: call net.eval() first")
-    permutation = permutation.long()
-    return torch.stack([_forward_one(net, inputs[b], permutation, chunk)
-                        for b in range(inputs.shape[0])])
+    with torch.profiler.record_function("r3d.forward"):
+        permutation = permutation.long()
+        return torch.stack([_forward_one(net, inputs[b], permutation, chunk)
+                            for b in range(inputs.shape[0])])

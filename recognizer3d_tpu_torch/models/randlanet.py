@@ -498,8 +498,15 @@ class RandLANet(nn.Module):
 
     def forward(self, inputs: torch.Tensor, permutation: Optional[torch.Tensor],
                 dropout_mask: Optional[torch.Tensor] = None, backend=None) -> torch.Tensor:
-        if backend is not None:
-            return self._forward_sharded(inputs, backend, dropout_mask)
+        with torch.profiler.record_function("r3d.forward"):
+            if backend is not None:
+                return self._forward_sharded(inputs, backend, dropout_mask)
+            return self._forward_dense(inputs, permutation, dropout_mask)
+
+    def _forward_dense(self, inputs: torch.Tensor, permutation: torch.Tensor,
+                       dropout_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The forward on one device: per-level Morton orders of the permuted
+        cloud, the encoder, the decoder's 1-NN upsamples and the head."""
         s = self.settings
         B, N, dim = inputs.shape
         assert dim == 3 + s.n_features, "Input should have shape (B, N, 3 + F)!"

@@ -146,13 +146,22 @@ def _device_batches(st: RankTrainer):
     """This rank's blocks (inputs, labels, permutation, keep mask) of one
     epoch's batches from the replicated tables, every draw the one device's
     in its order (shuffle, samples, permutation, mask); under a group the
-    ragged remainder is dropped before it is drawn."""
+    ragged remainder is dropped before it is drawn. Each batch is made
+    inside an ``r3d.train.batch`` range, closed before the batch is yielded;
+    the fetch that finds the epoch spent has one too."""
     gen, cache = st.generator, st.cache
     d = mesh.world()
-    for inputs, labels in cache.epoch_batches(st.batch_size, gen, block=(mesh.rank(), d),
-                                              drop_remainder=d > 1):
-        perm = torch.randperm(inputs.shape[1], generator=gen, device=cache.device)
-        yield inputs, labels, perm, _keep_block(gen, inputs)
+    batches = cache.epoch_batches(st.batch_size, gen, block=(mesh.rank(), d),
+                                  drop_remainder=d > 1)
+    while True:
+        with torch.profiler.record_function("r3d.train.batch"):
+            batch = next(batches, None)
+            if batch is None:
+                return
+            inputs, labels = batch
+            perm = torch.randperm(inputs.shape[1], generator=gen, device=cache.device)
+            keep = _keep_block(gen, inputs)
+        yield inputs, labels, perm, keep
 
 
 def _host_batches(st: RankTrainer, loader):
@@ -161,7 +170,8 @@ def _host_batches(st: RankTrainer, loader):
     the global numpy RNG, as one device does, and sends each rank its
     block; each rank draws the whole keep mask and keeps its rows. Under a
     group a batch that does not divide over the ranks is dropped before its
-    permutation is drawn."""
+    permutation is drawn. Each batch is made inside an ``r3d.train.batch``
+    range, as in :func:`_device_batches`."""
     dev = mesh.device()
     d = mesh.world()
 
@@ -175,17 +185,20 @@ def _host_batches(st: RankTrainer, loader):
 
     source = batches() if mesh.rank() == 0 else None
     while True:
-        item = next(source, None) if source is not None else None
-        head = mesh.replicate(None if item is None else (
-            tuple(item[0].shape), item[0].dtype, item[1].dtype, item[2]))
-        if head is None:
-            return
-        shape, in_dtype, lab_dtype, perm = head
-        inputs = mesh.scatter_blocks(None if item is None else item[0], 0, shape, in_dtype)
-        labels = mesh.scatter_blocks(None if item is None else item[1], 0, shape[:2], lab_dtype)
-        inputs = inputs.to(dev)
-        yield inputs, labels.to(dev), torch.from_numpy(perm).to(dev), _keep_block(st.generator,
-                                                                                   inputs)
+        with torch.profiler.record_function("r3d.train.batch"):
+            item = next(source, None) if source is not None else None
+            head = mesh.replicate(None if item is None else (
+                tuple(item[0].shape), item[0].dtype, item[1].dtype, item[2]))
+            if head is None:
+                return
+            shape, in_dtype, lab_dtype, perm = head
+            inputs = mesh.scatter_blocks(None if item is None else item[0], 0, shape, in_dtype)
+            labels = mesh.scatter_blocks(None if item is None else item[1], 0, shape[:2],
+                                         lab_dtype)
+            inputs = inputs.to(dev)
+            out = (inputs, labels.to(dev), torch.from_numpy(perm).to(dev),
+                   _keep_block(st.generator, inputs))
+        yield out
 
 
 def run_epoch(key: str, lr: float, root=None) -> Optional[List[tuple]]:

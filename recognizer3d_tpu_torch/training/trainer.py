@@ -113,14 +113,15 @@ def train_step(module, optimizer, criterion, inputs, labels, permutation, keep_m
     batch, and the parameter gradients are summed over the ranks before
     Adam, in one exchange. The gradients stay in ``.grad`` until the next
     step. Returns the detached (loss, logits)."""
-    optimizer.zero_grad(set_to_none=True)
-    logits = module(inputs, permutation, keep_mask, backend=backend)
-    loss = criterion(logits, labels)
-    loss.backward()
-    if collectives.batch_ranks() > 1:
-        collectives.all_reduce_grads(module.parameters())
-    optimizer.step()
-    return loss.detach(), logits.detach()
+    with torch.profiler.record_function("r3d.train.step"):
+        optimizer.zero_grad(set_to_none=True)
+        logits = module(inputs, permutation, keep_mask, backend=backend)
+        loss = criterion(logits, labels)
+        loss.backward()
+        if collectives.batch_ranks() > 1:
+            collectives.all_reduce_grads(module.parameters())
+        optimizer.step()
+        return loss.detach(), logits.detach()
 
 
 def _drain(pending) -> List[tuple]:

@@ -1,9 +1,6 @@
 """Profiling and warm-up helpers (counterpart of
 ``recognizer3d_tpu/utils/profiling.py``).
 
-- :func:`trace`: a context manager around ``torch.profiler`` (CPU and, where
-  there is a GPU, CUDA activity) that writes a TensorBoard-loadable trace
-  into a directory;
 - :func:`warmup`: run a function once and wait for its result (the first
   call pays the kernel build and load);
 - :func:`timeit` / :func:`timeit_amortized`: wall-clock timing that waits
@@ -15,24 +12,11 @@
   :func:`launch_floor_ms`: the device time of the least launch.
 """
 
-import contextlib
 import time
 from typing import Callable
 
 import numpy as np
 import torch
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Capture a ``torch.profiler`` trace into ``log_dir``."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
-        yield
 
 
 def _leaves(out):
