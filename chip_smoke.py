@@ -392,8 +392,8 @@ SERVE_BATCH = 8
 # / 65,536 / 16,384 / 4,096, chunk 65,536. Per call, exact route: B1 at the
 # four encoder levels and the 262,144 -> 1,048,576 1-NN at k = 1, each in
 # the global-memory form (a box pass and a walk); B4 for the supports of 4,096, 16,384 and 65,536 (the last
-# two ordered by a launch of their own); B2 and B3 on 16 chunks of level 0
-# and 4 of level 1; no streaming kernel. Approximate route, at the session
+# two ordered by a launch of their own); B2 and B3 once each at levels 0
+# and 1 (one launch over the whole level); no streaming kernel. Approximate route, at the session
 # window the recall guard settles on for this cloud, LARGE_WINDOW (the run
 # fails on another): the window search at encoder levels 0-2 (k = 32) and for
 # the supports of 65,536 and 262,144 (k = 1); B1 at level 3, whose 16,384
@@ -404,13 +404,13 @@ LARGE_CALLS = 3
 LARGE_WINDOW = 16_384
 PER_CALL_LARGE = {
     "naive": {"knn_topk": 5, "knn_topk_boxes": 5, "argmin_1nn": 3, "argmin_1nn_order": 2,
-              "lfa_round1": 20, "lfa_pool2_res": 20},
+              "lfa_round1": 2, "lfa_pool2_res": 2},
     "approximate": {"knn_window_topk": 5, "knn_topk": 1, "knn_topk_boxes": 1, "argmin_1nn": 2,
-                    "argmin_1nn_order": 1, "lfa_round1": 20, "lfa_pool2_res": 20},
+                    "argmin_1nn_order": 1, "lfa_round1": 2, "lfa_pool2_res": 2},
 }
 # the card against the CPU port at reduced size: forward_eval_large called
-# directly, chunk 4,096 (levels 0 and 1 fused, in 4 and 1 chunks at the
-# exact route's size; the levels below on the chunked branch), at 16,384
+# directly, chunk 4,096 (levels 0 and 1 fused, one launch each; the levels
+# below on the chunked branch), at 16,384
 # points on the exact route and at 32,768 on the approximate route, whose
 # level 0 then searches windows of LARGE_WINDOW points (at no more points it
 # would take the exact branch); logits held to within 1e-4 of the largest
@@ -737,12 +737,15 @@ def _window_work(m: int, n: int, w: int, k: int):
     return 4 * 3 * (m + n) + 4 * m * 2 * k, 9 * m * w
 
 
-def _round1_work(rows: int, k: int, h: int, elem: int = 4):
+def _round1_work(rows: int, k: int, h: int, table_rows: int, elem: int = 4):
     # (bytes, dot operations, other operations); elem: bytes of a row
-    # element (gathered, pooled, rpe2): 4, or 2 in bfloat16; d2, the centre
-    # term and the constants stay float32
+    # element (table, pooled, rpe2): 4, or 2 in bfloat16; the int32
+    # indices, d2, the centre term and the constants 4. The kernel reads
+    # its neighbours' rows by index: the table counts once (table_rows rows
+    # of 2h), however often its rows are read
     c2 = 2 * h
-    nbytes = rows * (elem * (k * c2 + h + k * h) + 4 * (k + h)) + 4 * (5 * h + 7 * h * h)
+    nbytes = (elem * table_rows * c2 + rows * (elem * (h + k * h) + 4 * (2 * k + h))
+              + 4 * (5 * h + 7 * h * h))
     dots = (
         2 * k * c2 * c2        # scores
         + 2 * c2 * h           # pool MLP
@@ -759,16 +762,19 @@ def _round1_work(rows: int, k: int, h: int, elem: int = 4):
     return nbytes, rows * dots, rows * rest
 
 
-def _pool2_work(rows: int, k: int, h: int, f: int, residual: bool = True, elem: int = 4):
+def _pool2_work(rows: int, k: int, h: int, f: int, table_rows: int, residual: bool = True,
+                elem: int = 4):
     # (bytes, dot operations, other operations); elem: bytes of a row
-    # element (rpe2, g2, f_in, out): 4, or 2 in bfloat16
+    # element (rpe2, the pooled table, f_in, out): 4, or 2 in bfloat16; the
+    # int32 indices 4; the table (table_rows rows of h) counts once
     c2, c4 = 2 * h, 4 * h
     dots = 2 * k * c2 * c2 + 2 * c2 * c2           # scores, pool MLP
     rest = 5 * k * c2 + 2 * k * c2 + 2 * c2         # softmax, sum, offset, relu
+    inputs = elem * (rows * k * h + table_rows * h) + 4 * rows * k
     if not residual:
-        nbytes = elem * rows * (2 * k * h + c2) + 4 * (2 * c2 * c2 + c2)
+        nbytes = inputs + elem * rows * c2 + 4 * (2 * c2 * c2 + c2)
         return nbytes, rows * dots, rows * rest
-    nbytes = elem * rows * (2 * k * h + f + c4) + 4 * (
+    nbytes = inputs + elem * rows * (f + c4) + 4 * (
         2 * c2 * c2 + c2 + c2 * c4 + f * c4 + c4
     )
     dots += 2 * c2 * c4 + 2 * f * c4                # mlp2, shortcut
@@ -1239,25 +1245,26 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
         results.add(name, err, 0.0, 0.0, (0.0, "bytes"), None)
         return True
 
-    # B2: fused LFA round 1 at encoder levels 0 and 1, in either form
+    # B2: fused LFA round 1 at encoder levels 0 and 1, in either form (the
+    # plain version's times include its own gather of the neighbour rows)
     for name in ("lfa_round1", "lfa_round1_bf16"):
         for args, _ in calls.get(name, []):
-            gathered, d2, center = args[:3]
-            b, rows, k, c2 = gathered.shape
-            h, dt = c2 // 2, gathered.dtype
+            table, nb, d2, center = args[:4]
+            b, rows, k = nb.shape
+            h, dt = table.shape[-1] // 2, table.dtype
             pooled, rpe2 = lfa_kernels.lfa_round1(*args)
-            consts = lfa_kernels.round1_constants(*args[3:], dtype=dt)
-            ref_p, ref_r = lfa_kernels.lfa_round1_plain(gathered, d2, center, consts)
+            consts = lfa_kernels.round1_constants(*args[4:], dtype=dt)
+            ref_p, ref_r = lfa_kernels.lfa_round1_plain(table, nb, d2, center, consts)
             torch.cuda.synchronize()
             def round1_f64():
-                p64, r64 = lfa_kernels.lfa_round1_plain(gathered.double(), d2.double(),
+                p64, r64 = lfa_kernels.lfa_round1_plain(table.double(), nb, d2.double(),
                                                         center.double(), _f64(consts))
                 return [p64, r64.reshape(b, rows, k, h)]
 
             err, note = _lfa_error(torch, [pooled, rpe2.reshape(b, rows, k, h)],
                                    [ref_p, ref_r.reshape(b, rows, k, h)], f"{label} {name} h={h}",
                                    round1_f64)
-            if timed_before(name, tuple(gathered.shape), err):
+            if timed_before(name, tuple(nb.shape) + (2 * h,), err):
                 continue
             ms, = _device_ms(torch, lambda: lfa_kernels.lfa_round1(*args), 50,
                              ("lfa_round1_mma_kernel" if dt == torch.bfloat16
@@ -1265,11 +1272,12 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
             plain = _device_ms(
                 torch,
                 lambda: lfa_kernels.lfa_round1_plain(
-                    gathered, d2, center, lfa_kernels.round1_constants(*args[3:], dtype=dt)
+                    table, nb, d2, center, lfa_kernels.round1_constants(*args[4:], dtype=dt)
                 ),
                 2 * plain_reps,
             )
-            bound = _lfa_bound(*_round1_work(b * rows, k, h, gathered.element_size()),
+            bound = _lfa_bound(*_round1_work(b * rows, k, h, b * table.shape[1],
+                                             table.element_size()),
                                dt == torch.bfloat16)
             results.add(name, err, ms, plain, bound, None)
             print(f"{label} {name} B={b} N={rows} K={k} h={h}: max abs err {err:.3g}{note}; "
@@ -1278,24 +1286,25 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
 
     # B3: fused attentive pool 2 + residual at encoder levels 0 and 1, and
     # B5 (pool 2 alone, which no path runs) on the level-0 inputs, in either
-    # form
+    # form (the plain versions' times include their own gather)
     for name in ("lfa_pool2_res", "lfa_pool2_res_bf16"):
         bf16 = name.endswith("_bf16")
         kernel = "lfa_pool2_mma_kernel" if bf16 else "lfa_pool2_tile_kernel"
         for args, kwargs in calls.get(name, []):
-            rpe2, g2 = args[:2]
-            f_in = args[7]
-            b, rows, k, h = g2.shape
+            rpe2, table, nb = args[:3]
+            head, f_in, tail = args[3:8], args[8], args[9:]
+            b, rows, k = nb.shape
+            h, s_rows = table.shape[-1], b * table.shape[1]
             f, dt, elem = f_in.shape[-1], rpe2.dtype, rpe2.element_size()
             out = lfa_kernels.attentive_pool2_residual(*args, **kwargs)
-            consts = lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt)
-            ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, g2, f_in, consts, k)
+            consts = lfa_kernels.pool2_constants(*head, *tail, dtype=dt)
+            ref = lfa_kernels.attentive_pool2_residual_plain(rpe2, table, nb, f_in, consts)
             torch.cuda.synchronize()
             err, note = _lfa_error(
                 torch, [out], [ref], f"{label} {name} h={h}",
                 lambda: [lfa_kernels.attentive_pool2_residual_plain(
-                    rpe2.double(), g2.double(), f_in.double(), _f64(consts), k)])
-            shape = tuple(g2.shape) + (f,)
+                    rpe2.double(), table.double(), nb, f_in.double(), _f64(consts))])
+            shape = tuple(nb.shape) + (h, f)
             if not timed_before(name, shape, err):
                 ms, = _device_ms(
                     torch, lambda: lfa_kernels.attentive_pool2_residual(*args, **kwargs), 50,
@@ -1304,12 +1313,12 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
                 plain = _device_ms(
                     torch,
                     lambda: lfa_kernels.attentive_pool2_residual_plain(
-                        rpe2, g2, f_in,
-                        lfa_kernels.pool2_constants(*args[2:7], *args[8:], dtype=dt), k,
+                        rpe2, table, nb, f_in,
+                        lfa_kernels.pool2_constants(*head, *tail, dtype=dt),
                     ),
                     2 * plain_reps,
                 )
-                bound = _lfa_bound(*_pool2_work(b * rows, k, h, f, elem=elem), bf16)
+                bound = _lfa_bound(*_pool2_work(b * rows, k, h, f, s_rows, elem=elem), bf16)
                 results.add(name, err, ms, plain, bound, None)
                 print(f"{label} {name} B={b} N={rows} K={k} h={h} F={f}: max abs err "
                       f"{err:.3g}{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
@@ -1317,30 +1326,29 @@ def _check_kernels(torch, calls, results, label, plain_reps, sorted_bound=False)
             if h != 8:
                 continue
             b5 = "lfa_pool2_bf16" if bf16 else "lfa_pool2"
-            head = args[2:7]
-            out = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+            out = lfa_kernels.attentive_pool2(rpe2, table, nb, *head)
             ref = lfa_kernels.attentive_pool2_plain(
-                rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=dt), k
+                rpe2, table, nb, lfa_kernels.pool2_constants(*head, dtype=dt)
             )
             torch.cuda.synchronize()
             err, note = _lfa_error(
                 torch, [out], [ref], f"{label} {b5} h={h}",
                 lambda: [lfa_kernels.attentive_pool2_plain(
-                    rpe2.double(), g2.double(),
-                    _f64(lfa_kernels.pool2_constants(*head, dtype=dt)), k)])
+                    rpe2.double(), table.double(), nb,
+                    _f64(lfa_kernels.pool2_constants(*head, dtype=dt)))])
             if timed_before(b5, shape, err):
                 continue
-            ms, = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k),
+            ms, = _device_ms(torch, lambda: lfa_kernels.attentive_pool2(rpe2, table, nb, *head),
                              50, (kernel,))
             plain = _device_ms(
                 torch,
                 lambda: lfa_kernels.attentive_pool2_plain(
-                    rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=dt), k
+                    rpe2, table, nb, lfa_kernels.pool2_constants(*head, dtype=dt)
                 ),
                 2 * plain_reps,
             )
-            bound = _lfa_bound(*_pool2_work(b * rows, k, h, 0, residual=False, elem=elem),
-                               bf16)
+            bound = _lfa_bound(*_pool2_work(b * rows, k, h, 0, s_rows, residual=False,
+                                            elem=elem), bf16)
             results.add(b5, err, ms, plain, bound, None)
             print(f"{label} {b5} (B5, on B3's level-0 inputs) B={b} N={rows} K={k} h={h}: "
                   f"max abs err {err:.3g}{note}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "

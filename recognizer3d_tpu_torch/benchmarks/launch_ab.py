@@ -49,18 +49,16 @@ for B8, another launch plan handed to the package's kernel:
   constant matrices;
 * ``bf16_tile8``, ``bf16_tile16``: pool 2 with the residual (B3-bf16) at
   h = 32 in tiles of 8 rows, 8 warps a block, or at h = 8 in tiles of 16,
-  16 warps (as built: 16 at h = 32 and 8 at h = 8, a warp a row);
-* ``bf16_wait_all``: the three bfloat16 kernels with each warp waiting for
-  its next row's copies as well as the current one's before it computes,
-  so that a warp's staging no longer overlaps its own work (as built: the
-  next row is copied while the current one computes).
+  16 warps (as built: 16 at h = 32 and 8 at h = 8, a warp a row).
 
 B1 runs the k = 32 self-KNN of Morton-sorted mock levels at the served
 paths' sizes, the recall guard's 256-query re-search of the 65,536-point
 level and that level's exact self-KNN, and the large-scene forward's calls
 (held to the plain version on 4,096 seeded rows where a call has over 2^32
 distances), each timed with its box pass where it has one; B2 runs the
-served levels' shapes (K = 32); B4 the served paths' upsamples
+served levels' shapes (K = 32; the LFA kernels read their rows from a table
+at indices within 32 rows of each row's own, as Morton-sorted neighbours
+lie); B4 the served paths' upsamples
 (``benchmarks/argmin_cull.served_cases``), timed with the ordering launch where there is one; B7 the
 TPU benchmark's (512, 128, 1024) at S = 1, 5, 6, 12, 15, 16, 24 and 45;
 B8 the shapes of ``benchmarks/bench_select.py`` (the live frame's 786,432
@@ -125,8 +123,6 @@ VARIANTS = {
                    "constexpr int BF_TILE_ROWS_H32 = 8;"),
     "bf16_tile16": ("lfa.cu", "constexpr int BF_TILE_ROWS_H8 = 8;",
                     "constexpr int BF_TILE_ROWS_H8 = 16;"),
-    "bf16_wait_all": ("lfa.cu", 'asm volatile("cp.async.wait_group 1;\\n" ::: "memory");',
-                      'asm volatile("cp.async.wait_group 0;\\n" ::: "memory");'),
 }
 
 
@@ -157,7 +153,7 @@ SECTIONS = {
     "B4": ("argmin_order", "nn_lanes2", "nn_lanes8", "nn_threads256", "nn_threads1024"),
     "B7": ("roll_e32", "roll_e64", "roll_threads64"),
     "B8": tuple(PLAN_VARIANTS),
-    "bf16": ("bf16_warps8", "bf16_warps4", "bf16_tile8", "bf16_tile16", "bf16_wait_all"),
+    "bf16": ("bf16_warps8", "bf16_warps4", "bf16_tile8", "bf16_tile16"),
 }
 
 
@@ -243,23 +239,31 @@ def _bf16_cases(dev):
         head = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev)
                 for s in ((c2, c2), (c2, c2), (c2,), (c2,), (c2,))]
         head[3] = head[3].abs() + 0.5  # BatchNorm scale
-        g2 = torch.tensor(np.abs(rng.randn(1, rows, k, h)) * 0.3, device=dev).to(torch.bfloat16)
+        table = torch.tensor(np.abs(rng.randn(1, rows, h)) * 0.3, device=dev).to(torch.bfloat16)
         f_in = torch.tensor(rng.randn(1, rows, f), device=dev).to(torch.bfloat16)
         tail = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev)
                 for s in ((c2, 4 * h), (f, 4 * h), (4 * h,))]
-        cases.append((f"N={rows} h={h} F={f}", r1, [rpe2, g2, *head, f_in, *tail]))
+        cases.append((f"N={rows} h={h} F={f}", r1, [rpe2, table, r1[1], *head, f_in, *tail]))
     return cases
 
 
+def _neighbors(rng, dev, rows, k):
+    """(1, rows, k) int32 indices within 32 rows of each row's own."""
+    nb = np.arange(rows)[:, None] + rng.randint(-32, 33, (rows, k))
+    return torch.tensor(np.clip(nb, 0, rows - 1)[None], dtype=torch.int32, device=dev)
+
+
 def _round1_cases_args(rng, dev, rows, h, k):
+    """lfa_round1's arguments: the table, its neighbour indices, d2, the
+    centre term, then the weights."""
     c2 = 2 * h
-    shapes = [(1, rows, k, c2), (1, rows, k), (1, rows, h), (h,), (h,), (h,), (h,),
+    shapes = [(1, rows, c2), (1, rows, k), (1, rows, h), (h,), (h,), (h,), (h,),
               (c2, c2), (c2, h), (h,), (h,), (h,), (h, h), (h,), (h,), (h,)]
     args = [torch.tensor(rng.randn(*s) * 0.3, dtype=torch.float32, device=dev) for s in shapes]
     args[1] = args[1].abs() * 0.01  # squared distances
     for i in (5, 10, 14):  # BatchNorm scales
         args[i] = args[i].abs() + 0.5
-    return args
+    return [args[0], _neighbors(rng, dev, rows, k), *args[1:]]
 
 
 def _near_bf16(out, ref) -> bool:
@@ -320,7 +324,7 @@ def main() -> None:
         r1_variants = ("built", *SECTIONS["B2"])
         for label, args in _round1_cases(dev):
             ref_p, ref_r = lfa_kernels.lfa_round1_plain(
-                *args[:3], lfa_kernels.round1_constants(*args[3:]))
+                *args[:4], lfa_kernels.round1_constants(*args[4:]))
             for name in r1_variants:
                 with _using(libs[name]):
                     pooled, rpe2 = lfa_kernels.lfa_round1(*args)
@@ -394,21 +398,21 @@ def main() -> None:
         bf_variants = ("built", *SECTIONS["bf16"])
         for label, r1, p2 in _bf16_cases(dev):
             bf16 = torch.bfloat16
-            rows, h = r1[0].shape[1], r1[0].shape[3] // 2
+            rows, h = r1[0].shape[1], r1[0].shape[2] // 2
             refs = (
                 *lfa_kernels.lfa_round1_plain(
-                    *r1[:3], lfa_kernels.round1_constants(*r1[3:], dtype=bf16)),
+                    *r1[:4], lfa_kernels.round1_constants(*r1[4:], dtype=bf16)),
                 lfa_kernels.attentive_pool2_residual_plain(
-                    *p2[:2], p2[7],
-                    lfa_kernels.pool2_constants(*p2[2:7], *p2[8:], dtype=bf16), 32),
+                    *p2[:3], p2[8],
+                    lfa_kernels.pool2_constants(*p2[3:8], *p2[9:], dtype=bf16)),
                 lfa_kernels.attentive_pool2_plain(
-                    *p2[:2], lfa_kernels.pool2_constants(*p2[2:7], dtype=bf16), 32),
+                    *p2[:3], lfa_kernels.pool2_constants(*p2[3:8], dtype=bf16)),
             )
             for name in bf_variants:
                 with _using(libs[name]):
                     outs = (*lfa_kernels.lfa_round1(*r1),
-                            lfa_kernels.attentive_pool2_residual(*p2, k=32),
-                            lfa_kernels.attentive_pool2(*p2[:7], k=32))
+                            lfa_kernels.attentive_pool2_residual(*p2),
+                            lfa_kernels.attentive_pool2(*p2[:8]))
                 # rpe2's rows: one neighbour's h channels
                 pairs = [(o.reshape(1, rows, 32, h), r.reshape(1, rows, 32, h)) if i == 1
                          else (o, r) for i, (o, r) in enumerate(zip(outs, refs))]
@@ -424,13 +428,13 @@ def main() -> None:
             def timed_p2(name, reps, p2=p2):
                 with _using(libs[name]):
                     return device_ms(
-                        lambda: lfa_kernels.attentive_pool2_residual(*p2, k=32), reps,
+                        lambda: lfa_kernels.attentive_pool2_residual(*p2), reps,
                         "lfa_pool2_mma_kernel")
 
             def timed_p5(name, reps, p2=p2):
                 with _using(libs[name]):
                     return device_ms(
-                        lambda: lfa_kernels.attentive_pool2(*p2[:7], k=32), reps,
+                        lambda: lfa_kernels.attentive_pool2(*p2[:8]), reps,
                         "lfa_pool2_mma_kernel")
 
             _line(f"B2-bf16 {label} K=32", bf_variants, timed_r1, 50)

@@ -17,17 +17,28 @@
 // with every BatchNorm already folded into the constants by the Python
 // wrapper (ops/lfa_kernels.py), exactly as the JAX wrappers fold them.
 //
+// The TPU kernels take the neighbour rows gathered, (rows, K, 2h) and
+// (rows, K, h). Here every kernel reads them by index: round 1 from the
+// level's table [support projection | mlp1 features] (B·N, 2h), pool 2 from
+// round 1's pooled rows (B·N, h), each at the KNN's int32 indices into the
+// row's own cloud (the kernel adds the cloud's first table row). The
+// gathered tensors (a level's K rows a point, written and read back once)
+// are never made; Morton-sorted neighbouring points share most of their
+// neighbours, so a table row is read by the few blocks near it.
+//
 // The TPU kernels flatten (K, 2h) into lanes and express each per-channel
 // linear map as a block-diagonal (kron) matmul with lane rolls for the
 // softmax: layout tricks for a 128-lane vector unit. Here the same maths
 // runs per (k, channel) directly.
 //
-// Bound on this card. Per row the kernels read K*2h floats (plus K
-// distances and h centre terms, or F input features) and write K*h + h
-// (round 1) or 4h floats (pool 2), against about 2*K*(2h)^2 flops of
-// scores. At h=32 (level 1) that is ~260 kflop per 8 kB row: bound by
-// operations at the float32 rate. At h=8 (level 0) it is ~16 kflop per
-// 2 kB row: bound by the bytes.
+// Bound on this card. Per row the kernels stage K*2h floats, read by index
+// from a table of 2h (round 1) or h (pool 2) floats a point, plus K
+// indices and K distances and h centre terms (or K*h rpe2 floats and F
+// input features), and write K*h + h (round 1) or 4h floats (pool 2),
+// against about 2*K*(2h)^2 flops of scores. At h=32 (level 1) that is
+// ~260 kflop a row: bound by operations at the float32 rate. At h=8
+// (level 0) it is ~16 kflop against ~1.4 kB of round 1's inputs and
+// outputs a row: bound by the bytes, most of them rpe2's.
 //
 // Both kernels share one design (lfa_round1_tile_kernel and
 // lfa_pool2_tile_kernel, with and without the residual). One row per block
@@ -45,10 +56,12 @@
 //   inner steps, a broadcast to the row's threads) per 4 FMAs, and the
 //   softmax over K runs in registers: one expf a score, one division a
 //   channel, online over chunks of 32 neighbours (K = 8, 16: one chunk);
-// - the next tile's rows (16-byte cp.async: the wrappers refuse gathered
-//   rows that are not 16-byte aligned) and its small per-row inputs (d2
-//   and centre term, or f_in) load into the second of two buffers while
-//   the current tile computes;
+// - the next tile's neighbour rows (16-byte cp.async from the table at its
+//   rows' indices: the wrappers refuse tables that are not 16-byte
+//   aligned) and its small per-row inputs (d2 and centre term, or f_in)
+//   load into the second of two buffers while the current tile computes;
+//   the tile after it's indices load with them, so that no row copy waits
+//   on a dependent load of its index;
 // - round 1 applies the RPE transform in place to the tile's rpe lanes,
 //   in the plain version's order of operations; its rpe2 product (K*h
 //   outputs a row) is spread over the row's 2h threads, K/2 neighbours
@@ -74,7 +87,8 @@
 // - a persistent grid of blocks of 4 (h = 8) or 8 (h = 32) warps; each
 //   block transposes the constant matrices into bfloat16 in shared memory
 //   once, then each warp walks its own rows, one at a time, staging the
-//   next row by 16-byte cp.async into the second of two buffers while it
+//   next row by 16-byte cp.async (its neighbours' rows at indices staged
+//   with the row before) into the second of two buffers while it
 //   computes: no block barrier after the constants (but in pool 2 with
 //   the residual, below);
 // - the rows stay bfloat16 in shared memory (no widening), each padded by
@@ -156,14 +170,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Pool 2 over tiles of rows (see the design note at the top). Thread
 // (r, j) of a tile owns channel j of row r; blockDim.x = TR * 2h. KC:
 // neighbours per softmax chunk (K is a multiple of it). RES = false: pool 2
-// alone (F = 0, f_in unused), out (rows, 2h). Dynamic shared memory: two
-// row buffers of TR * (K*2h + pad) | Ws | Wp | op | agg (TR, 2h) | pooled
-// (TR, 2h) | two f_in buffers of TR * F.
+// alone (F = 0, f_in unused), out (rows, 2h). The g2 half of a row's
+// neighbours is read by index from round 1's pooled rows (table, s rows a
+// cloud of n query rows). Dynamic shared memory: two row buffers of
+// TR * (K*2h + pad) | Ws | Wp | op | agg (TR, 2h) | pooled (TR, 2h) | two
+// f_in buffers of TR * F | two index buffers of TR * K.
 template <int H, int KC, bool RES>
 __global__ void __launch_bounds__(TILE_THREADS)
-lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ g2,
-                      const float* __restrict__ f_in, const float* __restrict__ consts,
-                      float* __restrict__ out, int rows, int K, int F) {
+lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ table,
+                      const int* __restrict__ nbr, const float* __restrict__ f_in,
+                      const float* __restrict__ consts, float* __restrict__ out, int rows,
+                      int K, int F, int n, int s) {
   constexpr int C2 = 2 * H;
   constexpr int C4 = 4 * H;
   const int TR = blockDim.x / C2;
@@ -176,6 +193,7 @@ lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ 
   float* agg = op + C2;
   float* pooled = agg + TR * C2;
   float* fin = pooled + TR * C2;
+  int* ibuf = reinterpret_cast<int*>(fin + 2 * TR * F);
   // the residual's constants follow the head: Wm (2h x 4h) | Wsh (F x 4h) | off (4h)
   const float* wm = consts + pool2_head_consts(H);
   const float* wsh = wm + C2 * C4;
@@ -185,36 +203,61 @@ lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ 
 
   const int KH = K * H;
   const int n_tiles = (rows + TR - 1) / TR;
-  // rows [tile * TR, +TR) of rpe2 | g2 into cat (TR, K, 2h) of buffer buf
+  // the neighbour indices of rows [tile * TR, +TR) into index buffer buf
+  auto load_indices = [&](int tile, int buf) {
+    const int row0 = tile * TR;
+    const int nr = min(TR, rows - row0);
+    for (int e = threadIdx.x; e < nr * K; e += blockDim.x) {
+      cp_async4(ibuf + buf * TR * K + e, nbr + static_cast<size_t>(row0) * K + e);
+    }
+  };
+  // rows [tile * TR, +TR) of rpe2 | table[index] into cat (TR, K, 2h) of
+  // buffer buf, by the indices of index buffer buf
   auto load_tile = [&](int tile, int buf) {
     float* t = tiles + buf * TR * RS;
+    const int* ix = ibuf + buf * TR * K;
     const int row0 = tile * TR;
     const int nr = min(TR, rows - row0);
     const int chunks = KH / 4;
     for (int e = threadIdx.x; e < nr * chunks; e += blockDim.x) {
       const int rr = e / chunks, q = 4 * (e - rr * chunks);
       const int k = q / H, c = q - k * H;
-      const size_t src = static_cast<size_t>(row0 + rr) * KH + q;
+      const int row = row0 + rr;
+      const size_t nb = static_cast<size_t>(row / n) * s + ix[rr * K + k];
       float* dst = t + rr * RS + k * C2 + c;
-      cp_async16(dst, rpe2 + src);
-      cp_async16(dst + H, g2 + src);
+      cp_async16(dst, rpe2 + static_cast<size_t>(row) * KH + q);
+      cp_async16(dst + H, table + nb * H + c);
     }
     if constexpr (RES) {
       for (int e = threadIdx.x; e < nr * F; e += blockDim.x) {
         cp_async4(fin + buf * TR * F + e, f_in + static_cast<size_t>(row0) * F + e);
       }
     }
-    cp_async_commit();
   };
 
   const int r = threadIdx.x / C2, j = threadIdx.x - r * C2;
   int buf = 0;
-  if (blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
+  // the first tile's indices, then its rows with the next tile's indices:
+  // from here on a tile's indices arrive one tile ahead of its rows
+  if (blockIdx.x < n_tiles) {
+    load_indices(blockIdx.x, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile(blockIdx.x, 0);
+    if (blockIdx.x + gridDim.x < n_tiles) load_indices(blockIdx.x + gridDim.x, 1);
+    cp_async_commit();
+  }
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
     cp_async_wait_all();
-    __syncthreads();  // this tile (and, first time, the constants) visible
-    // every thread is past the previous tile: its buffer may be refilled
-    if (tile + gridDim.x < n_tiles) load_tile(tile + gridDim.x, buf ^ 1);
+    __syncthreads();  // this tile, the next one's indices (and, first time, the constants) visible
+    // every thread is past the previous tile: its buffers may be refilled
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      load_tile(next, buf ^ 1);
+      if (next + gridDim.x < n_tiles) load_indices(next + gridDim.x, buf);
+      cp_async_commit();
+    }
     const int row = tile * TR + r;
     const float* cat = tiles + buf * TR * RS + r * RS;
 
@@ -287,15 +330,17 @@ lfa_pool2_tile_kernel(const float* __restrict__ rpe2, const float* __restrict__ 
 // Round 1 over tiles of rows (see the design note at the top). Thread
 // (r, j) of a tile owns channel j < 2h of row r; blockDim.x = TR * 2h. KC:
 // neighbours per softmax chunk (K is a multiple of it); the rpe2 product
-// runs in chunks of KC / 2 neighbours. Dynamic shared memory: two row buffers of TR * (K*2h + pad) |
-// two d2 buffers of TR * K | two centre buffers of TR * h | the constants
-// of round1_consts | agg (TR, 2h).
+// runs in chunks of KC / 2 neighbours. A row's neighbours are read by index
+// from the table (s rows a cloud of n query rows). Dynamic shared memory:
+// two row buffers of TR * (K*2h + pad) | two d2 buffers of TR * K | two
+// centre buffers of TR * h | the constants of round1_consts | agg (TR, 2h) |
+// two index buffers of TR * K.
 template <int H, int KC>
 __global__ void __launch_bounds__(TILE_THREADS)
-lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2,
-                       const float* __restrict__ center, const float* __restrict__ consts,
-                       float* __restrict__ pooled_out, float* __restrict__ rpe2_out,
-                       int rows, int K) {
+lfa_round1_tile_kernel(const float* __restrict__ table, const int* __restrict__ nbr,
+                       const float* __restrict__ d2, const float* __restrict__ center,
+                       const float* __restrict__ consts, float* __restrict__ pooled_out,
+                       float* __restrict__ rpe2_out, int rows, int K, int n, int s) {
   constexpr int C2 = 2 * H;
   constexpr int KR = KC / 2;
   const int TR = blockDim.x / C2;
@@ -306,6 +351,7 @@ lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2
   float* cbuf = dbuf + 2 * TR * K;
   float* cst = cbuf + 2 * TR * H;
   float* agg = cst + round1_consts(H);
+  int* ibuf = reinterpret_cast<int*>(agg + TR * C2);
   const float* w9 = cst;
   const float* s1 = w9 + H;
   const float* o1 = s1 + H;
@@ -315,22 +361,31 @@ lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2
   const float* w2 = op + H;
   const float* o2 = w2 + H * H;
 
-  // the constants arrive with the first tile (one cp.async group): a block
-  // of one tile would otherwise wait for them load after load
+  // the constants arrive with the first tile's indices (one cp.async group)
   for (int i = threadIdx.x; i < round1_consts(H); i += blockDim.x) cp_async4(cst + i, consts + i);
 
-  const int L = K * C2;
   const int n_tiles = (rows + TR - 1) / TR;
-  // rows [tile * TR, +TR) of g, d2 and center into buffer buf
-  auto load_tile = [&](int tile, int buf) {
-    float* t = tiles + buf * TR * RS;
+  // the neighbour indices of rows [tile * TR, +TR) into index buffer buf
+  auto load_indices = [&](int tile, int buf) {
     const int row0 = tile * TR;
     const int nr = min(TR, rows - row0);
-    const float* src = g + static_cast<size_t>(row0) * L;
-    const int chunks = L / 4;
-    for (int e = threadIdx.x; e < nr * chunks; e += blockDim.x) {
-      const int rr = e / chunks, q = 4 * (e - rr * chunks);
-      cp_async16(t + rr * RS + q, src + rr * L + q);
+    for (int e = threadIdx.x; e < nr * K; e += blockDim.x) {
+      cp_async4(ibuf + buf * TR * K + e, nbr + static_cast<size_t>(row0) * K + e);
+    }
+  };
+  // rows [tile * TR, +TR) of table[index] (by the indices of index buffer
+  // buf), d2 and center into buffer buf
+  auto load_tile = [&](int tile, int buf) {
+    float* t = tiles + buf * TR * RS;
+    const int* ix = ibuf + buf * TR * K;
+    const int row0 = tile * TR;
+    const int nr = min(TR, rows - row0);
+    constexpr int CHUNKS = C2 / 4;  // 16-byte copies a neighbour row
+    for (int e = threadIdx.x; e < nr * K * CHUNKS; e += blockDim.x) {
+      const int rk = e / CHUNKS, q = 4 * (e - rk * CHUNKS);  // rk = rr * K + k
+      const int rr = rk / K;
+      const size_t nb = static_cast<size_t>((row0 + rr) / n) * s + ix[rk];
+      cp_async16(t + rr * RS + (rk - rr * K) * C2 + q, table + nb * C2 + q);
     }
     for (int e = threadIdx.x; e < nr * K; e += blockDim.x) {
       cp_async4(dbuf + buf * TR * K + e, d2 + static_cast<size_t>(row0) * K + e);
@@ -338,18 +393,32 @@ lfa_round1_tile_kernel(const float* __restrict__ g, const float* __restrict__ d2
     for (int e = threadIdx.x; e < nr * H; e += blockDim.x) {
       cp_async4(cbuf + buf * TR * H + e, center + static_cast<size_t>(row0) * H + e);
     }
-    cp_async_commit();
   };
 
   const int r = threadIdx.x / C2, j = threadIdx.x - r * C2;
   const int ch = j % H, half = j / H;  // the rpe2 channel and neighbour half
   int buf = 0;
-  if (blockIdx.x < n_tiles) load_tile(blockIdx.x, 0);
+  // the first tile's indices, then its rows with the next tile's indices:
+  // from here on a tile's indices arrive one tile ahead of its rows
+  if (blockIdx.x < n_tiles) {
+    load_indices(blockIdx.x, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    load_tile(blockIdx.x, 0);
+    if (blockIdx.x + gridDim.x < n_tiles) load_indices(blockIdx.x + gridDim.x, 1);
+    cp_async_commit();
+  }
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
     cp_async_wait_all();
-    __syncthreads();  // this tile (and, first time, the constants) visible
+    __syncthreads();  // this tile, the next one's indices (and, first time, the constants) visible
     // every thread is past the previous tile: its buffers may be refilled
-    if (tile + gridDim.x < n_tiles) load_tile(tile + gridDim.x, buf ^ 1);
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      load_tile(next, buf ^ 1);
+      if (next + gridDim.x < n_tiles) load_indices(next + gridDim.x, buf);
+      cp_async_commit();
+    }
     float* tb = tiles + buf * TR * RS;
     const float* db = dbuf + buf * TR * K;
     const float* cb = cbuf + buf * TR * H;
@@ -478,10 +547,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // ldmatrix (8x8 matrices of 16-bit elements, rows of 16 bytes): lane l
@@ -700,7 +765,7 @@ __device__ __forceinline__ void attentive_pool(const __nv_bfloat16* wst,
 }
 
 // Byte offsets of lfa_round1_mma_kernel's shared memory: the block's
-// constants, then per warp two staging buffers and agg.
+// constants, then per warp two staging buffers, agg and two index buffers.
 template <int H, int K>
 struct Round1Layout {
   static constexpr int C2 = 2 * H, SP = C2 + BF_PAD, SP2 = H + BF_PAD;
@@ -713,25 +778,27 @@ struct Round1Layout {
   static constexpr int STAGE_C = STAGE_D + K * 4;
   static constexpr int STAGE = STAGE_C + H * 4;
   static constexpr int AGG = 2 * STAGE;               // f32 (2h)
-  static constexpr int WARP = AGG + C2 * 4;
+  static constexpr int IDX = AGG + C2 * 4;            // int32 2 x (K)
+  static constexpr int WARP = IDX + 2 * K * 4;
   static constexpr size_t bytes() { return CONSTS + static_cast<size_t>(bf_warps(H)) * WARP; }
 };
 
 // Round 1, bfloat16 form. A persistent grid; each warp takes a row at a time
 // (rows blockIdx.x * W + warp, + gridDim.x * W, ...) and stages the next one
-// by cp.async while it computes. Per row: the distances; the score dot's B
-// fragments by ldmatrix from the staged gathered rows, their rpe lanes
-// replaced by bf16(rpe) computed in the fragments' layout; the attentive
-// pooling (x: the rpe lanes computed again, unrounded, in the
-// accumulators' layout); rpe2 = relu(bf16(rpe) @ W2 + o2) on the tensor
-// cores, its A fragments those same registers; pooled = relu(agg @ Wp + op)
-// in float32.
+// by cp.async while it computes, its neighbours read by index from the
+// table (s rows a cloud of n query rows), the indices staged a row ahead.
+// Per row: the distances; the score dot's B fragments by ldmatrix from the
+// staged neighbour rows, their rpe lanes replaced by bf16(rpe) computed in
+// the fragments' layout; the attentive pooling (x: the rpe lanes computed
+// again, unrounded, in the accumulators' layout); rpe2 = relu(bf16(rpe) @
+// W2 + o2) on the tensor cores, its A fragments those same registers;
+// pooled = relu(agg @ Wp + op) in float32.
 template <int H, int K>
 __global__ void __launch_bounds__(32 * bf_warps(H))
-lfa_round1_mma_kernel(const __nv_bfloat16* __restrict__ g, const float* __restrict__ d2,
-                      const float* __restrict__ center, const float* __restrict__ consts,
-                      __nv_bfloat16* __restrict__ pooled_out,
-                      __nv_bfloat16* __restrict__ rpe2_out, int rows) {
+lfa_round1_mma_kernel(const __nv_bfloat16* __restrict__ table, const int* __restrict__ nbr,
+                      const float* __restrict__ d2, const float* __restrict__ center,
+                      const float* __restrict__ consts, __nv_bfloat16* __restrict__ pooled_out,
+                      __nv_bfloat16* __restrict__ rpe2_out, int rows, int n, int s) {
   using L = Round1Layout<H, K>;
   constexpr int C2 = 2 * H, SP = L::SP, SP2 = L::SP2, NT = K / 8, KS = H / 8;
   constexpr int W = bf_warps(H);
@@ -769,15 +836,25 @@ lfa_round1_mma_kernel(const __nv_bfloat16* __restrict__ g, const float* __restri
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
   unsigned char* wb = r1m_sm + L::CONSTS + warp * L::WARP;
   float* agg = reinterpret_cast<float*>(wb + L::AGG);
+  int* ibuf = reinterpret_cast<int*>(wb + L::IDX);
   const int nw = gridDim.x * W;
-  // row into staging buffer buf: the gathered rows into padded rows, 16
-  // bytes a copy; d2 and the centre term 4 bytes a copy
+  // row's K neighbour indices into index buffer buf
+  auto issue_indices = [&](int row, int buf) {
+    for (int e = lane; e < K; e += 32) {
+      cp_async4(ibuf + buf * K + e, nbr + static_cast<size_t>(row) * K + e);
+    }
+  };
+  // row into staging buffer buf: its neighbours' table rows (by the indices
+  // of index buffer buf) into padded rows, 16 bytes a copy; d2 and the
+  // centre term 4 bytes a copy
   auto issue = [&](int row, int buf) {
     unsigned char* st = wb + buf * L::STAGE;
     __nv_bfloat16* gt = reinterpret_cast<__nv_bfloat16*>(st);
-    const __nv_bfloat16* src = g + static_cast<size_t>(row) * K * C2;
+    const int* ix = ibuf + buf * K;
+    const __nv_bfloat16* src = table + static_cast<size_t>(row / n) * s * C2;
     for (int e = lane; e < K * H / 4; e += 32) {
-      cp_async16(gt + (e / (H / 4)) * SP + 8 * (e % (H / 4)), src + 8 * e);
+      const int k = e / (H / 4), c = 8 * (e % (H / 4));
+      cp_async16(gt + k * SP + c, src + static_cast<size_t>(ix[k]) * C2 + c);
     }
     float* db = reinterpret_cast<float*>(st + L::STAGE_D);
     for (int e = lane; e < K; e += 32) cp_async4(db + e, d2 + static_cast<size_t>(row) * K + e);
@@ -787,14 +864,26 @@ lfa_round1_mma_kernel(const __nv_bfloat16* __restrict__ g, const float* __restri
     }
   };
 
+  // the first row's indices, then its copies with the next row's indices:
+  // from here on a row's indices arrive one row ahead of its copies
   int row = blockIdx.x * W + warp;
-  if (row < rows) issue(row, 0);
+  if (row < rows) {
+    issue_indices(row, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    issue(row, 0);
+    if (row + nw < rows) issue_indices(row + nw, 1);
+  }
   cp_async_commit();
   for (int buf = 0; row < rows; row += nw, buf ^= 1) {
-    if (row + nw < rows) issue(row + nw, buf ^ 1);
+    cp_async_wait_all();
+    __syncwarp();  // this row's copies and the next row's indices, from every lane, visible
+    if (row + nw < rows) {
+      issue(row + nw, buf ^ 1);
+      if (row + 2 * nw < rows) issue_indices(row + 2 * nw, buf);
+    }
     cp_async_commit();
-    cp_async_wait_1();
-    __syncwarp();  // this row's copies, from every lane, visible
     unsigned char* st = wb + buf * L::STAGE;
     const __nv_bfloat16* gt = reinterpret_cast<const __nv_bfloat16*>(st);
     float* dist = reinterpret_cast<float*>(st + L::STAGE_D);
@@ -877,9 +966,9 @@ __host__ __device__ constexpr int pool2_warps(int h, bool res, int tr) {
 // constants and, with the residual, its tile's pooled rows, two buffers of
 // the tile's f_in rows (fp: F padded to 16 with zeros) and its output rows;
 // then per warp two staging buffers (the concatenation [rpe2 | g2], padded
-// rows) and agg.
+// rows), agg and two index buffers.
 struct Pool2Layout {
-  int wst, wp, op, wmt, wsht, off, pooled, fin, out, warps, stage, agg, warp;
+  int wst, wp, op, wmt, wsht, off, pooled, fin, out, warps, stage, agg, idx, warp;
   __host__ __device__ Pool2Layout(int h, int k, bool res, int fp, int tile_rows) {
     const int c2 = 2 * h, c4 = 4 * h, sp = c2 + BF_PAD, spf = fp + BF_PAD, spo = c4 + BF_PAD;
     const int tr = res ? tile_rows : 0;
@@ -895,7 +984,8 @@ struct Pool2Layout {
     warps = out + tr * spo * 2;
     stage = k * sp * 2;
     agg = 2 * stage;                          // f32 (2h)
-    warp = agg + c2 * 4;
+    idx = agg + c2 * 4;                       // int32 2 x (K)
+    warp = idx + 2 * k * 4;
   }
   __host__ __device__ size_t bytes(int warps_a_block) const {
     return warps + static_cast<size_t>(warps_a_block) * warp;
@@ -923,7 +1013,9 @@ __device__ __forceinline__ void pool2_row(const __nv_bfloat16* t, const __nv_bfl
 // the residual each warp takes a row at a time (rows blockIdx.x * W + warp,
 // + gridDim.x * W, ...); with it the block takes tiles of TR rows (tiles
 // blockIdx.x, + gridDim.x, ...), warp w row w of each. A warp stages its
-// next row by cp.async while it computes the current one: the score dot's B
+// next row by cp.async while it computes the current one, the g2 half read
+// by index from round 1's pooled rows (table, s rows a cloud of n query
+// rows), the indices staged a row ahead: the score dot's B
 // fragments by ldmatrix from the staged [rpe2 | g2], the attentive pooling,
 // pooled = relu(agg @ Wp + op) in float32. With the residual the tile then
 // ends with out = leaky_relu((bf16(pooled) @ Wm + f_in @ Wsh) + off) on the
@@ -933,9 +1025,9 @@ __device__ __forceinline__ void pool2_row(const __nv_bfloat16* t, const __nv_bfl
 template <int H, int K, bool RES, int TR>
 __global__ void __launch_bounds__(32 * pool2_warps(H, RES, TR))
 lfa_pool2_mma_kernel(const __nv_bfloat16* __restrict__ rpe2,
-                     const __nv_bfloat16* __restrict__ g2,
+                     const __nv_bfloat16* __restrict__ table, const int* __restrict__ nbr,
                      const __nv_bfloat16* __restrict__ f_in, const float* __restrict__ consts,
-                     __nv_bfloat16* __restrict__ out, int rows, int F) {
+                     __nv_bfloat16* __restrict__ out, int rows, int F, int n, int s) {
   constexpr int C2 = 2 * H, C4 = 4 * H, SP = C2 + BF_PAD, SPO = C4 + BF_PAD;
   constexpr int KS = H / 8, W = pool2_warps(H, RES, TR), NR = TR / 8;
   const int fp = (F + 15) & ~15, spf = fp + BF_PAD;
@@ -982,17 +1074,29 @@ lfa_pool2_mma_kernel(const __nv_bfloat16* __restrict__ rpe2,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
   unsigned char* wb = p2m_sm + L.warps + warp * L.warp;
   float* agg = reinterpret_cast<float*>(wb + L.agg);
-  // row into staging buffer buf: rpe2 and g2 side by side in padded rows,
-  // 16 bytes a copy; with the residual its f_in into row `warp` of f_in
-  // buffer fb, 4 bytes a copy
+  int* ibuf = reinterpret_cast<int*>(wb + L.idx);
+  // row's K neighbour indices into index buffer buf
+  auto issue_indices = [&](int row, int buf) {
+    if (row >= rows) return;
+    for (int e = lane; e < K; e += 32) {
+      cp_async4(ibuf + buf * K + e, nbr + static_cast<size_t>(row) * K + e);
+    }
+  };
+  // row into staging buffer buf: rpe2 and its neighbours' table rows (by
+  // the indices of index buffer buf) side by side in padded rows, 16 bytes
+  // a copy; with the residual its f_in into row `warp` of f_in buffer fb, 4
+  // bytes a copy
   auto issue = [&](int row, int buf, int fb) {
     if (row >= rows) return;
     __nv_bfloat16* t = reinterpret_cast<__nv_bfloat16*>(wb + buf * L.stage);
+    const int* ix = ibuf + buf * K;
     const size_t src = static_cast<size_t>(row) * K * H;
+    const __nv_bfloat16* tb = table + static_cast<size_t>(row / n) * s * H;
     for (int e = lane; e < K * H / 8; e += 32) {
-      __nv_bfloat16* dst = t + (e / (H / 8)) * SP + 8 * (e % (H / 8));
+      const int k = e / (H / 8), c = 8 * (e % (H / 8));
+      __nv_bfloat16* dst = t + k * SP + c;
       cp_async16(dst, rpe2 + src + 8 * e);
-      cp_async16(dst + H, g2 + src + 8 * e);
+      cp_async16(dst + H, tb + static_cast<size_t>(ix[k]) * H + c);
     }
     if constexpr (RES) {
       __nv_bfloat16* fr = fin + (fb * TR + warp) * spf;
@@ -1005,16 +1109,28 @@ lfa_pool2_mma_kernel(const __nv_bfloat16* __restrict__ rpe2,
     return reinterpret_cast<const __nv_bfloat16*>(wb + buf * L.stage);
   };
 
+  // a row's first copies: its indices, then its rows with the next row's
+  // indices; from here on a row's indices arrive one row ahead of its copies
+  auto first = [&](int row, int next) {
+    issue_indices(row, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    issue(row, 0, 0);
+    issue_indices(next, 1);
+    cp_async_commit();
+  };
+
   if constexpr (!RES) {
     const int nw = gridDim.x * W;
     int row = blockIdx.x * W + warp;
-    issue(row, 0, 0);
-    cp_async_commit();
+    first(row, row + nw);
     for (int buf = 0; row < rows; row += nw, buf ^= 1) {
+      cp_async_wait_all();
+      __syncwarp();  // this row's copies and the next row's indices, from every lane, visible
       issue(row + nw, buf ^ 1, 0);
+      issue_indices(row + 2 * nw, buf);
       cp_async_commit();
-      cp_async_wait_1();
-      __syncwarp();  // this row's copies, from every lane, visible
       pool2_row<H, K>(stage_of(buf), wst, wp, op, agg, lane, [&](int o, unsigned p) {
         *reinterpret_cast<unsigned*>(out + static_cast<size_t>(row) * C2 + o) = p;
       });
@@ -1022,14 +1138,17 @@ lfa_pool2_mma_kernel(const __nv_bfloat16* __restrict__ rpe2,
     }
   } else {
     const int n_tiles = (rows + TR - 1) / TR;
-    if (blockIdx.x < n_tiles) issue(blockIdx.x * TR + warp, 0, 0);
-    cp_async_commit();
+    const int stride = gridDim.x * TR;  // rows from a warp's row of one tile to the next
+    if (blockIdx.x < n_tiles) first(blockIdx.x * TR + warp, blockIdx.x * TR + warp + stride);
     for (int tile = blockIdx.x, buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
       const int row = tile * TR + warp;
-      if (tile + gridDim.x < n_tiles) issue(row + gridDim.x * TR, buf ^ 1, buf ^ 1);
+      cp_async_wait_all();
+      __syncwarp();  // this row's copies and the next row's indices, from every lane, visible
+      if (tile + gridDim.x < n_tiles) {
+        issue(row + stride, buf ^ 1, buf ^ 1);
+        if (tile + 2 * gridDim.x < n_tiles) issue_indices(row + 2 * stride, buf);
+      }
       cp_async_commit();
-      cp_async_wait_1();
-      __syncwarp();  // this row's copies, from every lane, visible
       if (row < rows) {
         pool2_row<H, K>(stage_of(buf), wst, wp, op, agg, lane, [&](int o, unsigned p) {
           *reinterpret_cast<unsigned*>(pooled + warp * SP + o) = p;
@@ -1123,9 +1242,18 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, int n_tiles, int* g
   return 0;
 }
 
+// Where a kernel reads its rows' neighbours: row r's K indices at
+// idx + r * K, each into the s table rows of r's cloud (table rows
+// (r / n) * s, + s: n query rows a cloud).
+struct Neighbours {
+  const void* table;
+  const int* idx;
+  int n, s;
+};
+
 // One launch of lfa_round1_tile_kernel<H, KC>.
 template <int H, int KC>
-int launch_round1_tiles(const float* g, const float* d2, const float* center,
+int launch_round1_tiles(Neighbours nb, const float* d2, const float* center,
                         const float* consts, float* pooled, float* rpe2, int rows, int K,
                         cudaStream_t stream) {
   // at h = 8, half the rows of pool 2's tile: 128-thread blocks, more of
@@ -1135,36 +1263,39 @@ int launch_round1_tiles(const float* g, const float* d2, const float* center,
   const int tr = H == 8 ? tile_rows(K, H) / 2 : tile_rows(K, H);
   const int threads = tr * 2 * H;
   const size_t L = static_cast<size_t>(K) * 2 * H;
+  // row buffers | d2 and centre buffers | constants | agg | index buffers
   const size_t smem = (2 * tr * (L + TILE_ROW_PAD) + 2 * static_cast<size_t>(tr) * (K + H) +
-                       round1_consts(H) + static_cast<size_t>(tr) * 2 * H) *
+                       round1_consts(H) + static_cast<size_t>(tr) * 2 * H +
+                       2 * static_cast<size_t>(tr) * K) *
                       sizeof(float);
   const auto kernel = lfa_round1_tile_kernel<H, KC>;
   int grid = 0;
   const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
   if (err) return err;
-  kernel<<<grid, threads, smem, stream>>>(g, d2, center, consts, pooled, rpe2, rows, K);
+  kernel<<<grid, threads, smem, stream>>>(static_cast<const float*>(nb.table), nb.idx, d2,
+                                          center, consts, pooled, rpe2, rows, K, nb.n, nb.s);
   return 0;
 }
 
 // K in {8, 16, 32} takes one chunk of K; larger multiples of 32 chunks of 32.
 template <int H>
-int launch_round1_k(const float* g, const float* d2, const float* center, const float* consts,
+int launch_round1_k(Neighbours nb, const float* d2, const float* center, const float* consts,
                     float* pooled, float* rpe2, int rows, int K, cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_round1_tiles<H, 8>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      return launch_round1_tiles<H, 8>(nb, d2, center, consts, pooled, rpe2, rows, K, s);
     case 16:
-      return launch_round1_tiles<H, 16>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      return launch_round1_tiles<H, 16>(nb, d2, center, consts, pooled, rpe2, rows, K, s);
     default:
       if (K < 32 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_round1_tiles<H, 32>(g, d2, center, consts, pooled, rpe2, rows, K, s);
+      return launch_round1_tiles<H, 32>(nb, d2, center, consts, pooled, rpe2, rows, K, s);
   }
 }
 
 // One launch of lfa_round1_mma_kernel<H, K>: a persistent grid of
 // bf_warps(H)-warp blocks, no more blocks than a warp a row fills.
 template <int H, int K>
-int launch_round1_mma(const void* g, const float* d2, const float* center, const float* consts,
+int launch_round1_mma(Neighbours nb, const float* d2, const float* center, const float* consts,
                       void* pooled, void* rpe2, int rows, cudaStream_t stream) {
   constexpr int W = bf_warps(H);
   const auto kernel = lfa_round1_mma_kernel<H, K>;
@@ -1173,32 +1304,32 @@ int launch_round1_mma(const void* g, const float* d2, const float* center, const
   const int err = persistent_grid(kernel, 32 * W, smem, (rows + W - 1) / W, &grid);
   if (err) return err;
   kernel<<<grid, 32 * W, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(g), d2, center, consts,
-      static_cast<__nv_bfloat16*>(pooled), static_cast<__nv_bfloat16*>(rpe2), rows);
+      static_cast<const __nv_bfloat16*>(nb.table), nb.idx, d2, center, consts,
+      static_cast<__nv_bfloat16*>(pooled), static_cast<__nv_bfloat16*>(rpe2), rows, nb.n, nb.s);
   return 0;
 }
 
 // K in {8, 16, 32}, and at h = 8 also 64 and 128 (the lanes K·2h stay within
 // the 2,048 of lfa_kernels.supports)
 template <int H>
-int launch_round1_mma_k(const void* g, const float* d2, const float* center,
+int launch_round1_mma_k(Neighbours nb, const float* d2, const float* center,
                         const float* consts, void* pooled, void* rpe2, int rows, int K,
                         cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_round1_mma<H, 8>(g, d2, center, consts, pooled, rpe2, rows, s);
+      return launch_round1_mma<H, 8>(nb, d2, center, consts, pooled, rpe2, rows, s);
     case 16:
-      return launch_round1_mma<H, 16>(g, d2, center, consts, pooled, rpe2, rows, s);
+      return launch_round1_mma<H, 16>(nb, d2, center, consts, pooled, rpe2, rows, s);
     case 32:
-      return launch_round1_mma<H, 32>(g, d2, center, consts, pooled, rpe2, rows, s);
+      return launch_round1_mma<H, 32>(nb, d2, center, consts, pooled, rpe2, rows, s);
     case 64:
       if constexpr (H == 8) {
-        return launch_round1_mma<H, 64>(g, d2, center, consts, pooled, rpe2, rows, s);
+        return launch_round1_mma<H, 64>(nb, d2, center, consts, pooled, rpe2, rows, s);
       }
       break;
     case 128:
       if constexpr (H == 8) {
-        return launch_round1_mma<H, 128>(g, d2, center, consts, pooled, rpe2, rows, s);
+        return launch_round1_mma<H, 128>(nb, d2, center, consts, pooled, rpe2, rows, s);
       }
       break;
   }
@@ -1206,21 +1337,21 @@ int launch_round1_mma_k(const void* g, const float* d2, const float* center,
 }
 
 template <bool BF16>
-int launch_round1(const void* g, const float* d2, const float* center, const float* consts,
+int launch_round1(Neighbours nb, const float* d2, const float* center, const float* consts,
                   void* pooled, void* rpe2, int rows, int K, int h, void* stream) {
   if (rows == 0) return 0;
+  if (nb.n < 1 || nb.s < 1 || rows % nb.n) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto m = [](void* p) { return static_cast<float*>(p); };
   int err;
   switch (h) {
     case 8:
-      err = BF16 ? launch_round1_mma_k<8>(g, d2, center, consts, pooled, rpe2, rows, K, s)
-                 : launch_round1_k<8>(f(g), d2, center, consts, m(pooled), m(rpe2), rows, K, s);
+      err = BF16 ? launch_round1_mma_k<8>(nb, d2, center, consts, pooled, rpe2, rows, K, s)
+                 : launch_round1_k<8>(nb, d2, center, consts, m(pooled), m(rpe2), rows, K, s);
       break;
     case 32:
-      err = BF16 ? launch_round1_mma_k<32>(g, d2, center, consts, pooled, rpe2, rows, K, s)
-                 : launch_round1_k<32>(f(g), d2, center, consts, m(pooled), m(rpe2), rows, K, s);
+      err = BF16 ? launch_round1_mma_k<32>(nb, d2, center, consts, pooled, rpe2, rows, K, s)
+                 : launch_round1_k<32>(nb, d2, center, consts, m(pooled), m(rpe2), rows, K, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1231,43 +1362,46 @@ int launch_round1(const void* g, const float* d2, const float* center, const flo
 
 // One launch of lfa_pool2_tile_kernel<H, KC, RES>.
 template <int H, int KC, bool RES>
-int launch_pool2_tiles(const float* rpe2, const float* g2, const float* f_in,
+int launch_pool2_tiles(const float* rpe2, Neighbours nb, const float* f_in,
                        const float* consts, float* out, int rows, int K, int F,
                        cudaStream_t stream) {
   const int tr = tile_rows(K, H);
   const int threads = tr * 2 * H;
   const size_t L = static_cast<size_t>(K) * 2 * H;
   const size_t fin_floats = RES ? 2 * static_cast<size_t>(tr) * F : 0;
+  // row buffers | head constants | agg and pooled | f_in buffers | index buffers
   const size_t smem = (2 * tr * (L + TILE_ROW_PAD) + pool2_head_consts(H) +
-                       4 * static_cast<size_t>(tr) * H + fin_floats) *
+                       4 * static_cast<size_t>(tr) * H + fin_floats +
+                       2 * static_cast<size_t>(tr) * K) *
                       sizeof(float);
   const auto kernel = lfa_pool2_tile_kernel<H, KC, RES>;
   int grid = 0;
   const int err = persistent_grid(kernel, threads, smem, (rows + tr - 1) / tr, &grid);
   if (err) return err;
-  kernel<<<grid, threads, smem, stream>>>(rpe2, g2, f_in, consts, out, rows, K, F);
+  kernel<<<grid, threads, smem, stream>>>(rpe2, static_cast<const float*>(nb.table), nb.idx,
+                                          f_in, consts, out, rows, K, F, nb.n, nb.s);
   return 0;
 }
 
 // K in {8, 16, 32} takes one chunk of K; larger powers of two chunks of 32.
 template <int H, bool RES>
-int launch_pool2_k(const float* rpe2, const float* g2, const float* f_in, const float* consts,
+int launch_pool2_k(const float* rpe2, Neighbours nb, const float* f_in, const float* consts,
                    float* out, int rows, int K, int F, cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_pool2_tiles<H, 8, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
+      return launch_pool2_tiles<H, 8, RES>(rpe2, nb, f_in, consts, out, rows, K, F, s);
     case 16:
-      return launch_pool2_tiles<H, 16, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
+      return launch_pool2_tiles<H, 16, RES>(rpe2, nb, f_in, consts, out, rows, K, F, s);
     default:
       if (K < 32 || K % 32) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_pool2_tiles<H, 32, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s);
+      return launch_pool2_tiles<H, 32, RES>(rpe2, nb, f_in, consts, out, rows, K, F, s);
   }
 }
 
 // One launch of lfa_pool2_mma_kernel<H, K, RES, TR>: a persistent grid of
 // pool2_warps(H, RES, TR)-warp blocks.
 template <int H, int K, bool RES, int TR>
-int launch_pool2_mma_tiles(const void* rpe2, const void* g2, const void* f_in,
+int launch_pool2_mma_tiles(const void* rpe2, Neighbours nb, const void* f_in,
                            const float* consts, void* out, int rows, int F,
                            cudaStream_t stream) {
   constexpr int W = pool2_warps(H, RES, TR);
@@ -1279,9 +1413,9 @@ int launch_pool2_mma_tiles(const void* rpe2, const void* g2, const void* f_in,
   const int err = persistent_grid(kernel, 32 * W, smem, n_tiles, &grid);
   if (err) return err;
   kernel<<<grid, 32 * W, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(rpe2), static_cast<const __nv_bfloat16*>(g2),
-      static_cast<const __nv_bfloat16*>(f_in), consts, static_cast<__nv_bfloat16*>(out), rows,
-      F);
+      static_cast<const __nv_bfloat16*>(rpe2), static_cast<const __nv_bfloat16*>(nb.table),
+      nb.idx, static_cast<const __nv_bfloat16*>(f_in), consts,
+      static_cast<__nv_bfloat16*>(out), rows, F, nb.n, nb.s);
   return 0;
 }
 
@@ -1289,10 +1423,10 @@ int launch_pool2_mma_tiles(const void* rpe2, const void* g2, const void* f_in,
 // BF_TILE_ROWS_H32 where a block of as many warps fits the card's shared
 // memory, else 8 (one n-tile).
 template <int H, int K, bool RES>
-int launch_pool2_mma(const void* rpe2, const void* g2, const void* f_in, const float* consts,
+int launch_pool2_mma(const void* rpe2, Neighbours nb, const void* f_in, const float* consts,
                      void* out, int rows, int F, cudaStream_t stream) {
   if constexpr (RES && H == 8) {
-    return launch_pool2_mma_tiles<H, K, RES, BF_TILE_ROWS_H8>(rpe2, g2, f_in, consts, out, rows,
+    return launch_pool2_mma_tiles<H, K, RES, BF_TILE_ROWS_H8>(rpe2, nb, f_in, consts, out, rows,
                                                              F, stream);
   }
   if constexpr (RES && H == 32) {
@@ -1302,51 +1436,52 @@ int launch_pool2_mma(const void* rpe2, const void* g2, const void* f_in, const f
     if (!err) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err) return err;
     if (Pool2Layout(H, K, RES, (F + 15) & ~15, TR).bytes(TR) <= static_cast<size_t>(optin)) {
-      return launch_pool2_mma_tiles<H, K, RES, TR>(rpe2, g2, f_in, consts, out, rows, F, stream);
+      return launch_pool2_mma_tiles<H, K, RES, TR>(rpe2, nb, f_in, consts, out, rows, F, stream);
     }
   }
-  return launch_pool2_mma_tiles<H, K, RES, 8>(rpe2, g2, f_in, consts, out, rows, F, stream);
+  return launch_pool2_mma_tiles<H, K, RES, 8>(rpe2, nb, f_in, consts, out, rows, F, stream);
 }
 
 // K as launch_round1_mma_k
 template <int H, bool RES>
-int launch_pool2_mma_k(const void* rpe2, const void* g2, const void* f_in, const float* consts,
+int launch_pool2_mma_k(const void* rpe2, Neighbours nb, const void* f_in, const float* consts,
                        void* out, int rows, int K, int F, cudaStream_t s) {
   switch (K) {
     case 8:
-      return launch_pool2_mma<H, 8, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      return launch_pool2_mma<H, 8, RES>(rpe2, nb, f_in, consts, out, rows, F, s);
     case 16:
-      return launch_pool2_mma<H, 16, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      return launch_pool2_mma<H, 16, RES>(rpe2, nb, f_in, consts, out, rows, F, s);
     case 32:
-      return launch_pool2_mma<H, 32, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      return launch_pool2_mma<H, 32, RES>(rpe2, nb, f_in, consts, out, rows, F, s);
     case 64:
-      if constexpr (H == 8) return launch_pool2_mma<H, 64, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      if constexpr (H == 8) return launch_pool2_mma<H, 64, RES>(rpe2, nb, f_in, consts, out, rows, F, s);
       break;
     case 128:
-      if constexpr (H == 8) return launch_pool2_mma<H, 128, RES>(rpe2, g2, f_in, consts, out, rows, F, s);
+      if constexpr (H == 8) return launch_pool2_mma<H, 128, RES>(rpe2, nb, f_in, consts, out, rows, F, s);
       break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool RES, bool BF16>
-int launch_pool2(const void* rpe2, const void* g2, const void* f_in,
+int launch_pool2(const void* rpe2, Neighbours nb, const void* f_in,
                  const float* consts, void* out, int rows, int K, int h,
                  int F, void* stream) {
   if (rows == 0) return 0;
   if (BF16 && F % 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb.n < 1 || nb.s < 1 || rows % nb.n) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   int err;
   switch (h) {
     case 8:
-      err = BF16 ? launch_pool2_mma_k<8, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s)
-                 : launch_pool2_k<8, RES>(f(rpe2), f(g2), f(f_in), consts,
+      err = BF16 ? launch_pool2_mma_k<8, RES>(rpe2, nb, f_in, consts, out, rows, K, F, s)
+                 : launch_pool2_k<8, RES>(f(rpe2), nb, f(f_in), consts,
                                           static_cast<float*>(out), rows, K, F, s);
       break;
     case 32:
-      err = BF16 ? launch_pool2_mma_k<32, RES>(rpe2, g2, f_in, consts, out, rows, K, F, s)
-                 : launch_pool2_k<32, RES>(f(rpe2), f(g2), f(f_in), consts,
+      err = BF16 ? launch_pool2_mma_k<32, RES>(rpe2, nb, f_in, consts, out, rows, K, F, s)
+                 : launch_pool2_k<32, RES>(f(rpe2), nb, f(f_in), consts,
                                            static_cast<float*>(out), rows, K, F, s);
       break;
     default:
@@ -1358,55 +1493,65 @@ int launch_pool2(const void* rpe2, const void* g2, const void* f_in,
 
 }  // namespace
 
-// gathered (rows, K, 2h), d2 (rows, K), center (rows, h), consts as laid out
-// in round1_consts; pooled (rows, h) and rpe2 (rows, K, h) out. h in {8, 32};
-// K in {8, 16} or a multiple of 32.
-extern "C" int r3d_lfa_round1(const float* g, const float* d2,
+// table (B·s, 2h) the rows the neighbours index, nbr (rows, K) int32 indices
+// into each cloud's s table rows (n query rows a cloud, rows = B·n), d2
+// (rows, K), center (rows, h), consts as laid out in round1_consts; pooled
+// (rows, h) and rpe2 (rows, K, h) out. h in {8, 32}; K in {8, 16} or a
+// multiple of 32.
+extern "C" int r3d_lfa_round1(const float* table, const int* nbr, const float* d2,
                               const float* center, const float* consts,
                               float* pooled, float* rpe2, int rows, int K,
-                              int h, void* stream) {
-  return launch_round1<false>(g, d2, center, consts, pooled, rpe2, rows, K, h, stream);
+                              int h, int n, int s, void* stream) {
+  return launch_round1<false>({table, nbr, n, s}, d2, center, consts, pooled, rpe2, rows, K, h,
+                              stream);
 }
 
-// The bfloat16 form: gathered, pooled and rpe2 bfloat16; d2, center and
+// The bfloat16 form: table, pooled and rpe2 bfloat16; d2, center and
 // consts (its matrices rounded to bfloat16) float32.
-extern "C" int r3d_lfa_round1_bf16(const __nv_bfloat16* g, const float* d2,
+extern "C" int r3d_lfa_round1_bf16(const __nv_bfloat16* table, const int* nbr, const float* d2,
                                    const float* center, const float* consts,
                                    __nv_bfloat16* pooled, __nv_bfloat16* rpe2, int rows,
-                                   int K, int h, void* stream) {
-  return launch_round1<true>(g, d2, center, consts, pooled, rpe2, rows, K, h, stream);
+                                   int K, int h, int n, int s, void* stream) {
+  return launch_round1<true>({table, nbr, n, s}, d2, center, consts, pooled, rpe2, rows, K, h,
+                             stream);
 }
 
-// rpe2 (rows, K, h), g2 (rows, K, h), f_in (rows, F), consts = the head of
-// pool2_head_consts | Wm (2h x 4h) | Wsh (F x 4h) | off (4h); out (rows, 4h).
-// h in {8, 32}; K in {8, 16} or a multiple of 32.
-extern "C" int r3d_lfa_pool2_res(const float* rpe2, const float* g2,
+// rpe2 (rows, K, h), table (B·s, h) round 1's pooled rows, nbr (rows, K)
+// int32 indices into each cloud's s table rows (n query rows a cloud), f_in
+// (rows, F), consts = the head of pool2_head_consts | Wm (2h x 4h) | Wsh
+// (F x 4h) | off (4h); out (rows, 4h). h in {8, 32}; K in {8, 16} or a
+// multiple of 32.
+extern "C" int r3d_lfa_pool2_res(const float* rpe2, const float* table, const int* nbr,
                                  const float* f_in, const float* consts,
-                                 float* out, int rows, int K, int h, int F,
+                                 float* out, int rows, int K, int h, int F, int n, int s,
                                  void* stream) {
-  return launch_pool2<true, false>(rpe2, g2, f_in, consts, out, rows, K, h, F, stream);
+  return launch_pool2<true, false>(rpe2, {table, nbr, n, s}, f_in, consts, out, rows, K, h, F,
+                                   stream);
 }
 
-// The bfloat16 form: rpe2, g2, f_in (F even) and out bfloat16; consts
+// The bfloat16 form: rpe2, table, f_in (F even) and out bfloat16; consts
 // float32, its matrices rounded to bfloat16.
-extern "C" int r3d_lfa_pool2_res_bf16(const __nv_bfloat16* rpe2, const __nv_bfloat16* g2,
-                                      const __nv_bfloat16* f_in, const float* consts,
-                                      __nv_bfloat16* out, int rows, int K, int h, int F,
-                                      void* stream) {
-  return launch_pool2<true, true>(rpe2, g2, f_in, consts, out, rows, K, h, F, stream);
+extern "C" int r3d_lfa_pool2_res_bf16(const __nv_bfloat16* rpe2, const __nv_bfloat16* table,
+                                      const int* nbr, const __nv_bfloat16* f_in,
+                                      const float* consts, __nv_bfloat16* out, int rows, int K,
+                                      int h, int F, int n, int s, void* stream) {
+  return launch_pool2<true, true>(rpe2, {table, nbr, n, s}, f_in, consts, out, rows, K, h, F,
+                                  stream);
 }
 
-// rpe2 (rows, K, h), g2 (rows, K, h), consts as laid out in
-// pool2_head_consts; out (rows, 2h). h in {8, 32}.
-extern "C" int r3d_lfa_pool2(const float* rpe2, const float* g2,
+// rpe2 (rows, K, h), table and nbr as r3d_lfa_pool2_res, consts as laid out
+// in pool2_head_consts; out (rows, 2h). h in {8, 32}.
+extern "C" int r3d_lfa_pool2(const float* rpe2, const float* table, const int* nbr,
                              const float* consts, float* out, int rows, int K,
-                             int h, void* stream) {
-  return launch_pool2<false, false>(rpe2, g2, nullptr, consts, out, rows, K, h, 0, stream);
+                             int h, int n, int s, void* stream) {
+  return launch_pool2<false, false>(rpe2, {table, nbr, n, s}, nullptr, consts, out, rows, K, h,
+                                    0, stream);
 }
 
 // The bfloat16 form of r3d_lfa_pool2.
-extern "C" int r3d_lfa_pool2_bf16(const __nv_bfloat16* rpe2, const __nv_bfloat16* g2,
-                                  const float* consts, __nv_bfloat16* out, int rows, int K,
-                                  int h, void* stream) {
-  return launch_pool2<false, true>(rpe2, g2, nullptr, consts, out, rows, K, h, 0, stream);
+extern "C" int r3d_lfa_pool2_bf16(const __nv_bfloat16* rpe2, const __nv_bfloat16* table,
+                                  const int* nbr, const float* consts, __nv_bfloat16* out,
+                                  int rows, int K, int h, int n, int s, void* stream) {
+  return launch_pool2<false, true>(rpe2, {table, nbr, n, s}, nullptr, consts, out, rows, K, h,
+                                   0, stream);
 }

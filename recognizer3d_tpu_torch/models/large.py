@@ -2,10 +2,10 @@
 ``recognizer3d_tpu/models/large.py``).
 
 The in-model forward (``models/randlanet.py``) holds whole-level (N, K, C)
-neighbour tensors in every LFA block: about 2 GB each at N = 1,048,576. This
-forward computes the same function, weight for weight, with each LFA's
-neighbour pipeline streamed in query chunks, so the largest per-neighbour
-tensor is (chunk, K, C):
+neighbour tensors in every unfused LFA block: about 2 GB each at N =
+1,048,576. This forward computes the same function, weight for weight, with
+each unfused LFA's neighbour pipeline streamed in query chunks, so the
+largest per-neighbour tensor is (chunk, K, C):
 
 - an unfused level (``_lfa_chunked``): phase A per chunk, the neighbour
   gather, the LocSE encoding, ``mlp_rpe1`` and attentive pool 1 (its
@@ -14,10 +14,12 @@ tensor is (chunk, K, C):
   of pooled rows, ``mlp_rpe2`` and attentive pool 2;
 - a fused level (``_lfa_fused_level``): the same two phases through the LFA
   kernels, B2 (``lfa_kernels.lfa_round1``) and B3
-  (``lfa_kernels.attentive_pool2_residual``), on each chunk's gathered rows.
-  It keeps one full-level intermediate between the phases, ``rpe2``
-  (N, K·half), and runs where the kernels take the level's (K, half) and
-  that intermediate stays under ``_FUSED_LEVEL_MAX_GATHER_BYTES``.
+  (``lfa_kernels.attentive_pool2_residual``), one launch each over the
+  whole level: the kernels read the neighbour rows by index, so no
+  per-neighbour tensor is made and there is nothing to chunk. It keeps one
+  full-level intermediate between the phases, ``rpe2`` (N, K·half), and
+  runs where the kernels take the level's (K, half) and that intermediate
+  stays under ``_FUSED_LEVEL_MAX_GATHER_BYTES``.
 
 Everything else (the per-level Morton orders, the KNN, the decimation, the
 decoder's 1-NN upsample, the head) is the sorted-domain flow of the in-model
@@ -66,8 +68,8 @@ from recognizer3d_tpu_torch.ops.morton import invert_permutation, morton_order
 LARGE_FORWARD_MIN_POINTS = 300_000
 
 #: the fused levels' memory gate: rpe2, (N, K·half) float32, the one
-#: full-level intermediate kept between the two chunked phases, must stay
-#: under this (about 1 GB a 1M-point level at the app architecture)
+#: full-level intermediate kept between the two kernels, must stay under
+#: this (about 1 GB a 1M-point level at the app architecture)
 _FUSED_LEVEL_MAX_GATHER_BYTES = 3 * 1024**3
 
 _F32 = torch.float32
@@ -141,39 +143,27 @@ def _fused_level_available(k: int, n: int, half: int) -> bool:
     )
 
 
-def _lfa_fused_level(block, xyz, feats, k: int, approach: str, chunk: int) -> torch.Tensor:
+def _lfa_fused_level(block, xyz, feats, k: int, approach: str) -> torch.Tensor:
     """One eval LFA block on a level's sorted (N, ·) rows through the LFA
-    kernels, streamed in query chunks: phase A per chunk, the gather of
-    (support projection | mlp1 features) rows and round 1 (B2); phase B per
-    chunk, after all of phase A, the gather of pooled rows and pool 2 with
-    the block's residual (B3). The kernels' arguments are the in-model fused
-    branch's (``LocalFeatureAggregation.forward``)."""
-    n = xyz.shape[0]
+    kernels, one launch each over the whole level: round 1 (B2) on the
+    (support projection | mlp1 features) table, then pool 2 with the
+    block's residual (B3) on round 1's pooled rows, each kernel reading the
+    neighbour rows at the KNN's indices itself. The kernels' arguments are
+    the in-model fused branch's (``LocalFeatureAggregation._fused_forward``)."""
     rpe1 = block.mlp_rpe1
-    table = torch.cat(
-        [rpe1.support_projection(xyz), _mlp(block.mlp1, feats)], dim=-1
-    ).contiguous()
-    center = rpe1.center_projection(xyz)
+    table = torch.cat([rpe1.support_projection(xyz), _mlp(block.mlp1, feats)], dim=-1)
     neighbors, d2 = knn_presorted(xyz[None], xyz[None], k, approach)
-    nb, d2 = neighbors[0], d2[0]
 
     s1, o1 = rpe1.batch_norm.eval_affine()
     wp1, bp1 = block.pool1.mlp.dense_wb()
     sp1, op1 = block.pool1.mlp.batch_norm.eval_affine()
     w2, b2 = block.mlp_rpe2.dense_wb()
     s2, o2 = block.mlp_rpe2.batch_norm.eval_affine()
-    ws1 = block.pool1.score_kernel()
-    nb_c = _chunks(nb, chunk)
-    pooled_c, rpe2_c = [], []
-    for nb_i, d2_i, ctr_i in zip(nb_c, _chunks(d2, chunk), _chunks(center, chunk)):
-        pooled_i, rpe2_i = lfa_kernels.lfa_round1(
-            _rows(table, nb_i)[None], d2_i[None].contiguous(), ctr_i[None].contiguous(),
-            rpe1.conv.kernel[9], rpe1.conv.bias, s1, o1, ws1, wp1, bp1, sp1, op1,
-            w2, b2, s2, o2,
-        )
-        pooled_c.append(pooled_i[0])
-        rpe2_c.append(rpe2_i)
-    pooled = torch.cat(pooled_c)[:n].contiguous()
+    pooled, rpe2 = lfa_kernels.lfa_round1(
+        table[None], neighbors, d2, rpe1.center_projection(xyz)[None].contiguous(),
+        rpe1.conv.kernel[9], rpe1.conv.bias, s1, o1, block.pool1.score_kernel(),
+        wp1, bp1, sp1, op1, w2, b2, s2, o2,
+    )
 
     wp2, bp2 = block.pool2.mlp.dense_wb()
     sp2, op2 = block.pool2.mlp.batch_norm.eval_affine()
@@ -181,15 +171,11 @@ def _lfa_fused_level(block, xyz, feats, k: int, approach: str, chunk: int) -> to
     sm, om = block.mlp2.batch_norm.eval_affine()
     wsh, bsh = block.shortcut.dense_wb()
     ssh, osh = block.shortcut.batch_norm.eval_affine()
-    ws2 = block.pool2.score_kernel()
-    off = (sm * bm + om) + (ssh * bsh + osh)
-    out_c = []
-    for nb_i, rpe2_i, f_i in zip(nb_c, rpe2_c, _chunks(feats, chunk)):
-        out_c.append(lfa_kernels.attentive_pool2_residual(
-            rpe2_i, _rows(pooled, nb_i)[None], ws2, wp2, bp2, sp2, op2,
-            f_i[None].contiguous(), wm * sm[None, :], wsh * ssh[None, :], off, k=k,
-        )[0])
-    return torch.cat(out_c)[:n]
+    return lfa_kernels.attentive_pool2_residual(
+        rpe2, pooled, neighbors, block.pool2.score_kernel(), wp2, bp2, sp2, op2,
+        feats[None].contiguous(), wm * sm[None, :], wsh * ssh[None, :],
+        (sm * bm + om) + (ssh * bsh + osh),
+    )[0]
 
 
 def _forward_one(net: RandLANet, inputs: torch.Tensor, permutation: torch.Tensor,
@@ -218,10 +204,11 @@ def _forward_one(net: RandLANet, inputs: torch.Tensor, permutation: torch.Tensor
     skip_stack = []
     for i, n_out in enumerate(s.layer_sizes):
         block = getattr(net, f"encoder_{i}")
-        lfa = _lfa_fused_level if _fused_level_available(
-            s.n_neighbors, level_sizes[i], n_out // 2) else _lfa_chunked
-        out = lfa(block, xyz_levels[i], feats, s.n_neighbors, s.knn,
-                  min(chunk, level_sizes[i]))
+        if _fused_level_available(s.n_neighbors, level_sizes[i], n_out // 2):
+            out = _lfa_fused_level(block, xyz_levels[i], feats, s.n_neighbors, s.knn)
+        else:
+            out = _lfa_chunked(block, xyz_levels[i], feats, s.n_neighbors, s.knn,
+                               min(chunk, level_sizes[i]))
         skip_stack.append(out)
         feats = out[invs[i][orders[i + 1]]]
 
@@ -242,8 +229,8 @@ def _forward_one(net: RandLANet, inputs: torch.Tensor, permutation: torch.Tensor
 
 def forward_eval_large(net: RandLANet, inputs: torch.Tensor, permutation: torch.Tensor,
                        chunk: int = 65536) -> torch.Tensor:
-    """Eval forward (B, N, 3+F) -> logits (B, C, N), float32, each LFA's
-    neighbour pipeline streamed in ``chunk``-query pieces: the function of
+    """Eval forward (B, N, 3+F) -> logits (B, C, N), float32, each unfused
+    LFA's neighbour pipeline streamed in ``chunk``-query pieces: the function of
     ``net(inputs, permutation)`` in eval mode, in float32 whatever the
     model's ``compute_dtype``. Clouds run one at a time (eval BatchNorm
     reads running statistics, so they are independent)."""

@@ -341,8 +341,9 @@ class LocalFeatureAggregation(nn.Module):
     With a ``backend`` (``parallel/sp_model.SPBackend``), ``xyz`` and
     ``features`` are this rank's blocks of point-sharded tensors: the
     self-KNN and the first neighbour gather are one ring pass, the second
-    gather another, and the block runs unfused (the eval kernels take a
-    whole level's neighbour rows), as the JAX block does."""
+    gather another, and the block runs unfused (the eval kernels read
+    neighbour rows by index from a whole level's table), as the JAX block
+    does."""
 
     def __init__(self, n_in: int, n_out: int, n_neighbors: int, knn_approach: str,
                  dtype: torch.dtype = torch.float32):
@@ -379,7 +380,8 @@ class LocalFeatureAggregation(nn.Module):
             table = table.to(torch.bfloat16)
         if backend is None:
             neighbors, d2 = knn_presorted(xyz, xyz, self.n_neighbors, self.knn_approach)
-            gathered = gather_neighbors(table, neighbors)  # (B, N, K, 2·half)
+            if not fused:  # the kernels read the neighbour rows by index
+                gathered = gather_neighbors(table, neighbors)  # (B, N, K, 2·half)
         else:
             neighbors, d2, gathered = backend.knn_gather(xyz, xyz, table, self.n_neighbors)
         if fused:
@@ -389,11 +391,10 @@ class LocalFeatureAggregation(nn.Module):
             w2, b2 = self.mlp_rpe2.dense_wb()
             s2, o2 = self.mlp_rpe2.batch_norm.eval_affine()
             pooled1, rpe2 = lfa_kernels.lfa_round1(
-                gathered, d2, self.mlp_rpe1.center_projection(xyz),
+                table, neighbors, d2, self.mlp_rpe1.center_projection(xyz),
                 self.mlp_rpe1.conv.kernel[9], self.mlp_rpe1.conv.bias, s1, o1,
                 self.pool1.score_kernel(), wp1, bp1, sp1, op1, w2, b2, s2, o2,
             )
-            g2 = gather_neighbors(pooled1, neighbors)
             wp2, bp2 = self.pool2.mlp.dense_wb()
             sp2, op2 = self.pool2.mlp.batch_norm.eval_affine()
             wm, bm = self.mlp2.dense_wb()
@@ -401,9 +402,9 @@ class LocalFeatureAggregation(nn.Module):
             wsh, bsh = self.shortcut.dense_wb()
             ssh, osh = self.shortcut.batch_norm.eval_affine()
             return lfa_kernels.attentive_pool2_residual(
-                rpe2, g2, self.pool2.score_kernel(), wp2, bp2, sp2, op2,
+                rpe2, pooled1, neighbors, self.pool2.score_kernel(), wp2, bp2, sp2, op2,
                 features.contiguous(), wm * sm[None, :], wsh * ssh[None, :],
-                (sm * bm + om) + (ssh * bsh + osh), k=self.n_neighbors,
+                (sm * bm + om) + (ssh * bsh + osh),
             )
         distances = torch.sqrt(d2)
         rpe = self.mlp_rpe1(xyz, gathered[..., :half], distances)

@@ -189,17 +189,17 @@ _SIGNATURES = {
     "r3d_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (query, support, starts, idx_out, d2_out, B, M, N, w, qb, k, stream)
     "r3d_knn_window": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (gathered, d2, center, consts, pooled_out, rpe2_out, rows, K, h, stream)
-    "r3d_lfa_round1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (rpe2, g2, f_in, consts, out, rows, K, h, F, stream)
-    "r3d_lfa_pool2_res": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (rpe2, g2, consts, out, rows, K, h, stream)
-    "r3d_lfa_pool2": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (table, nbr, d2, center, consts, pooled_out, rpe2_out, rows, K, h, n, s, stream)
+    "r3d_lfa_round1": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (rpe2, table, nbr, f_in, consts, out, rows, K, h, F, n, s, stream)
+    "r3d_lfa_pool2_res": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (rpe2, table, nbr, consts, out, rows, K, h, n, s, stream)
+    "r3d_lfa_pool2": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # the bfloat16 forms of the three LFA kernels: the same arguments, the
-    # rows (gathered, pooled, rpe2, g2, f_in, out) bfloat16
-    "r3d_lfa_round1_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "r3d_lfa_pool2_res_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "r3d_lfa_pool2_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rows (table, pooled, rpe2, f_in, out) bfloat16
+    "r3d_lfa_round1_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "r3d_lfa_pool2_res_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "r3d_lfa_pool2_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (x, out, rows, ts, stages, stream)
     "r3d_roll_stages": [_P, _P, _I, _I, _I, _P],
     # (priority, scratch, order_out, B, N, n_out, cluster, staged, keys_shared, stream)

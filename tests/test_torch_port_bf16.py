@@ -106,7 +106,8 @@ def _pos(rng, *shape):
 def test_round1_bf16_plain_matches_pallas_kernel(h, n):
     rng = np.random.RandomState(h)
     k, c2 = 32, 2 * h
-    gathered, gathered_j = _bf16(_rand(rng, 1, n, k, c2, scale=0.5))
+    table, table_j = _bf16(_rand(rng, 1, n, c2, scale=0.5))
+    nb = _neighbors(rng, n, k)
     rest = [
         rng.uniform(0, 0.01, (1, n, k)).astype(np.float32),  # d2
         _rand(rng, 1, n, h),                                 # center term
@@ -119,42 +120,56 @@ def test_round1_bf16_plain_matches_pallas_kernel(h, n):
         _pos(rng, h), _rand(rng, h),                         # s2, o2
     ]
     fused = jax.jit(lambda *a: lfa_pallas.lfa_round1_fused(*a, interpret=True))
-    pooled_j, rpe2_j = fused(gathered_j, *[jnp.asarray(a) for a in rest])
-    pooled, rpe2 = lfa_kernels.lfa_round1(gathered, *[torch.from_numpy(a) for a in rest])
+    pooled_j, rpe2_j = fused(table_j[0][nb], *[jnp.asarray(a) for a in rest])
+    pooled, rpe2 = lfa_kernels.lfa_round1(table, torch.from_numpy(nb),
+                                          *[torch.from_numpy(a) for a in rest])
     _assert_bf16_close(pooled, _jax_f32(pooled_j), (1, n, h))
     _assert_bf16_close(rpe2.reshape(1, n, k, h), _jax_f32(rpe2_j).reshape(1, n, k, h),
                        (1, n, k, h))
 
 
+def _neighbors(rng, n, k):
+    """(1, n, k) int32 indices into n rows: drawn with repeats, rows 0 and
+    n - 1 among them."""
+    nb = rng.randint(0, n, (1, n, k)).astype(np.int32)
+    nb[..., 0], nb[..., -1] = 0, n - 1
+    return nb
+
+
 def _pool2_args(h, f, n, seed):
+    """(rpe2, the pooled table, its neighbour indices, head, f_in, tail),
+    the bfloat16 ones as (torch, jax) pairs; JAX's wrappers take the
+    table's rows gathered at the indices."""
     rng = np.random.RandomState(seed)
     k, c2 = 32, 2 * h
     rpe2 = _bf16(np.abs(_rand(rng, 1, n, k * h, scale=0.5)))  # post-relu
-    g2 = _bf16(np.abs(_rand(rng, 1, n, k, h, scale=0.5)))
+    table = _bf16(np.abs(_rand(rng, 1, n, h, scale=0.5)))
+    nb = _neighbors(rng, n, k)
     head = [_rand(rng, c2, c2), _rand(rng, c2, c2), _rand(rng, c2), _pos(rng, c2), _rand(rng, c2)]
     f_in = _bf16(_rand(rng, 1, n, f, scale=1.0))
     tail = [_rand(rng, c2, 4 * h), _rand(rng, f, 4 * h), _rand(rng, 4 * h)]
-    return rpe2, g2, head, f_in, tail
+    return rpe2, table, nb, head, f_in, tail
 
 
 @pytest.mark.parametrize("h,f,n", [(8, 8, 300), (32, 32, 200)])
 def test_pool2_residual_bf16_plain_matches_pallas_kernel(h, f, n):
-    (r, r_j), (g, g_j), head, (f_in, f_j), tail = _pool2_args(h, f, n, h + f)
+    (r, r_j), (g, g_j), nb, head, (f_in, f_j), tail = _pool2_args(h, f, n, h + f)
     fused = jax.jit(lambda *a: lfa_pallas.attentive_pool2_residual_fused(*a, k=32,
                                                                         interpret=True))
-    ref = fused(r_j, g_j, *map(jnp.asarray, head), f_j, *map(jnp.asarray, tail))
+    ref = fused(r_j, g_j[0][nb], *map(jnp.asarray, head), f_j, *map(jnp.asarray, tail))
     out = lfa_kernels.attentive_pool2_residual(
-        r, g, *map(torch.from_numpy, head), f_in, *map(torch.from_numpy, tail), k=32
+        r, g, torch.from_numpy(nb), *map(torch.from_numpy, head), f_in,
+        *map(torch.from_numpy, tail),
     )
     _assert_bf16_close(out, _jax_f32(ref), (1, n, 4 * h))
 
 
 @pytest.mark.parametrize("h,n", [(8, 300), (32, 200)])
 def test_pool2_bf16_plain_matches_pallas_kernel(h, n):
-    (r, r_j), (g, g_j), head, _, _ = _pool2_args(h, 8, n, h + 1)
+    (r, r_j), (g, g_j), nb, head, _, _ = _pool2_args(h, 8, n, h + 1)
     fused = jax.jit(lambda *a: lfa_pallas.attentive_pool2_fused(*a, k=32, interpret=True))
-    ref = fused(r_j, g_j, *map(jnp.asarray, head))
-    out = lfa_kernels.attentive_pool2(r, g, *map(torch.from_numpy, head), k=32)
+    ref = fused(r_j, g_j[0][nb], *map(jnp.asarray, head))
+    out = lfa_kernels.attentive_pool2(r, g, torch.from_numpy(nb), *map(torch.from_numpy, head))
     _assert_bf16_close(out, _jax_f32(ref), (1, n, 2 * h))
 
 

@@ -10,7 +10,9 @@ support points, by a launch of their own above) and supports past 300,000
 points, whose boxes a block's shared memory could not hold (against the
 streaming kernel, on clustered clouds with duplicates and batches), the
 round-1 kernel on
-ragged row tiles at every neighbour count it takes, the window kernel on
+ragged row tiles at every neighbour count it takes, the LFA kernels' reads
+of neighbour rows by index (against the gathered rows, bit for bit; batches
+of up to 8 clouds; int64 or misshapen indices refused), the window kernel on
 Morton-sorted clouds at every window of the recall guard's ladder, the
 pool-2 kernels on ragged row tiles and other neighbour counts, the bfloat16
 forms of the three LFA kernels (on the tensor cores) on row counts that fill
@@ -50,7 +52,7 @@ from recognizer3d_tpu_torch.data import pipeline
 from recognizer3d_tpu_torch.models.live import LivePredictor
 from recognizer3d_tpu_torch.ops import (_build, bitonic_kernels, knn_kernels, lfa_kernels,
                                         morton, select_kernels)
-from recognizer3d_tpu_torch.ops.knn import window_starts
+from recognizer3d_tpu_torch.ops.knn import gather_neighbors, window_starts
 
 ARCHIVE = Path(__file__).resolve().parents[1] / "pretrained" / "mock_fingertip"
 
@@ -298,12 +300,24 @@ def _rand(rng, dev, *shape, scale=0.3, low=None):
     return torch.tensor(x, dtype=torch.float32, device=dev)
 
 
+def _neighbors(rng, dev, b, n, k):
+    """(b, n, k) int32 indices into each cloud's n rows: most near the
+    row's own (as the Morton-sorted KNN's), some anywhere in the cloud,
+    with repeats, and rows 0 and n - 1 among every row's."""
+    near = np.arange(n)[None, :, None] + rng.randint(-40, 41, (b, n, k))
+    far = rng.randint(0, n, (b, n, k))
+    nb = np.clip(np.where(rng.rand(b, n, k) < 0.8, near, far), 0, n - 1)
+    nb[..., 0], nb[..., -1] = 0, n - 1
+    return torch.tensor(nb, dtype=torch.int32, device=dev)
+
+
 def _round1_args(rng, dev, b, n, h, k):
-    """lfa_round1's arguments: gathered, d2, center_term, then the weights."""
+    """lfa_round1's arguments: the table, the neighbour indices, d2,
+    center_term, then the weights."""
     c2 = 2 * h
     return [
-        _rand(rng, dev, b, n, k, c2, scale=0.5), _rand(rng, dev, b, n, k, low=0.0) * 0.01,
-        _rand(rng, dev, b, n, h),
+        _rand(rng, dev, b, n, c2, scale=0.5), _neighbors(rng, dev, b, n, k),
+        _rand(rng, dev, b, n, k, low=0.0) * 0.01, _rand(rng, dev, b, n, h),
         _rand(rng, dev, h), _rand(rng, dev, h), _rand(rng, dev, h, low=0.5), _rand(rng, dev, h),
         _rand(rng, dev, c2, c2), _rand(rng, dev, c2, h), _rand(rng, dev, h),
         _rand(rng, dev, h, low=0.5), _rand(rng, dev, h),
@@ -311,36 +325,86 @@ def _round1_args(rng, dev, b, n, h, k):
     ]
 
 
-@pytest.mark.parametrize("b,n,h,f", [(1, 2500, 8, 8), (2, 301, 32, 32), (1, 77, 8, 3)])
+def _pool2_args(rng, dev, h, f):
+    """attentive_pool2's head weights and the residual's tail (wm, wsh, off)."""
+    c2 = 2 * h
+    head = [
+        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
+        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
+    ]
+    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
+    return head, tail
+
+
+@pytest.mark.parametrize("b,n,h,f", [(1, 2500, 8, 8), (2, 301, 32, 32), (1, 77, 8, 3),
+                                     (8, 1001, 8, 8), (8, 77, 32, 32)])
 def test_lfa_kernels_match_plain(dev, b, n, h, f):
     """Both fused LFA kernels against their plain versions within 1e-5: the
-    same float32 maths, summed in another order."""
+    same float32 maths, summed in another order; batches of 1 and 8 clouds,
+    each row's neighbours indices into its own cloud."""
     rng = np.random.RandomState(n)
-    k, c2 = 32, 2 * h
+    k = 32
     r1 = _round1_args(rng, dev, b, n, h, k)
+    nb = r1[1]
     pooled, rpe2 = lfa_kernels.lfa_round1(*r1)
     ref_p, ref_r = lfa_kernels.lfa_round1_plain(
-        *r1[:3], lfa_kernels.round1_constants(*r1[3:])
+        *r1[:4], lfa_kernels.round1_constants(*r1[4:])
     )
     torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(rpe2, ref_r, rtol=0, atol=1e-5)
 
-    g2 = _rand(rng, dev, b, n, k, h).abs()
-    p2 = [
-        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
-        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
-    ]
+    table = _rand(rng, dev, b, n, h).abs()
+    p2, tail = _pool2_args(rng, dev, h, f)
     f_in = _rand(rng, dev, b, n, f, scale=1.0)
-    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
-    out = lfa_kernels.attentive_pool2_residual(rpe2, g2, *p2, f_in, *tail, k=k)
+    out = lfa_kernels.attentive_pool2_residual(rpe2, table, nb, *p2, f_in, *tail)
     ref = lfa_kernels.attentive_pool2_residual_plain(
-        rpe2, g2, f_in, lfa_kernels.pool2_constants(*p2, *tail), k
+        rpe2, table, nb, f_in, lfa_kernels.pool2_constants(*p2, *tail)
     )
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
-    pooled2 = lfa_kernels.attentive_pool2(rpe2, g2, *p2, k=k)
-    ref2 = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*p2), k)
+    pooled2 = lfa_kernels.attentive_pool2(rpe2, table, nb, *p2)
+    ref2 = lfa_kernels.attentive_pool2_plain(rpe2, table, nb, lfa_kernels.pool2_constants(*p2))
     torch.testing.assert_close(pooled2, ref2, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "b,n,h,k,dtype",
+    [(b, n, h, k, dt) for b, n in ((1, 77), (8, 301), (1, 2500)) for h, k in ((8, 32), (32, 32))
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(3, 41, 8, 128, torch.float32), (3, 41, 8, 128, torch.bfloat16),
+       (2, 17, 32, 8, torch.float32), (2, 17, 32, 8, torch.bfloat16)],
+)
+def test_lfa_kernels_on_indices_equal_the_gathered_rows(dev, b, n, h, k, dtype):
+    """The kernels' index reads against the rows ``gather_neighbors``
+    gathers: B2, B3 and B5 on (table, indices) equal, bit for bit, the same
+    kernels on the gathered rows laid out as a table of N·K rows a cloud
+    read in order (indices 0, 1, 2, ...: the layout the kernels streamed
+    before they read by index); the same values reach the same tiles. Row
+    counts that fill no tile, batches of 1 to 8, repeated indices and rows
+    0 and n - 1; both forms."""
+    rng = np.random.RandomState(b * n + h + k)
+    f = 8
+    r1 = _round1_args(rng, dev, b, n, h, k)
+    r1[0] = r1[0].to(dtype)
+    table, nb = r1[:2]
+    flat_nb = torch.arange(n * k, dtype=torch.int32, device=dev).view(1, n, k).expand(b, n, k)
+    flat_nb = flat_nb.contiguous()
+
+    def flat(t, idx):  # the gathered rows as a table of N·K rows a cloud
+        return gather_neighbors(t, idx).reshape(b, n * k, t.shape[-1]).contiguous()
+
+    pooled, rpe2 = lfa_kernels.lfa_round1(*r1)
+    pooled_g, rpe2_g = lfa_kernels.lfa_round1(flat(table, nb), flat_nb, *r1[2:])
+    assert torch.equal(pooled, pooled_g) and torch.equal(rpe2, rpe2_g)
+
+    head, tail = _pool2_args(rng, dev, h, f)
+    f_in = _rand(rng, dev, b, n, f, scale=1.0).to(dtype)
+    g = flat(pooled, nb)
+    out = lfa_kernels.attentive_pool2_residual(rpe2, pooled, nb, *head, f_in, *tail)
+    out_g = lfa_kernels.attentive_pool2_residual(rpe2, g, flat_nb, *head, f_in, *tail)
+    assert torch.equal(out, out_g)
+    out2 = lfa_kernels.attentive_pool2(rpe2, pooled, nb, *head)
+    assert torch.equal(out2, lfa_kernels.attentive_pool2(rpe2, g, flat_nb, *head))
 
 
 @pytest.mark.parametrize(
@@ -360,7 +424,7 @@ def test_round1_kernel_on_ragged_tiles(dev, n, h, k):
     pooled, rpe2 = lfa_kernels.lfa_round1(*args)
     assert _build.LAUNCHES == {"lfa_round1": 1}
     ref_p, ref_r = lfa_kernels.lfa_round1_plain(
-        *args[:3], lfa_kernels.round1_constants(*args[3:])
+        *args[:4], lfa_kernels.round1_constants(*args[4:])
     )
     torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(rpe2, ref_r, rtol=0, atol=1e-5)
@@ -376,23 +440,19 @@ def test_pool2_kernels_on_ragged_tiles(dev, n, h, f, k):
     are no multiple of the kernel's row tile (8 rows at h = 32, 16 at
     h = 8), and at K of one softmax chunk (8, 16) and of several (128)."""
     rng = np.random.RandomState(n + h + f + k)
-    c2 = 2 * h
     rpe2 = _rand(rng, dev, 1, n, k * h).abs()
-    g2 = _rand(rng, dev, 1, n, k, h).abs()
-    head = [
-        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
-        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
-    ]
+    table = _rand(rng, dev, 1, n, h).abs()
+    nb = _neighbors(rng, dev, 1, n, k)
+    head, tail = _pool2_args(rng, dev, h, f)
     f_in = _rand(rng, dev, 1, n, f, scale=1.0)
-    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
     _build.reset_launches()
-    out = lfa_kernels.attentive_pool2_residual(rpe2, g2, *head, f_in, *tail, k=k)
-    pooled = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+    out = lfa_kernels.attentive_pool2_residual(rpe2, table, nb, *head, f_in, *tail)
+    pooled = lfa_kernels.attentive_pool2(rpe2, table, nb, *head)
     assert _build.LAUNCHES == {"lfa_pool2_res": 1, "lfa_pool2": 1}
     ref = lfa_kernels.attentive_pool2_residual_plain(
-        rpe2, g2, f_in, lfa_kernels.pool2_constants(*head, *tail), k
+        rpe2, table, nb, f_in, lfa_kernels.pool2_constants(*head, *tail)
     )
-    ref_p = lfa_kernels.attentive_pool2_plain(rpe2, g2, lfa_kernels.pool2_constants(*head), k)
+    ref_p = lfa_kernels.attentive_pool2_plain(rpe2, table, nb, lfa_kernels.pool2_constants(*head))
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(pooled, ref_p, rtol=0, atol=1e-5)
 
@@ -412,7 +472,7 @@ def _assert_bf16_close(got, ref):
 
 @pytest.mark.parametrize(
     "b,n,h,k,f",
-    [(b, n, h, k, f) for b, n in ((1, 1), (1, 77), (3, 301), (1, 16387))
+    [(b, n, h, k, f) for b, n in ((1, 1), (1, 77), (3, 301), (1, 16387), (8, 301))
      for h, k, f in ((8, 32, 8), (32, 32, 32))]
     + [(1, 77, 8, 8, 8), (2, 300, 8, 16, 6), (1, 77, 8, 64, 8), (1, 41, 8, 128, 8),
        (1, 40, 32, 8, 8), (3, 77, 32, 16, 32)]
@@ -426,40 +486,36 @@ def _assert_bf16_close(got, ref):
 def test_bf16_lfa_kernels_match_plain(dev, b, n, h, k, f):
     """The bfloat16 forms of B2, B3 and B5 against their plain versions:
     row counts that are no multiple of a warp's tile (8 rows for pool 2 with
-    the residual) or of a block's warps, batches, h = 8 and 32, K of one
-    softmax chunk (8, 16, 32) and of several (64, 128, where the scores are
-    computed again against the final maximum), F of one padded k-step (6,
-    8) and of two (32). Each form is launched once, under its own launch
-    count."""
+    the residual) or of a block's warps, batches (1 to 8 clouds, indices
+    into each row's own), h = 8 and 32, K of one softmax chunk (8, 16, 32)
+    and of several (64, 128, where the scores are computed again against
+    the final maximum), F of one padded k-step (6, 8) and of two (32). Each
+    form is launched once, under its own launch count."""
     rng = np.random.RandomState(b + n + h + k + f)
-    c2 = 2 * h
     r1 = _round1_args(rng, dev, b, n, h, k)
     r1[0] = r1[0].to(torch.bfloat16)
-    head = [
-        _rand(rng, dev, c2, c2), _rand(rng, dev, c2, c2), _rand(rng, dev, c2),
-        _rand(rng, dev, c2, low=0.5), _rand(rng, dev, c2),
-    ]
-    g2 = _rand(rng, dev, b, n, k, h).abs().to(torch.bfloat16)
+    nb = r1[1]
+    head, tail = _pool2_args(rng, dev, h, f)
+    table = _rand(rng, dev, b, n, h).abs().to(torch.bfloat16)
     f_in = _rand(rng, dev, b, n, f, scale=1.0).to(torch.bfloat16)
-    tail = [_rand(rng, dev, c2, 4 * h), _rand(rng, dev, f, 4 * h), _rand(rng, dev, 4 * h)]
     _build.reset_launches()
     pooled, rpe2 = lfa_kernels.lfa_round1(*r1)
-    out = lfa_kernels.attentive_pool2_residual(rpe2, g2, *head, f_in, *tail, k=k)
-    out2 = lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+    out = lfa_kernels.attentive_pool2_residual(rpe2, table, nb, *head, f_in, *tail)
+    out2 = lfa_kernels.attentive_pool2(rpe2, table, nb, *head)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"lfa_round1_bf16": 1, "lfa_pool2_res_bf16": 1, "lfa_pool2_bf16": 1}
     bf16 = torch.bfloat16
     ref_p, ref_r = lfa_kernels.lfa_round1_plain(
-        *r1[:3], lfa_kernels.round1_constants(*r1[3:], dtype=bf16)
+        *r1[:4], lfa_kernels.round1_constants(*r1[4:], dtype=bf16)
     )
     _assert_bf16_close(pooled, ref_p)
     _assert_bf16_close(rpe2.reshape(b, n, k, h), ref_r.reshape(b, n, k, h))
     ref = lfa_kernels.attentive_pool2_residual_plain(
-        rpe2, g2, f_in, lfa_kernels.pool2_constants(*head, *tail, dtype=bf16), k
+        rpe2, table, nb, f_in, lfa_kernels.pool2_constants(*head, *tail, dtype=bf16)
     )
     _assert_bf16_close(out, ref)
     ref2 = lfa_kernels.attentive_pool2_plain(
-        rpe2, g2, lfa_kernels.pool2_constants(*head, dtype=bf16), k
+        rpe2, table, nb, lfa_kernels.pool2_constants(*head, dtype=bf16)
     )
     _assert_bf16_close(out2, ref2)
 
@@ -471,53 +527,74 @@ def test_bf16_lfa_wrappers_refuse_mixed_dtypes(dev):
     h, k, n = 8, 32, 40
     r1 = _round1_args(rng, dev, 1, n, h, k)
     r1[0] = r1[0].to(torch.bfloat16)
-    head = [_rand(rng, dev, 2 * h, 2 * h), _rand(rng, dev, 2 * h, 2 * h),
-            _rand(rng, dev, 2 * h), _rand(rng, dev, 2 * h, low=0.5), _rand(rng, dev, 2 * h)]
+    head, _ = _pool2_args(rng, dev, h, 8)
     rpe2 = _rand(rng, dev, 1, n, k * h).to(torch.bfloat16)
-    g2 = _rand(rng, dev, 1, n, k, h)
+    table, nb = _rand(rng, dev, 1, n, h), r1[1]
     tail3 = [_rand(rng, dev, 2 * h, 4 * h), _rand(rng, dev, 3, 4 * h), _rand(rng, dev, 4 * h)]
     _build.reset_launches()
     with pytest.raises(TypeError, match="d2: dtype"):
-        lfa_kernels.lfa_round1(r1[0], r1[1].to(torch.bfloat16), *r1[2:])
-    with pytest.raises(TypeError, match="g2: dtype"):
-        lfa_kernels.attentive_pool2(rpe2, g2, *head, k=k)
+        lfa_kernels.lfa_round1(*r1[:2], r1[2].to(torch.bfloat16), *r1[3:])
+    with pytest.raises(TypeError, match="table: dtype"):
+        lfa_kernels.attentive_pool2(rpe2, table, nb, *head)
     with pytest.raises(ValueError, match="even"):
         lfa_kernels.attentive_pool2_residual(
-            rpe2, g2.to(torch.bfloat16), *head,
-            _rand(rng, dev, 1, n, 3).to(torch.bfloat16), *tail3, k=k,
+            rpe2, table.to(torch.bfloat16), nb, *head,
+            _rand(rng, dev, 1, n, 3).to(torch.bfloat16), *tail3,
         )
     assert not _build.LAUNCHES
 
 
 def _misaligned(t):
     """The same values at an address 4 bytes past a 16-byte boundary."""
-    flat = torch.empty(t.numel() + 1, device=t.device)
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
     flat[1:] = t.reshape(-1)
     out = flat[1:].view(t.shape)
-    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    assert out.data_ptr() % 16 == t.element_size() and out.is_contiguous()
     return out
 
 
 def test_lfa_wrappers_refuse_misaligned_rows(dev):
-    """The three LFA kernels copy gathered rows 16 bytes at a time; their
-    wrappers refuse rows that do not start on a 16-byte boundary, and
+    """The three LFA kernels copy rows 16 bytes at a time: their wrappers
+    refuse a table or rpe2 that does not start on a 16-byte boundary, and
     launch nothing."""
     rng = np.random.RandomState(5)
     h, k, n = 8, 32, 40
     r1 = _round1_args(rng, dev, 1, n, h, k)
-    rpe2, g2 = _rand(rng, dev, 1, n, k * h), _rand(rng, dev, 1, n, k, h)
-    head = [_rand(rng, dev, 2 * h, 2 * h), _rand(rng, dev, 2 * h, 2 * h),
-            _rand(rng, dev, 2 * h), _rand(rng, dev, 2 * h, low=0.5), _rand(rng, dev, 2 * h)]
+    rpe2, table, nb = _rand(rng, dev, 1, n, k * h), _rand(rng, dev, 1, n, h), r1[1]
+    head, tail = _pool2_args(rng, dev, h, 8)
     f_in = _rand(rng, dev, 1, n, 8)
-    tail = [_rand(rng, dev, 2 * h, 4 * h), _rand(rng, dev, 8, 4 * h), _rand(rng, dev, 4 * h)]
     _build.reset_launches()
-    with pytest.raises(ValueError, match="gathered: data not 16-byte aligned"):
+    with pytest.raises(ValueError, match="table: data not 16-byte aligned"):
         lfa_kernels.lfa_round1(_misaligned(r1[0]), *r1[1:])
-    for bad_rpe2, bad_g2, name in ((_misaligned(rpe2), g2, "rpe2"), (rpe2, _misaligned(g2), "g2")):
+    for bad_rpe2, bad_table, name in ((_misaligned(rpe2), table, "rpe2"),
+                                      (rpe2, _misaligned(table), "table")):
         with pytest.raises(ValueError, match=f"{name}: data not 16-byte aligned"):
-            lfa_kernels.attentive_pool2(bad_rpe2, bad_g2, *head, k=k)
+            lfa_kernels.attentive_pool2(bad_rpe2, bad_table, nb, *head)
         with pytest.raises(ValueError, match=f"{name}: data not 16-byte aligned"):
-            lfa_kernels.attentive_pool2_residual(bad_rpe2, bad_g2, *head, f_in, *tail, k=k)
+            lfa_kernels.attentive_pool2_residual(bad_rpe2, bad_table, nb, *head, f_in, *tail)
+    assert not _build.LAUNCHES
+
+
+def test_lfa_wrappers_refuse_bad_neighbors(dev):
+    """The kernels read int32 indices, one (B, N, K) row a query row: the
+    wrappers refuse int64 indices and indices whose shape does not match
+    d2's (round 1) or rpe2's (pool 2), and launch nothing."""
+    rng = np.random.RandomState(6)
+    h, k, n = 8, 32, 40
+    r1 = _round1_args(rng, dev, 1, n, h, k)
+    nb = r1[1]
+    rpe2, table = _rand(rng, dev, 1, n, k * h), _rand(rng, dev, 1, n, h)
+    head, tail = _pool2_args(rng, dev, h, 8)
+    f_in = _rand(rng, dev, 1, n, 8)
+    _build.reset_launches()
+    with pytest.raises(TypeError, match="neighbors: dtype"):
+        lfa_kernels.lfa_round1(r1[0], nb.long(), *r1[2:])
+    with pytest.raises(TypeError, match="neighbors: dtype"):
+        lfa_kernels.attentive_pool2_residual(rpe2, table, nb.long(), *head, f_in, *tail)
+    with pytest.raises(ValueError, match="d2: shape"):
+        lfa_kernels.lfa_round1(r1[0], nb[:, :-1].contiguous(), *r1[2:])
+    with pytest.raises(ValueError, match="rpe2: shape"):
+        lfa_kernels.attentive_pool2(rpe2, table, nb[:, 1:].contiguous(), *head)
     assert not _build.LAUNCHES
 
 

@@ -111,8 +111,9 @@ def test_chunked_forward_matches_the_in_model_forward(small, chunk):
 
 def test_fused_levels_match_jax(monkeypatch):
     """At test_large.py's TestFusedLevels config both encoder levels (half 8
-    and 32, K = 16) run the LFA kernels' plain versions on each chunk, and
-    JAX's fused levels their Pallas kernels in interpret mode; within 1e-5."""
+    and 32, K = 16) run the LFA kernels' plain versions once over the whole
+    level (no chunks), and JAX's fused levels their Pallas kernels in
+    interpret mode on chunks of 128; within 1e-5."""
     settings, variables, net, inputs, perm = _setup(FUSED, 1, 1)
     monkeypatch.setattr(jax_rl, "FORCE_FUSED_LFA_INTERPRET", True)
     ref = _jax_large(settings, variables, inputs, perm, 128)
@@ -144,7 +145,8 @@ def test_approximate_fused_level_matches_jax_sliced_gathers(monkeypatch):
     """JAX's fused level gathers each chunk's rows from a slice of the table
     when the self-KNN ran through the Morton window (test_large.py's
     TestSlicedGathers sizes: a 16,384-point gaussian level, K = 16, chunk
-    2,048, window 4,096); the port gathers from the whole table. Both sides
+    2,048, window 4,096); the port's kernels read the rows from the whole
+    table by index, the whole level at once. Both sides
     get the same neighbours, the port's window search (the same windows as
     JAX's, so every index lies in the slice JAX gathers from), and agree
     within 1e-5."""
@@ -166,8 +168,7 @@ def test_approximate_fused_level_matches_jax_sliced_gathers(monkeypatch):
         p, s, a, f, 16, "approximate", 2048))(jnp.asarray(xyz), jnp.asarray(feats)))
     with torch.inference_mode():
         got = port_large._lfa_fused_level(net.encoder_0, torch.from_numpy(xyz),
-                                          torch.from_numpy(feats), 16, "approximate",
-                                          2048).numpy()
+                                          torch.from_numpy(feats), 16, "approximate").numpy()
     assert got.shape == ref.shape == (n, 32)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
